@@ -1,0 +1,21 @@
+"""flowonthego_tpu_torch — the DIS dense optical-flow engine in PyTorch.
+
+A port of ``flowonthego_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100:
+the same module names and tensor layouts, plain PyTorch for tensor code,
+and hand-written CUDA kernels (``csrc/``, built with ``nvcc`` for
+``sm_90a`` at first use) in place of the TPU package's Pallas kernels.
+A CUDA tensor goes through the kernels; a CPU tensor through their plain
+PyTorch versions.  This package never imports JAX.
+"""
+
+from .config import DISConfig, auto_coarsest_scale, operating_point, pad_to_divisible
+from .io import read_flo, write_flo
+from .models.dis_flow import DISFlow, compute_flow, dis_flow_padded
+from .parallel.frame_parallel import stream_flow
+from .utils.metrics import average_epe, endpoint_error
+
+__all__ = [
+    "DISConfig", "operating_point", "auto_coarsest_scale", "pad_to_divisible",
+    "DISFlow", "compute_flow", "dis_flow_padded", "stream_flow",
+    "read_flo", "write_flo", "average_epe", "endpoint_error",
+]

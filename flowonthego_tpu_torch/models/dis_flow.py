@@ -1,0 +1,172 @@
+"""DIS optical flow: the coarse-to-fine orchestrator (port of
+``flowonthego_tpu/models/dis_flow.py``).
+
+    pad to 2^coarsest divisibility -> image+gradient pyramids ->
+    per scale (coarse to fine):
+        extract templates+Hessians -> warm start from the coarser flow ->
+        inverse-search optimize (K2) -> densify -> variational refinement (K3)
+    -> upsample the finest flow to input resolution -> crop the padding.
+
+PyTorch runs eagerly, so there is no jitted variant: every function here
+runs on the device its input tensors lie on.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import DISConfig, operating_point, pad_to_divisible, pool_backend
+from ..ops import densify as densify_mod
+from ..ops import dis as dis_mod
+from ..ops import variational as var_mod
+from ..ops.patches import PatchGrid, extract_templates_and_hessians
+from ..ops.pyramid import build_pyramid, pad_replicate
+from ..ops.resize import resize_matmul
+
+
+def pin_fp32() -> None:
+    """Keep every float32 matmul and convolution in full float32 on the
+    card (cuDNN convolutions default to TF32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def dis_flow_padded(I0: torch.Tensor, I1: torch.Tensor, cfg: DISConfig,
+                    init_flow: Optional[torch.Tensor] = None,
+                    level_offset: int = 0) -> torch.Tensor:
+    """DIS on divisibility-padded images I0, I1 [H, W, C] float32 (H, W
+    divisible by 2**coarsest_scale).
+
+    init_flow: optional warm start [H/2^(cs+1), W/2^(cs+1), 2].
+    level_offset shifts the level index that sets the variational
+    inner-iteration count (inner_iter = level + 1).
+    Returns flow [H/2^fs, W/2^fs, 2] at the finest processed scale.
+    """
+    pin_fp32()
+    H, W = I0.shape[0], I0.shape[1]
+    div = 2 ** cfg.coarsest_scale
+    if H % div or W % div:
+        raise ValueError(f"image {H}x{W} not divisible by 2^{cfg.coarsest_scale}")
+    n_levels = cfg.coarsest_scale + 1
+    kw = dict(start_level=cfg.finest_scale, backend=pool_backend(cfg))
+    pyr0 = build_pyramid(I0, n_levels, cfg.padding, **kw)
+    pyr1 = build_pyramid(I1, n_levels, cfg.padding, **kw)
+    return dis_flow_from_pyramids(pyr0, pyr1, cfg, init_flow=init_flow,
+                                  level_offset=level_offset)
+
+
+def dis_flow_from_pyramids(pyr0, pyr1, cfg: DISConfig,
+                           init_flow: Optional[torch.Tensor] = None,
+                           level_offset: int = 0) -> torch.Tensor:
+    """DIS on prebuilt pyramids (see :func:`dis_flow_padded`); video
+    streaming builds each frame's pyramid once and uses it for two pairs."""
+    lvl_c = pyr0[cfg.coarsest_scale]
+    H = lvl_c.image.shape[0] - 2 * cfg.padding << cfg.coarsest_scale
+    W = lvl_c.image.shape[1] - 2 * cfg.padding << cfg.coarsest_scale
+
+    flow = None
+    for sl in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
+        w_sl, h_sl = W >> sl, H >> sl
+        grid = PatchGrid.create(cfg, w_sl, h_sl)
+        lvl0, lvl1 = pyr0[sl], pyr1[sl]
+
+        templates, gx, gy, Hs = extract_templates_and_hessians(
+            lvl0.image, lvl0.grad_x, lvl0.grad_y, grid, cfg)
+        state = dis_mod.init_state(templates, gx, gy, Hs, grid)
+        warm = flow if flow is not None else init_flow
+        if warm is not None:
+            state = dis_mod.init_from_coarser(state, warm, grid)
+        state = dis_mod.optimize(state, lvl1.image, grid, cfg)
+        flow = densify_mod.densify(state, grid, cfg)
+
+        if cfg.use_var_ref:
+            p = cfg.padding
+            im1 = lvl0.image[p:p + h_sl, p:p + w_sl, :]
+            im2 = lvl1.image[p:p + h_sl, p:p + w_sl, :]
+            flow = var_mod.variational_refine_auto(flow, im1, im2, cfg,
+                                                   sl + level_offset)
+    return flow
+
+
+def upsample_flow_to_full(flow: torch.Tensor, cfg: DISConfig,
+                          out_h: int, out_w: int) -> torch.Tensor:
+    """Finest-level flow x2^fs, bilinearly resized to full resolution."""
+    if cfg.finest_scale == 0:
+        return flow
+    return resize_matmul(flow * float(2 ** cfg.finest_scale), out_h, out_w)
+
+
+def validate_image_pair(I0, I1, what: str = "image") -> None:
+    """Fail fast with a clear error on a malformed input pair."""
+    s0, s1 = tuple(I0.shape), tuple(I1.shape)
+    if len(s0) != 3:
+        raise ValueError(
+            f"{what} must be [H, W, C] (3-dimensional), got shape {s0}")
+    if s0 != s1:
+        raise ValueError(
+            f"{what} pair shapes differ: {s0} vs {s1} — both frames must "
+            "share height, width, and channel count")
+    if s0[2] not in (1, 3):
+        raise ValueError(
+            f"{what} must have 1 (gray/gradmag) or 3 (RGB/BGR) channels, "
+            f"got {s0[2]}")
+    if s0[0] < 2 or s0[1] < 2:
+        raise ValueError(f"{what} too small: {s0[0]}x{s0[1]}")
+
+
+def as_image(x, device=None) -> torch.Tensor:
+    """A numpy array or tensor as a float32 tensor on ``device`` (default:
+    the tensor's own device, or the CPU for a numpy array)."""
+    if isinstance(x, torch.Tensor):
+        t = x if device is None else x.to(device)
+    else:
+        t = torch.as_tensor(np.asarray(x), device=device)
+    return t.float()
+
+
+def compute_flow(I0, I1, cfg: Optional[DISConfig] = None, op_point: int = 2,
+                 device=None) -> torch.Tensor:
+    """End-to-end dense flow [H, W, 2] at input resolution.
+
+    I0, I1: [H, W, C] images (numpy or tensors).  Pads to 2^coarsest
+    divisibility by edge replication, runs the pipeline on ``device``
+    (default: where the inputs lie; numpy inputs run on the CPU),
+    upsamples and crops back to [H, W, 2].
+    """
+    validate_image_pair(I0, I1)
+    I0 = as_image(I0, device)
+    I1 = as_image(I1, I0.device)
+    h, w = I0.shape[0], I0.shape[1]
+    if cfg is None:
+        cfg = operating_point(op_point, width=w)
+    pads = pad_to_divisible(w, h, cfg.coarsest_scale)
+    I0p = pad_replicate(I0, pads)
+    I1p = pad_replicate(I1, pads)
+    flow = dis_flow_padded(I0p, I1p, cfg)
+    flow = upsample_flow_to_full(flow, cfg, I0p.shape[0], I0p.shape[1])
+    pt, _, pl, _ = pads
+    return flow[pt:pt + h, pl:pl + w, :]
+
+
+class DISFlow:
+    """Object-style API: configure once, ``calc`` many pairs.  Holds only
+    the config and the device; every call is stateless."""
+
+    def __init__(self, cfg: Optional[DISConfig] = None, op_point: int = 2,
+                 device=None):
+        self.cfg = cfg
+        self.op_point = op_point
+        self.device = device
+
+    def config_for(self, width: int) -> DISConfig:
+        return self.cfg if self.cfg is not None else operating_point(
+            self.op_point, width=width)
+
+    def calc(self, I0, I1) -> np.ndarray:
+        """Flow for one frame pair as numpy [H, W, 2]."""
+        out = compute_flow(I0, I1, cfg=self.cfg, op_point=self.op_point,
+                           device=self.device)
+        return out.cpu().numpy()

@@ -1,0 +1,153 @@
+"""K2: one scale's whole Gauss-Newton patch solve (inverse search).
+
+Replaces ``flowonthego_tpu/ops/pallas/dis_gn.py`` (``gn_scale_loop``,
+kernel ``_kernel``) with ``csrc/dis_gn.cu``.  On the card the solve is
+bound by latency, not bytes or flops: an op-2 scale has 32-510 patches of
+ps*ps*C = 192 values and runs 12 dependent iterations, each a window
+load, three reductions and a 2x2 solve.  So the kernel runs one CTA per
+patch with one thread per template value, keeps the template and its
+gradients in registers, reads each iteration's (ps+1)^2*C window straight
+from the padded level image (L1/L2-resident), and reduces with warp
+shuffles.  The TPU kernel's envelopes, band pairs and radix shift selects
+worked around the lack of a gather on the TPU and are not carried over.
+
+:func:`gn_scale_loop` launches the kernel for CUDA tensors and runs
+:func:`gn_scale_loop_plain` (the JAX package's XLA reduction form,
+``flowonthego_tpu/ops/dis.py:429-466, 559-622``) for CPU tensors.
+
+Edge rules (as the TPU kernel): a patch that was never started (frozen at
+warm start) keeps p_cur and has cost 0; a patch that trips the outlier or
+bounds reset goes back to p_org, stops, and its final cost is sampled
+there, which is where iteration 1 sampled — the same cost.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from ..interp import blend_windows, gather_windows, sample_patches_bilinear
+
+# Kernel launches since the last reset (read and reset by chip_smoke.py).
+launches = 0
+
+
+def gn_scale_loop_plain(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org,
+                        p_cur, p_org, started, *, n_iters: int, padding: int,
+                        thresh: float, l_bound: float, ub_w: float,
+                        ub_h: float, mean_on: float):
+    """Plain PyTorch version of the scale solve.
+
+    I1_pad [Hp, Wp, C]; templates, tgrad_x, tgrad_y [n_h, n_w, ps, ps, C];
+    H [n_h, n_w, 3]; mid_org, p_cur, p_org [n_h, n_w, 2]; started
+    [n_h, n_w] bool.  Runs ``n_iters`` Gauss-Newton steps from p_cur
+    (projection from the linear reductions sum S, sum gx.S, sum gy.S,
+    outlier/bounds reset to p_org), then the per-pixel squared residual at
+    the final position.  Returns (p [n_h, n_w, 2], cost_px like
+    templates).
+    """
+    n_h, n_w, ps = templates.shape[:3]
+    N = templates[0, 0].numel()
+    gx_sum = tgrad_x.sum(dim=(2, 3, 4))
+    gy_sum = tgrad_y.sum(dim=(2, 3, 4))
+    gxT = (tgrad_x * templates).sum(dim=(2, 3, 4))
+    gyT = (tgrad_y * templates).sum(dim=(2, 3, 4))
+    h00, h01, h11 = H[..., 0], H[..., 1], H[..., 2]
+    det = h00 * h11 - h01 * h01
+    gxf = tgrad_x.reshape(n_h, n_w, N)
+    gyf = tgrad_y.reshape(n_h, n_w, N)
+
+    def gn_step(p, active):
+        mid = mid_org + p
+        win, rx, ry = gather_windows(I1_pad, mid[..., 0], mid[..., 1], ps,
+                                     padding)
+        S = blend_windows(win, rx, ry).reshape(n_h, n_w, N)
+        m = S.sum(-1) / N * mean_on
+        dpx = (S * gxf).sum(-1) - m * gx_sum - gxT
+        dpy = (S * gyf).sum(-1) - m * gy_sum - gyT
+        delta_px = (h11 * dpx - h01 * dpy) / det
+        delta_py = (h00 * dpy - h01 * dpx) / det
+        p_new = p - torch.stack([delta_px, delta_py], dim=-1)
+        mid_new = mid_org + p_new
+        disp = mid_new - mid_org
+        norm = torch.sqrt(disp[..., 0] ** 2 + disp[..., 1] ** 2)
+        outlier = ((norm > thresh)
+                   | (mid_new[..., 0] < l_bound) | (mid_new[..., 1] < l_bound)
+                   | (mid_new[..., 0] > ub_w) | (mid_new[..., 1] > ub_h))
+        p_new = torch.where(outlier[..., None], p_org, p_new)
+        p = torch.where(active[..., None], p_new, p)
+        return p, active & ~outlier
+
+    p, active = p_cur, started
+    for _ in range(n_iters):
+        p, active = gn_step(p, active)
+
+    mid = mid_org + p
+    raw = sample_patches_bilinear(I1_pad, mid[..., 0], mid[..., 1], ps,
+                                  padding)
+    if mean_on:
+        raw = raw - raw.mean(dim=(2, 3, 4), keepdim=True)
+    diff = raw - templates
+    cost_px = torch.where(started[..., None, None, None], diff * diff, 0.0)
+    return p, cost_px
+
+
+def _check(name, x, shape, dtype=torch.float32):
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"gn_scale_loop: {name} has shape {tuple(x.shape)}, "
+                         f"expected {tuple(shape)}")
+    if x.dtype != dtype:
+        raise TypeError(f"gn_scale_loop: {name} is {x.dtype}, expected {dtype}")
+
+
+def gn_scale_loop(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org, p_cur,
+                  p_org, started, *, n_iters: int, padding: int,
+                  thresh: float, l_bound: float, ub_w: float, ub_h: float,
+                  mean_on: float):
+    """The scale solve of :func:`gn_scale_loop_plain` — launches the
+    kernel for CUDA tensors, runs the plain version for CPU tensors."""
+    global launches
+    kw = dict(n_iters=n_iters, padding=padding, thresh=thresh,
+              l_bound=l_bound, ub_w=ub_w, ub_h=ub_h, mean_on=mean_on)
+    if not I1_pad.is_cuda:
+        return gn_scale_loop_plain(I1_pad, templates, tgrad_x, tgrad_y, H,
+                                   mid_org, p_cur, p_org, started, **kw)
+    n_h, n_w, ps, _, C = templates.shape
+    Hp, Wp = I1_pad.shape[0], I1_pad.shape[1]
+    P, N = n_h * n_w, ps * ps * C
+    _check("I1_pad", I1_pad, (Hp, Wp, C))
+    for name, x in (("templates", templates), ("tgrad_x", tgrad_x),
+                    ("tgrad_y", tgrad_y)):
+        _check(name, x, (n_h, n_w, ps, ps, C))
+    _check("H", H, (n_h, n_w, 3))
+    for name, x in (("mid_org", mid_org), ("p_cur", p_cur), ("p_org", p_org)):
+        _check(name, x, (n_h, n_w, 2))
+    _check("started", started, (n_h, n_w), torch.bool)
+    if N > 1024:
+        raise ValueError(f"gn_scale_loop: {N} values per patch exceed one "
+                         "CTA of 1024 threads")
+    if Hp < ps + 1 or Wp < ps + 1:
+        raise ValueError("gn_scale_loop: level image smaller than a window")
+    dev = I1_pad.device
+    for x in (templates, tgrad_x, tgrad_y, H, mid_org, p_cur, p_org, started):
+        if x.device != dev:
+            raise ValueError("gn_scale_loop: all tensors must be on "
+                             f"{dev}, got {x.device}")
+    args = [x.contiguous() for x in (I1_pad, templates, tgrad_x, tgrad_y, H,
+                                     mid_org, p_cur, p_org)]
+    st = started.to(torch.uint8).contiguous()
+    p_out = torch.empty((n_h, n_w, 2), dtype=torch.float32, device=dev)
+    cost = torch.empty((n_h, n_w, ps, ps, C), dtype=torch.float32, device=dev)
+    lib = _build.load_library()
+    I1c, tc, gxc, gyc, Hc, midc, pcc, poc = args
+    with torch.cuda.device(dev):
+        err = lib.fot_dis_gn(
+            I1c.data_ptr(), Hp, Wp, C, tc.data_ptr(), gxc.data_ptr(),
+            gyc.data_ptr(), Hc.data_ptr(), midc.data_ptr(), pcc.data_ptr(),
+            poc.data_ptr(), st.data_ptr(), P, ps, padding, n_iters,
+            float(thresh), float(l_bound), float(ub_w), float(ub_h),
+            float(mean_on), p_out.data_ptr(), cost.data_ptr(),
+            _build.stream_handle(I1c))
+    _build.check(err, "gn_scale_loop")
+    launches += 1
+    return p_out, cost

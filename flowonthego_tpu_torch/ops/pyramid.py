@@ -1,0 +1,115 @@
+"""Image and gradient pyramids (port of ``flowonthego_tpu/ops/pyramid.py``).
+
+Per level: downsample x0.5 (a 2x2 box average for even dims) ->
+central-difference gradients (kernel {1, 0, -1}, replicate border, no 1/2
+factor) -> replicate-pad the image and zero-pad the gradients by
+``padding`` on every side.  Images are ``[H, W, C]``.
+
+Every downsample runs on the flat ``[H, W*C]`` view through
+:func:`.cuda.pool.pool2x2_flat` — the K1 kernel for a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..config import use_kernel
+from .cuda.pool import pool2x2_flat, pool2x2_flat_plain
+
+
+class PyramidLevel(NamedTuple):
+    """One pyramid level, each tensor [H + 2p, W + 2p, C] (padded)."""
+    image: torch.Tensor      # replicate-padded image
+    grad_x: Optional[torch.Tensor]   # zero-padded d/dx
+    grad_y: Optional[torch.Tensor]   # zero-padded d/dy
+
+
+def _edge_index(n: int, lo: int, hi: int, device) -> torch.Tensor:
+    return torch.arange(-lo, n + hi, device=device).clamp_(0, n - 1)
+
+
+def pad_replicate(img: torch.Tensor, pad) -> torch.Tensor:
+    """Replicate-pad the spatial dims of [H, W, C]; ``pad`` is an int or
+    (top, bottom, left, right)."""
+    pt, pb, pl, pr = (pad,) * 4 if isinstance(pad, int) else pad
+    H, W = img.shape[0], img.shape[1]
+    rows = _edge_index(H, pt, pb, img.device)
+    cols = _edge_index(W, pl, pr, img.device)
+    return img.index_select(0, rows).index_select(1, cols)
+
+
+def pad_constant(img: torch.Tensor, pad: int, value: float = 0.0) -> torch.Tensor:
+    """Constant-pad the spatial dims of [H, W, C]."""
+    return F.pad(img, (0, 0, pad, pad, pad, pad), value=value)
+
+
+def central_diff(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """gx[y, x] = I[y, x+1] - I[y, x-1], gy likewise; replicate border."""
+    xpad = pad_replicate(img, (0, 0, 1, 1))
+    gx = xpad[:, 2:, :] - xpad[:, :-2, :]
+    ypad = pad_replicate(img, (1, 1, 0, 0))
+    gy = ypad[2:, :, :] - ypad[:-2, :, :]
+    return gx, gy
+
+
+def _downsample_half_flat(x: torch.Tensor, C: int, bias=None,
+                          backend: str = "auto") -> torch.Tensor:
+    if use_kernel(backend, x):
+        return pool2x2_flat(x, C, bias=bias)
+    return pool2x2_flat_plain(x, C, bias=bias)
+
+
+def downsample_half(img: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """x0.5 bilinear downsample == 2x2 average pool of [H, W, C] (even
+    dims)."""
+    H, W, C = img.shape
+    out = _downsample_half_flat(img.reshape(H, W * C), C, backend=backend)
+    return out.reshape(H // 2, W // 2, C)
+
+
+def build_pyramid(img: torch.Tensor, n_levels: int, padding: int,
+                  start_level: int = 0, ingest_bias=None,
+                  backend: str = "auto") -> List[PyramidLevel]:
+    """Build ``n_levels`` levels (level 0 = full res) of padded image and
+    gradient pyramids from ``img`` [H, W, C] (float32 or uint8), H and W
+    divisible by ``2**(n_levels-1)``.
+
+    Levels below ``start_level`` only feed the downsample chain: they get
+    no gradients and no padding (``image`` is the raw level).
+
+    ``ingest_bias`` (a float): the pyramid equals ``build_pyramid(img +
+    ingest_bias)`` on levels ``start_level`` and coarser, with the add
+    fused into the first downsample's read.  Requires ``start_level >=
+    1``; levels below ``start_level`` store the pre-bias image.
+
+    ``backend`` selects the pool like a config backend field.
+    """
+    H, W, C = img.shape
+    if ingest_bias is not None and start_level < 1:
+        raise ValueError("ingest_bias requires start_level >= 1 (the "
+                         "full-resolution level would miss the bias)")
+    if img.dtype == torch.uint8 and start_level < 1:
+        img = img.float()
+    levels = []
+    cur = img.reshape(H, W * C)
+    for lvl in range(n_levels):
+        if lvl > 0:
+            cur = _downsample_half_flat(
+                cur, C, bias=ingest_bias if lvl == 1 else None,
+                backend=backend)
+        h, w = H >> lvl, W >> lvl
+        if lvl < start_level:
+            levels.append(PyramidLevel(image=cur.reshape(h, w, C),
+                                       grad_x=None, grad_y=None))
+            continue
+        current = cur.reshape(h, w, C)
+        gx, gy = central_diff(current)
+        levels.append(PyramidLevel(
+            image=pad_replicate(current, padding),
+            grad_x=pad_constant(gx, padding),
+            grad_y=pad_constant(gy, padding),
+        ))
+    return levels

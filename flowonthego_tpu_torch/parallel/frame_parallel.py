@@ -1,0 +1,73 @@
+"""Video streaming (port of ``stream_flow`` from
+``flowonthego_tpu/parallel/frame_parallel.py``).
+
+Carries two things from frame to frame:
+  * the previous pair's flow, downsampled to the coarsest-scale warm-start
+    resolution, as ``init_flow``;
+  * the previous frame's pyramid: frame t is I1 of pair t-1 and I0 of
+    pair t, so each pyramid is built once and used twice.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable
+
+import torch
+
+from ..config import DISConfig, pool_backend
+from ..models.dis_flow import (as_image, dis_flow_from_pyramids, pin_fp32,
+                               upsample_flow_to_full)
+from ..ops.pyramid import build_pyramid
+from ..ops.resize import resize_linear_antialias
+
+
+def stream_flow(frames: Iterable, cfg: DISConfig, full_res: bool = True,
+                fetch: bool = True, device=None):
+    """Yield the flow of each consecutive frame pair.
+
+    frames: [H, W, 1|3] images (numpy or tensors), pre-padded to
+    2^coarsest_scale divisibility, all of one shape.  They run on
+    ``device`` (default: where each frame lies; numpy on the CPU).
+    Yields [H, W, 2] (``full_res``) or finest-scale flows, as numpy with
+    ``fetch`` or as device tensors without.
+    """
+    pin_fp32()
+    n_levels = cfg.coarsest_scale + 1
+    kw = dict(start_level=cfg.finest_scale, backend=pool_backend(cfg))
+    pyr = None
+    init = None
+    shape0 = None
+    for frame in frames:
+        cur = as_image(frame, device)
+        if cur.dim() != 3 or cur.shape[2] not in (1, 3):
+            raise ValueError(
+                f"stream frame must be [H, W, 1|3], got {tuple(cur.shape)}")
+        if shape0 is None:
+            shape0 = tuple(cur.shape)
+            div = 2 ** cfg.coarsest_scale
+            if shape0[0] % div or shape0[1] % div:
+                raise ValueError(
+                    f"stream frames must be pre-padded to 2^{cfg.coarsest_scale}"
+                    f" divisibility, got {shape0[0]}x{shape0[1]}")
+        elif tuple(cur.shape) != shape0:
+            raise ValueError(
+                f"stream frame shape changed: {tuple(cur.shape)} vs "
+                f"{shape0} — all frames of a stream must match")
+        init_h = cur.shape[0] >> (cfg.coarsest_scale + 1)
+        init_w = cur.shape[1] >> (cfg.coarsest_scale + 1)
+        if pyr is None:
+            pyr = build_pyramid(cur, n_levels, cfg.padding, **kw)
+            init = torch.zeros((init_h, init_w, 2), dtype=torch.float32,
+                               device=cur.device)
+            continue
+        pyr1 = build_pyramid(cur, n_levels, cfg.padding, **kw)
+        flow = dis_flow_from_pyramids(pyr, pyr1, cfg, init_flow=init)
+        out = (upsample_flow_to_full(flow, cfg, cur.shape[0], cur.shape[1])
+               if full_res else flow)
+        # warm start for the next pair: the finest flow at 1/2^(cs+1)
+        # (init is read at floor(mid/2) x2)
+        init = resize_linear_antialias(
+            flow / (2.0 ** (cfg.coarsest_scale + 1 - cfg.finest_scale)),
+            init_h, init_w)
+        pyr = pyr1
+        yield out.cpu().numpy() if fetch else out

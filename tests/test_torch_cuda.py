@@ -1,0 +1,107 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one.
+This file imports no JAX, so it runs on a machine without it:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+Tolerances are those of the CPU tests against the JAX package
+(tests/test_torch_kernels.py), each with its reason there.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import flowonthego_tpu_torch as port
+from flowonthego_tpu_torch.ops import dis as dis_mod
+from flowonthego_tpu_torch.ops.cuda import dis_gn, pool, varref_fused
+from flowonthego_tpu_torch.ops.patches import (PatchGrid,
+                                               extract_templates_and_hessians)
+from flowonthego_tpu_torch.ops.pyramid import build_pyramid
+from flowonthego_tpu_torch.utils.synth import synthetic_frames
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; run this file on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype,bias", [(torch.float32, None),
+                                        (torch.uint8, 1.5)])
+def test_pool_kernel(cuda, dtype, bias):
+    g = torch.Generator().manual_seed(0)
+    x = (torch.rand((68, 3 * 122), generator=g) * 255).to(dtype).to(cuda)
+    n0 = pool.launches
+    got = pool.pool2x2_flat(x, 3, bias)
+    assert pool.launches == n0 + 1
+    ref = pool.pool2x2_flat_plain(x, 3, bias)
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-4)
+
+
+def _level_state(device, h, w, warm):
+    i0, i1 = synthetic_frames(1, 2, h, w, (1, 1), factor=4)
+    cfg = port.operating_point(2)
+    lvl0 = build_pyramid(torch.as_tensor(i0, device=device), 1, 8)[0]
+    lvl1 = build_pyramid(torch.as_tensor(i1, device=device), 1, 8)[0]
+    grid = PatchGrid.create(cfg, w, h)
+    state = dis_mod.init_state(*extract_templates_and_hessians(
+        lvl0.image, lvl0.grad_x, lvl0.grad_y, grid, cfg), grid)
+    if warm:
+        g = torch.Generator().manual_seed(1)
+        coarse = torch.randn((h // 2, w // 2, 2), generator=g) * 2.0
+        state = dis_mod.init_from_coarser(state, coarse.to(device), grid)
+    return cfg, grid, state, lvl1.image
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_gn_kernel(cuda, warm):
+    cfg, grid, state, I1p = _level_state(cuda, 56, 128, warm)
+    n0 = dis_gn.launches
+    got = dis_mod.optimize(state, I1p, grid,
+                           dataclasses.replace(cfg, gn_backend="pallas"))
+    assert dis_gn.launches == n0 + 1
+    ref = dis_mod.optimize(state, I1p, grid,
+                           dataclasses.replace(cfg, gn_backend="xla"))
+    torch.testing.assert_close(got.p_cur, ref.p_cur, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.cost_px, ref.cost_px, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("level", [0, 3])
+def test_varref_kernel(cuda, level):
+    i0, i1 = synthetic_frames(2, 2, 56, 128, (1, 0), factor=4)
+    g = torch.Generator().manual_seed(2)
+    flow = (torch.randn((56, 128, 2), generator=g) * 0.3
+            + torch.tensor([1.0, 0.0])).to(cuda)
+    im1 = torch.as_tensor(i0, device=cuda)
+    im2 = torch.as_tensor(i1, device=cuda)
+    cfg = port.operating_point(2)
+    wx, wy, mask, dIs = varref_fused.warp_and_derivs(flow, im1, im2)
+    n0 = varref_fused.launches
+    uu, vv = varref_fused.refine_inner(wx, wy, mask, dIs, cfg, level + 1)
+    assert varref_fused.launches == n0 + 1
+    ru, rv = varref_fused.refine_inner_plain(wx, wy, mask, dIs, cfg,
+                                             level + 1)
+    torch.testing.assert_close(uu, ru, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(vv, rv, rtol=1e-4, atol=1e-5)
+
+
+def test_compute_flow_runs_all_kernels(cuda):
+    i0, i1 = synthetic_frames(3, 2, 124, 256, (2, 1), factor=4)
+    counts = [m.launches for m in (pool, dis_gn, varref_fused)]
+    got = port.compute_flow(i0, i1, device=cuda)
+    assert all(m.launches > n for m, n in
+               zip((pool, dis_gn, varref_fused), counts))
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    plain = dataclasses.replace(port.operating_point(2, width=256),
+                                gn_backend="xla", varref_backend="xla")
+    ref = port.compute_flow(i0, i1, plain, device=cuda)
+    epe = torch.linalg.vector_norm(got - ref, dim=-1).double().cpu().numpy()
+    assert epe.mean() <= 1e-3 and np.quantile(epe, 0.99) <= 1e-2

@@ -1,0 +1,74 @@
+"""JAX golden flow for the card.
+
+``tests/data/torch_port_golden_op2_1024x448.npz`` holds the JAX package's
+finest-scale op-2 flow (56x128x2) on the seeded synthetic 1024x436 pair
+(edge-padded to 1024x448) that ``chip_smoke.py`` drives on the GPU, with
+the seed and the shift.  The GPU machine has no JAX, so this file is how
+the GPU path is held against JAX.  This test regenerates the flow with
+``dis_flow_padded_jit`` on the CPU and checks both it and the port's CPU
+output against the file.
+
+Write the file anew with ``python tests/test_torch_golden.py``.
+"""
+
+import os
+
+import numpy as np
+import torch
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                      "torch_port_golden_op2_1024x448.npz")
+SEED, SHIFT, HEIGHT, WIDTH = 0, (16, 8), 436, 1024
+
+torch.set_num_threads(1)
+
+
+def _padded_pair(seed, shift):
+    from flowonthego_tpu_torch.config import operating_point, pad_to_divisible
+    from flowonthego_tpu_torch.utils.synth import synthetic_pair
+    i0, i1 = synthetic_pair(seed, HEIGHT, WIDTH, shift)
+    cs = operating_point(2, width=WIDTH).coarsest_scale
+    pt, pb, pl, pr = pad_to_divisible(WIDTH, HEIGHT, cs)
+    pad = ((pt, pb), (pl, pr), (0, 0))
+    return np.pad(i0, pad, mode="edge"), np.pad(i1, pad, mode="edge")
+
+
+def _jax_flow(i0p, i1p):
+    import jax.numpy as jnp
+    from flowonthego_tpu.config import operating_point
+    from flowonthego_tpu.models.dis_flow import dis_flow_padded_jit
+    cfg = operating_point(2, width=WIDTH)
+    return np.asarray(dis_flow_padded_jit(jnp.asarray(i0p), jnp.asarray(i1p),
+                                          cfg))
+
+
+def test_golden_matches_jax_and_port():
+    from test_torch_slice import assert_flow_band
+    from flowonthego_tpu_torch import operating_point
+    from flowonthego_tpu_torch.models.dis_flow import dis_flow_padded
+
+    g = np.load(GOLDEN)
+    seed, shift = int(g["seed"]), tuple(int(s) for s in g["shift"])
+    golden = g["flow"]
+    assert golden.shape == (56, 128, 2) and golden.dtype == np.float32
+    i0p, i1p = _padded_pair(seed, shift)
+    assert i0p.shape == (448, 1024, 3)
+
+    assert_flow_band(_jax_flow(i0p, i1p), golden)
+    got = dis_flow_padded(torch.as_tensor(i0p), torch.as_tensor(i1p),
+                          operating_point(2, width=WIDTH))
+    assert_flow_band(got.numpy(), golden)
+    # the texture moves by a multiple of 8 px: exactly (2, 1) px at 1/8
+    np.testing.assert_allclose(
+        np.median(golden[4:-4, 4:-4].reshape(-1, 2), axis=0),
+        np.asarray(shift) / 8.0, atol=0.01)
+
+
+if __name__ == "__main__":
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    i0p, i1p = _padded_pair(SEED, SHIFT)
+    np.savez_compressed(GOLDEN, flow=_jax_flow(i0p, i1p).astype(np.float32),
+                        seed=np.int64(SEED), shift=np.asarray(SHIFT, np.int64))
+    print("wrote", GOLDEN)

@@ -1,0 +1,256 @@
+"""Each module of the PyTorch port that holds or feeds a kernel, against
+the JAX package on the same numpy inputs.
+
+The JAX side runs as the JAX package's own tests run it on the CPU: the
+Pallas kernels in interpret mode (``pool2x2_flat``,
+``variational_refine_fused``, ``optimize`` with ``gn_backend="pallas"``).
+The port runs on CPU tensors, i.e. through each kernel's plain PyTorch
+version.  Tolerances are stated per test, with their reason.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from scipy.ndimage import gaussian_filter
+
+from flowonthego_tpu.config import DISConfig as JaxConfig
+from flowonthego_tpu.ops import densify as jdensify
+from flowonthego_tpu.ops import dis as jdis
+from flowonthego_tpu.ops import patches as jpatches
+from flowonthego_tpu.ops import pyramid as jpyramid
+from flowonthego_tpu.ops import resize as jresize
+from flowonthego_tpu.ops.pallas.pool import _BW, pool2x2_flat as jax_pool
+from flowonthego_tpu.ops.pallas.varref_fused import \
+    variational_refine_fused as jax_varref_fused
+
+from flowonthego_tpu_torch.convert import (config_from_jax,
+                                           patch_state_from_numpy,
+                                           pyramid_from_numpy)
+from flowonthego_tpu_torch.ops import densify as pdensify
+from flowonthego_tpu_torch.ops import dis as pdis
+from flowonthego_tpu_torch.ops import patches as ppatches
+from flowonthego_tpu_torch.ops import pyramid as ppyramid
+from flowonthego_tpu_torch.ops import resize as presize
+from flowonthego_tpu_torch.ops.cuda.pool import pool2x2_flat as port_pool
+from flowonthego_tpu_torch.ops.cuda.varref_fused import \
+    variational_refine_fused as port_varref_fused
+
+torch.set_num_threads(1)
+
+
+def _smooth(rng, h, w, c, sigma=4.0, margin=8):
+    """Smoothed seeded noise around 128, as tests/test_dis_gn_pallas.py."""
+    return gaussian_filter(
+        rng.standard_normal((h + 2 * margin, w + 2 * margin, c))
+        .astype(np.float32), sigma=(sigma, sigma, 0)) * 120 + 128
+
+
+def _scene(rng, h, w, shift=(2, 1), c=3):
+    base = _smooth(rng, h, w, c)
+    sx, sy = shift
+    return base[8:8 + h, 8:8 + w], base[8 - sy:8 - sy + h, 8 - sx:8 - sx + w]
+
+
+def _t(x):
+    return torch.as_tensor(np.array(x))
+
+
+# ---------------------------------------------------------------- K1 pool
+
+_RAGGED_W = 2 * ((_BW + _BW // 2) // 6)     # one full + one ragged TPU block
+
+
+@pytest.mark.parametrize("case,h,w,C,dtype,bias", [
+    ("f32", 64, 96, 3, np.float32, None),
+    ("gray", 128, 128, 1, np.float32, None),
+    ("uint8", 40, 322, 3, np.uint8, None),
+    ("uint8_bias", 40, 322, 3, np.uint8, 1.5),
+    ("ragged_bias", 40, _RAGGED_W, 3, np.float32, 3.25),
+])
+def test_pool_matches_pallas_oracle(rng, case, h, w, C, dtype, bias):
+    """rtol 1e-6 / atol 1e-4, as tests/test_pallas_kernels.py: the TPU
+    kernel's bf16x3 split sums in another order (1-2 ulp of 0..255)."""
+    x = (rng.random((h, w * C)) * 255).astype(dtype)
+    ref = np.asarray(jax_pool(jnp.asarray(x), C,
+                              bias=None if bias is None else jnp.float32(bias),
+                              interpret=True))
+    got = port_pool(torch.as_tensor(x), C, bias=bias).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-4)
+
+
+# ---------------------------------------------------------------- pyramid
+
+@pytest.mark.parametrize("dtype,start,bias", [
+    (np.float32, 0, None), (np.uint8, 1, None), (np.float32, 1, 0.125)])
+def test_build_pyramid_matches_jax(rng, dtype, start, bias):
+    """<= 1e-5 abs: both pool the same taps in reduce_window's order."""
+    img = (rng.random((32, 48, 3)) * 255).astype(dtype)
+    ref = jpyramid.build_pyramid(jnp.asarray(img), 4, 4, start_level=start,
+                                 ingest_bias=None if bias is None
+                                 else jnp.float32(bias))
+    got = ppyramid.build_pyramid(torch.as_tensor(img), 4, 4,
+                                 start_level=start, ingest_bias=bias)
+    for lr, lg in zip(ref, got):
+        for a, b in zip(lr, lg):
+            assert (a is None) == (b is None)
+            if a is not None:
+                np.testing.assert_allclose(b.numpy(), np.asarray(a,
+                                           np.float32), rtol=0, atol=1e-5)
+    f32 = img.astype(np.float32)
+    np.testing.assert_allclose(
+        ppyramid.downsample_half(torch.as_tensor(f32)).numpy(),
+        np.asarray(jpyramid.downsample_half(jnp.asarray(f32))),
+        rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------- patches
+
+@pytest.mark.parametrize("op_point", [2, 1])   # grouped form, strided form
+def test_extract_matches_jax(rng, op_point):
+    """Windows and gradients are copies (exact).  Templates subtract a
+    mean of ps*ps*C fp32 values near 128, summed in another order (one
+    ulp of the ~2.5e4 sum is 2e-3, 1e-5 of the mean): <= 1e-4 abs.
+    Hessians are such sums too: within 1e-5 of the largest entry (h01 is
+    a signed sum that cancels, so a relative bound per entry is too
+    strict)."""
+    from flowonthego_tpu.config import operating_point
+    jc = operating_point(op_point)
+    pc = config_from_jax(dataclasses.asdict(jc))
+    h, w = 40, 56
+    img = _smooth(rng, h, w, 3)[8:8 + h, 8:8 + w]
+    jpyr = jpyramid.build_pyramid(jnp.asarray(img), 1, jc.padding)[0]
+    ppyr = pyramid_from_numpy([tuple(np.asarray(x) for x in jpyr)])[0]
+    jg = jpatches.PatchGrid.create(jc, w, h)
+    pg = ppatches.PatchGrid.create(pc, w, h)
+    assert dataclasses.asdict(jg) == dataclasses.asdict(pg)
+    assert (pc.patch_size % pc.steps == 0) == (op_point == 2)
+    ref = jpatches.extract_templates_and_hessians(*jpyr, jg, jc)
+    got = ppatches.extract_templates_and_hessians(*ppyr, pg, pc)
+    np.testing.assert_array_equal(
+        ppatches.extract_windows(ppyr.image, pg).numpy(),
+        np.asarray(jpatches.extract_windows(jpyr.image, jg)))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(ref[2]))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]),
+                               rtol=0, atol=1e-4)
+    H = np.asarray(ref[3])
+    np.testing.assert_allclose(got[3].numpy(), H, rtol=0,
+                               atol=1e-5 * np.abs(H).max())
+
+
+# ---------------------------------------------------------------- K2 GN solve
+
+def _jax_state(cfg, i0, coarse):
+    h, w = i0.shape[:2]
+    grid = jpatches.PatchGrid.create(cfg, w, h)
+    lvl = jpyramid.build_pyramid(jnp.asarray(i0), 1, cfg.padding)[0]
+    tmpl, gx, gy, H = jpatches.extract_templates_and_hessians(*lvl, grid, cfg)
+    state = jdis.init_state(tmpl, gx, gy, H, grid)
+    if coarse is not None:
+        state = jdis.init_from_coarser(state, jnp.asarray(coarse), grid)
+    return grid, state
+
+
+@pytest.mark.parametrize("warm,gd_iter", [
+    (False, 1), (False, 2), (False, 12), (True, 12)])
+def test_gn_solve_matches_pallas_oracle(rng, warm, gd_iter):
+    """p atol 1e-4, cost_px rtol/atol 1e-3, as tests/test_dis_gn_pallas.py:
+    the reductions sum the same values in another order.  The warm start
+    exercises frozen-at-init patches and the outlier reset."""
+    jc = JaxConfig(coarsest_scale=1, finest_scale=1, grad_descent_iter=gd_iter,
+                   gn_backend="pallas")
+    i0, i1 = _scene(rng, 48, 64, shift=(3, -2) if warm else (2, 1))
+    coarse = (rng.standard_normal((24, 32, 2)).astype(np.float32) * 2.0
+              if warm else None)
+    grid, jstate = _jax_state(jc, i0, coarse)
+    I1p = jpyramid.pad_replicate(jnp.asarray(i1), jc.padding)
+    ref = jdis.optimize(jstate, I1p, grid, jc)
+
+    pc = config_from_jax(dataclasses.asdict(jc))
+    pstate = patch_state_from_numpy(
+        {k: np.asarray(v) for k, v in jstate._asdict().items()})
+    pgrid = ppatches.PatchGrid.create(pc, 64, 48)
+    got = pdis.optimize(pstate, _t(I1p), pgrid,
+                        dataclasses.replace(pc, gn_backend="auto"))
+    np.testing.assert_allclose(got.p_cur.numpy(), np.asarray(ref.p_cur),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.cost_px.numpy(), np.asarray(ref.cost_px),
+                               rtol=1e-3, atol=1e-3)
+    if warm:
+        frozen = np.asarray(jstate.converged)
+        assert frozen.any()
+        assert not got.cost_px.numpy()[frozen].any()
+
+    # densify of the same state: <= 1e-5 abs (weights are 1/max(2, cost),
+    # the flow a weighted mean of patch flows; reorder-only differences)
+    jd = np.asarray(jdensify.densify(ref, grid, jc))
+    pd = pdensify.densify(patch_state_from_numpy(
+        {k: np.asarray(v) for k, v in ref._asdict().items()}), pgrid, pc)
+    np.testing.assert_allclose(pd.numpy(), jd, rtol=0, atol=1e-5)
+
+
+def test_init_from_coarser_matches_jax(rng):
+    """The warm-start lookup, exact.  A 1/2^(cs+1) warm start of a 4K
+    frame padded to 2176 rows has 8 rows where the 17-row coarsest grid
+    reads row 8: both packages clamp to the last row."""
+    jc = JaxConfig(coarsest_scale=7, finest_scale=5)
+    pc = config_from_jax(dataclasses.asdict(jc))
+    h, w = 17, 30
+    i0 = _smooth(rng, h, w, 3)[8:8 + h, 8:8 + w]
+    grid, jstate = _jax_state(jc, i0, None)
+    coarse = rng.standard_normal((8, 15, 2)).astype(np.float32) * 3.0
+    ref = jdis.init_from_coarser(jstate, jnp.asarray(coarse), grid)
+    assert int(grid.midpoints()[1].max()) // 2 == 8
+    pstate = patch_state_from_numpy(
+        {k: np.asarray(v) for k, v in jstate._asdict().items()})
+    got = pdis.init_from_coarser(pstate, _t(coarse),
+                                 ppatches.PatchGrid.create(pc, w, h))
+    for name in ("p_cur", "p_org", "converged"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(ref, name)))
+
+
+# ---------------------------------------------------------------- K3 var-ref
+
+@pytest.mark.parametrize("level,C", [(0, 3), (3, 3), (0, 1), (3, 1)])
+def test_varref_matches_pallas_oracle(rng, level, C):
+    """rtol 1e-4 / atol 1e-5, as tests/test_pallas_kernels.py: the TPU
+    kernel uses rsqrt and sums channels in another order."""
+    h, w = 32, 48
+    base = _smooth(rng, h, w, C, sigma=3.0, margin=4)
+    im1, im2 = base[4:4 + h, 4:4 + w], base[4:4 + h, 3:3 + w]
+    flow = (0.3 * rng.standard_normal((h, w, 2)).astype(np.float32)
+            + np.array([1.0, 0.0], np.float32))
+    jc = JaxConfig()
+    ref = np.asarray(jax_varref_fused(jnp.asarray(flow), jnp.asarray(im1),
+                                      jnp.asarray(im2), jc, level,
+                                      interpret=True))
+    got = port_varref_fused(_t(flow), _t(im1), _t(im2),
+                            config_from_jax(dataclasses.asdict(jc)), level)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------- resize
+
+@pytest.mark.parametrize("src,dst", [
+    ((56, 128), (7, 16)), ((68, 120), (8, 15)), ((14, 32), (2, 4))])
+def test_warm_start_resize_matches_jax(rng, src, dst):
+    """The stream warm start: jax.image.resize 'linear' antialiases on
+    downsampling; <= 1e-6 abs on flow-sized values."""
+    import jax
+    flow = (rng.standard_normal(src + (2,)) * 2).astype(np.float32)
+    ref = np.asarray(jax.image.resize(jnp.asarray(flow), dst + (2,),
+                                      method="linear"))
+    got = presize.resize_linear_antialias(_t(flow), *dst).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+
+
+def test_resize_matmul_matches_jax(rng):
+    """The final flow upsample (x8 here): <= 1e-5 abs (two fp32 matmuls)."""
+    flow = (rng.standard_normal((14, 32, 2)) * 2).astype(np.float32)
+    ref = np.asarray(jresize.resize_matmul(jnp.asarray(flow), 112, 256))
+    got = presize.resize_matmul(_t(flow), 112, 256).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
