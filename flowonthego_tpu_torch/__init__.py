@@ -10,12 +10,14 @@ PyTorch versions.  This package never imports JAX.
 
 from .config import DISConfig, auto_coarsest_scale, operating_point, pad_to_divisible
 from .io import read_flo, write_flo
-from .models.dis_flow import DISFlow, compute_flow, dis_flow_padded
+from .models.dis_flow import (DISFlow, compute_flow, compute_flow_timed,
+                              dis_flow_padded)
 from .parallel.frame_parallel import stream_flow
 from .utils.metrics import average_epe, endpoint_error
 
 __all__ = [
     "DISConfig", "operating_point", "auto_coarsest_scale", "pad_to_divisible",
-    "DISFlow", "compute_flow", "dis_flow_padded", "stream_flow",
+    "DISFlow", "compute_flow", "compute_flow_timed", "dis_flow_padded",
+    "stream_flow",
     "read_flo", "write_flo", "average_epe", "endpoint_error",
 ]

@@ -173,14 +173,19 @@ def use_kernel(backend: str, x) -> bool:
     ``"xla"``: the plain version.  ``"pallas"``: the kernel, which raises
     on a CPU tensor rather than quietly running the plain version.
     """
+    return use_kernel_on(backend, x.device.type)
+
+
+def use_kernel_on(backend: str, device_type: str) -> bool:
+    """:func:`use_kernel` for a tensor on a device of ``device_type``."""
     if backend == "auto":
-        return x.is_cuda
+        return device_type == "cuda"
     if backend == "xla":
         return False
     if backend == "pallas":
-        if not x.is_cuda:
+        if device_type != "cuda":
             raise ValueError("backend 'pallas' selects the CUDA kernel, but "
-                             f"the tensor lies on {x.device}")
+                             f"the tensor lies on a {device_type} device")
         return True
     raise ValueError(f"unknown backend {backend!r} "
                      "(expected 'auto', 'xla' or 'pallas')")

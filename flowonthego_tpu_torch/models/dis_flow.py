@@ -4,7 +4,8 @@
     pad to 2^coarsest divisibility -> image+gradient pyramids ->
     per scale (coarse to fine):
         extract templates+Hessians -> warm start from the coarser flow ->
-        inverse-search optimize (K2) -> densify -> variational refinement (K3)
+        inverse-search optimize (K2) -> densify -> variational refinement
+        (warp K5, then K3 or K4 by field size)
     -> upsample the finest flow to input resolution -> crop the padding.
 
 PyTorch runs eagerly, so there is no jitted variant: every function here
@@ -13,6 +14,8 @@ runs on the device its input tensors lie on.
 
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Optional
 
 import numpy as np
@@ -25,6 +28,7 @@ from ..ops import variational as var_mod
 from ..ops.patches import PatchGrid, extract_templates_and_hessians
 from ..ops.pyramid import build_pyramid, pad_replicate
 from ..ops.resize import resize_matmul
+from ..utils.timing import PhaseTimer
 
 
 def pin_fp32() -> None:
@@ -58,14 +62,26 @@ def dis_flow_padded(I0: torch.Tensor, I1: torch.Tensor, cfg: DISConfig,
                                   level_offset=level_offset)
 
 
+_SCALE_PHASES = ("extract", "coarse", "opti", "aggregate", "var_ref")
+
+
 def dis_flow_from_pyramids(pyr0, pyr1, cfg: DISConfig,
                            init_flow: Optional[torch.Tensor] = None,
-                           level_offset: int = 0) -> torch.Tensor:
+                           level_offset: int = 0,
+                           timer: Optional[PhaseTimer] = None,
+                           printer=print) -> torch.Tensor:
     """DIS on prebuilt pyramids (see :func:`dis_flow_padded`); video
-    streaming builds each frame's pyramid once and uses it for two pairs."""
+    streaming builds each frame's pyramid once and uses it for two pairs.
+
+    With a ``timer``, each phase of a scale runs under ``timer.phase`` (so
+    it ends with a device sync) and ``printer`` gets the reference's line
+    ``TIME (Sc: %i, #p:%6i, pconst, pinit, poptim, cflow, tvopt, total)``
+    per scale."""
     lvl_c = pyr0[cfg.coarsest_scale]
     H = lvl_c.image.shape[0] - 2 * cfg.padding << cfg.coarsest_scale
     W = lvl_c.image.shape[1] - 2 * cfg.padding << cfg.coarsest_scale
+    phase = timer.phase if timer is not None else (
+        lambda name: contextlib.nullcontext())
 
     flow = None
     for sl in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
@@ -73,21 +89,32 @@ def dis_flow_from_pyramids(pyr0, pyr1, cfg: DISConfig,
         grid = PatchGrid.create(cfg, w_sl, h_sl)
         lvl0, lvl1 = pyr0[sl], pyr1[sl]
 
-        templates, gx, gy, Hs = extract_templates_and_hessians(
-            lvl0.image, lvl0.grad_x, lvl0.grad_y, grid, cfg)
-        state = dis_mod.init_state(templates, gx, gy, Hs, grid)
-        warm = flow if flow is not None else init_flow
-        if warm is not None:
-            state = dis_mod.init_from_coarser(state, warm, grid)
-        state = dis_mod.optimize(state, lvl1.image, grid, cfg)
-        flow = densify_mod.densify(state, grid, cfg)
+        with phase("extract"):
+            templates, gx, gy, Hs = extract_templates_and_hessians(
+                lvl0.image, lvl0.grad_x, lvl0.grad_y, grid, cfg)
+            state = dis_mod.init_state(templates, gx, gy, Hs, grid)
+        with phase("coarse"):
+            warm = flow if flow is not None else init_flow
+            if warm is not None:
+                state = dis_mod.init_from_coarser(state, warm, grid)
+        with phase("opti"):
+            state = dis_mod.optimize(state, lvl1.image, grid, cfg)
+        with phase("aggregate"):
+            flow = densify_mod.densify(state, grid, cfg)
 
         if cfg.use_var_ref:
-            p = cfg.padding
-            im1 = lvl0.image[p:p + h_sl, p:p + w_sl, :]
-            im2 = lvl1.image[p:p + h_sl, p:p + w_sl, :]
-            flow = var_mod.variational_refine_auto(flow, im1, im2, cfg,
-                                                   sl + level_offset)
+            with phase("var_ref"):
+                p = cfg.padding
+                im1 = lvl0.image[p:p + h_sl, p:p + w_sl, :]
+                im2 = lvl1.image[p:p + h_sl, p:p + w_sl, :]
+                flow = var_mod.variational_refine_auto(flow, im1, im2, cfg,
+                                                       sl + level_offset)
+        if timer is not None:
+            ms = [timer.last.get(name, 0.0) for name in _SCALE_PHASES]
+            printer(f"TIME (Sc: {sl}, #p:{grid.n_patches:6d}, pconst, pinit, "
+                    "poptim, cflow, tvopt, total): "
+                    + " ".join(f"{t:8.2f}" for t in ms)
+                    + f" -> {sum(ms):8.2f} ms.")
     return flow
 
 
@@ -149,6 +176,49 @@ def compute_flow(I0, I1, cfg: Optional[DISConfig] = None, op_point: int = 2,
     flow = upsample_flow_to_full(flow, cfg, I0p.shape[0], I0p.shape[1])
     pt, _, pl, _ = pads
     return flow[pt:pt + h, pl:pl + w, :]
+
+
+def compute_flow_timed(I0, I1, cfg: Optional[DISConfig] = None,
+                       op_point: int = 2, device=None,
+                       printer=print) -> torch.Tensor:
+    """Verbosity-2 diagnostic run: per-scale phase timing.
+
+    Prints the reference's per-scale line ``TIME (Sc: %i, #p:%6i, pconst,
+    pinit, poptim, cflow, tvopt, total)`` (see
+    :func:`dis_flow_from_pyramids`), the pyramid and run-time lines and
+    the phase totals of :meth:`..utils.timing.PhaseTimer.report`.  Each
+    phase ends with a device sync, so phase costs are honest and the
+    run-time line carries the syncs.  Returns :func:`compute_flow`'s flow.
+    """
+    validate_image_pair(I0, I1)
+    I0 = as_image(I0, device)
+    I1 = as_image(I1, I0.device)
+    h, w = I0.shape[0], I0.shape[1]
+    if cfg is None:
+        cfg = operating_point(op_point, width=w)
+    pin_fp32()
+    pads = pad_to_divisible(w, h, cfg.coarsest_scale)
+    I0p = pad_replicate(I0, pads)
+    I1p = pad_replicate(I1, pads)
+    timer = PhaseTimer(I0p.device)
+
+    t_all = time.perf_counter()
+    with timer.phase("pyramid"):
+        kw = dict(start_level=cfg.finest_scale, backend=pool_backend(cfg))
+        pyr0 = build_pyramid(I0p, cfg.coarsest_scale + 1, cfg.padding, **kw)
+        pyr1 = build_pyramid(I1p, cfg.coarsest_scale + 1, cfg.padding, **kw)
+    printer(f"TIME (Pyramide+Gradients) (ms): "
+            f"{timer.totals['pyramid']:.3f}")
+    flow = dis_flow_from_pyramids(pyr0, pyr1, cfg, timer=timer,
+                                  printer=printer)
+    with timer.phase("upsample"):
+        flow = upsample_flow_to_full(flow, cfg, I0p.shape[0], I0p.shape[1])
+        pt, _, pl, _ = pads
+        flow = flow[pt:pt + h, pl:pl + w, :]
+    printer(f"TIME (O.Flow Run-Time   ) (ms): "
+            f"{(time.perf_counter() - t_all) * 1000.0:.3f}")
+    printer(timer.report())
+    return flow
 
 
 class DISFlow:

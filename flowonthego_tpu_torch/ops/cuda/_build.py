@@ -1,10 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-All of ``flowonthego_tpu_torch/csrc/*.cu`` compiles with ``nvcc`` into one
+Each ``flowonthego_tpu_torch/csrc/*.cu`` compiles with its own ``nvcc``,
+all started together, and one more ``nvcc`` links the objects into one
 shared library with a plain C interface, loaded with ``ctypes``.  The
 library is built at first use into ``flowonthego_tpu_torch/build/``,
-named by a hash of the sources and flags, so a fresh checkout builds
-everything from its own sources and an edited source builds anew.
+named by a hash of the flags and of every source and header
+(``csrc/*.cu``, ``csrc/*.cuh``), so a fresh checkout builds everything
+from its own sources and an edited source or header builds anew.
 
 There is no fallback: if ``nvcc`` is missing or the build fails, this
 raises.  Callers reach this module only for CUDA tensors.
@@ -28,10 +30,11 @@ BUILD_DIR = PACKAGE_DIR / "build"
 # keeps a*b+c as two roundings, as the plain PyTorch versions compute it,
 # so kernel and plain version differ only by summation order.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 _F = ctypes.c_float
 # Every C entry returns cudaGetLastError() after its launch.
 SIGNATURES = {
@@ -41,6 +44,9 @@ SIGNATURES = {
                    _I, _I, _I, _F, _F, _F, _F, _F, _P, _P, _P],
     "fot_varref_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
                          _F, _P, _P, _P, _P],
+    "fot_varref_tiled": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
+                         _F, _P, _P, _P, _P],
+    "fot_warp": [_P, _L, _P, _P, _I, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -73,15 +79,31 @@ def find_nvcc() -> str:
 
 
 def sources() -> list[pathlib.Path]:
+    """The translation units: every ``csrc/*.cu``."""
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
 def library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(sources() + list(CSRC_DIR.glob("*.cuh"))):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libfot_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds) -> None:
+    """Run the commands at once; raise with the output of those that fail."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc exited with {proc.returncode}:\n"
+                          f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise KernelBuildError("\n".join(failed))
 
 
 def build() -> pathlib.Path:
@@ -91,15 +113,18 @@ def build() -> pathlib.Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc exited with {proc.returncode}:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    work = BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp"
+    work.mkdir(exist_ok=True)
+    try:
+        objs = [work / f"{src.stem}.o" for src in sources()]
+        _run_all([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                 for src, obj in zip(sources(), objs))
+        lib = work / out.name
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib),
+                   *map(str, objs)]])
+        os.replace(lib, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

@@ -4,17 +4,20 @@ Replaces ``flowonthego_tpu/ops/pallas/varref_fused.py``
 (``variational_refine_fused``, kernel ``_kernel`` -> ``_refine_block``)
 with ``csrc/varref_fused.cu``.  The loop runs ``level + 1`` rounds of
 smoothness, robust colour + gradient data term, sub-Laplacian and
-``var_ref_iter`` red-black SOR sweeps; the warp and the image derivatives
-stay outside in plain PyTorch (:func:`warp_and_derivs`), as on the TPU.
+``var_ref_iter`` red-black SOR sweeps; the warp (K5,
+:mod:`.warp`) and the image derivatives come first, in
+:func:`warp_and_derivs`, as on the TPU.
 
-On the card the loop is bound by latency: an op-2 field holds at most
-8,160 pixels, and each round is ~9 dependent stencil phases.  The plain
-version issues ~100 small PyTorch ops per round; the kernel runs the
-whole loop in one CTA of 1024 threads walking the field grid-stride, with
-its ~10 work planes (<= 330 KB) in device memory, where they stay
-L2-resident, and ``__syncthreads()`` between phases.  The TPU design (all
-~34 planes in one VMEM block) does not fit a CTA's 227 KB of shared
-memory.
+The resolver in ``ops/variational.py`` sends a field here when it is at
+or below its pixel threshold (op-2 fields, the coarse op-3/op-4 scales),
+and to K4 (:mod:`.varref_tiled`) above it.  On such a field the loop is
+bound by latency: each round is ~9 dependent stencil phases over a few
+thousand pixels.  The plain version issues ~100 small PyTorch ops per
+round; the kernel runs the whole loop in one CTA of 1024 threads walking
+the field grid-stride, with its 10 work planes in device memory, where
+they stay L2-resident, and ``__syncthreads()`` between phases.  The TPU
+design (all ~34 planes in one VMEM block) does not fit a CTA's 227 KB of
+shared memory.
 
 :func:`refine_inner` launches the kernel for CUDA tensors and runs
 :func:`refine_inner_plain` for CPU tensors.
@@ -24,8 +27,9 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
-from ..variational import Derivatives, get_derivatives, refine_loop, warp_image
+from . import _build, warp
+from ...config import use_kernel
+from ..variational import Derivatives, get_derivatives, refine_loop
 
 # Kernel launches since the last reset (read and reset by chip_smoke.py).
 launches = 0
@@ -33,21 +37,56 @@ launches = 0
 _N_SCRATCH = 10   # s, s_h, s_v, A11, A22, a12, b1, b2, du, dv
 
 
-def warp_and_derivs(flow, im1, im2):
+def warp_and_derivs(flow, im1, im2, cfg):
     """(wx, wy, mask [h, w], dIs [8, C, h, w]) with dIs = Ix, Iy, Iz, Ixx,
-    Ixy, Iyy, Ixz, Iyz channel-first."""
+    Ixy, Iyy, Ixz, Iyz channel-first.  The warp is K5 where
+    ``cfg.varref_backend`` selects the kernels for ``flow``."""
     wx = flow[..., 0].float().contiguous()
     wy = flow[..., 1].float().contiguous()
-    w_im2, mask = warp_image(im2, wx, wy)
+    if use_kernel(cfg.varref_backend, flow):
+        w_im2, mask = warp.warp_image(im2, wx, wy)
+    else:
+        w_im2, mask = warp.warp_image_plain(im2, wx, wy)
     d = get_derivatives(im1, w_im2)
     dIs = torch.stack([x.permute(2, 0, 1) for x in d])
     return wx, wy, mask, dIs.contiguous()
 
 
 def refine_inner_plain(wx, wy, mask, dIs, cfg, inner_iter: int):
-    """Plain PyTorch version of the fused loop -> (uu, vv) [h, w]."""
+    """Plain PyTorch version of the loop (``refine_loop``) -> (uu, vv)."""
     d = Derivatives(*(x.permute(1, 2, 0) for x in dIs))
     return refine_loop(wx, wy, mask, d, cfg, inner_iter)
+
+
+def launch_loop(entry: str, wx, wy, mask, dIs, cfg, inner_iter: int):
+    """Check the planes and launch the C entry ``entry`` (K3's or K4's:
+    both take the same arguments) -> (uu, vv) [h, w]."""
+    h, w = wx.shape
+    C = dIs.shape[1]
+    for name, x, shape in (("wx", wx, (h, w)), ("wy", wy, (h, w)),
+                           ("mask", mask, (h, w)),
+                           ("dIs", dIs, (8, C, h, w))):
+        if tuple(x.shape) != shape or x.dtype != torch.float32:
+            raise ValueError(f"{entry}: {name} is {tuple(x.shape)} "
+                             f"{x.dtype}, expected {shape} float32")
+        if x.device != wx.device or not x.is_contiguous():
+            raise ValueError(f"{entry}: {name} must be contiguous on "
+                             f"{wx.device}")
+    scratch = torch.empty((_N_SCRATCH, h, w), dtype=torch.float32,
+                          device=wx.device)
+    uu = torch.empty_like(wx)
+    vv = torch.empty_like(wx)
+    fn = getattr(_build.load_library(), entry)
+    with torch.cuda.device(wx.device):
+        err = fn(wx.data_ptr(), wy.data_ptr(), mask.data_ptr(),
+                 dIs.data_ptr(), h, w, C, inner_iter, cfg.var_ref_iter,
+                 float(cfg.var_ref_sor_weight), float(0.25 * cfg.var_ref_alpha),
+                 float(cfg.var_ref_delta * 0.5 / 3.0),
+                 float(cfg.var_ref_gamma * 0.5 / 3.0),
+                 scratch.data_ptr(), uu.data_ptr(), vv.data_ptr(),
+                 _build.stream_handle(wx))
+    _build.check(err, entry)
+    return uu, vv
 
 
 def refine_inner(wx, wy, mask, dIs, cfg, inner_iter: int):
@@ -56,39 +95,14 @@ def refine_inner(wx, wy, mask, dIs, cfg, inner_iter: int):
     global launches
     if not wx.is_cuda:
         return refine_inner_plain(wx, wy, mask, dIs, cfg, inner_iter)
-    h, w = wx.shape
-    C = dIs.shape[1]
-    for name, x, shape in (("wx", wx, (h, w)), ("wy", wy, (h, w)),
-                           ("mask", mask, (h, w)),
-                           ("dIs", dIs, (8, C, h, w))):
-        if tuple(x.shape) != shape or x.dtype != torch.float32:
-            raise ValueError(f"refine_inner: {name} is {tuple(x.shape)} "
-                             f"{x.dtype}, expected {shape} float32")
-        if x.device != wx.device or not x.is_contiguous():
-            raise ValueError(f"refine_inner: {name} must be contiguous on "
-                             f"{wx.device}")
-    scratch = torch.empty((_N_SCRATCH, h, w), dtype=torch.float32,
-                          device=wx.device)
-    uu = torch.empty_like(wx)
-    vv = torch.empty_like(wx)
-    lib = _build.load_library()
-    with torch.cuda.device(wx.device):
-        err = lib.fot_varref_fused(
-            wx.data_ptr(), wy.data_ptr(), mask.data_ptr(), dIs.data_ptr(),
-            h, w, C, inner_iter, cfg.var_ref_iter,
-            float(cfg.var_ref_sor_weight), float(0.25 * cfg.var_ref_alpha),
-            float(cfg.var_ref_delta * 0.5 / 3.0),
-            float(cfg.var_ref_gamma * 0.5 / 3.0),
-            scratch.data_ptr(), uu.data_ptr(), vv.data_ptr(),
-            _build.stream_handle(wx))
-    _build.check(err, "refine_inner")
+    out = launch_loop("fot_varref_fused", wx, wy, mask, dIs, cfg, inner_iter)
     launches += 1
-    return uu, vv
+    return out
 
 
 def variational_refine_fused(flow, im1, im2, cfg, level: int) -> torch.Tensor:
     """Refine a dense [h, w, 2] flow with the inner loop fused:
-    warp + derivatives in PyTorch, then :func:`refine_inner`."""
-    wx, wy, mask, dIs = warp_and_derivs(flow, im1, im2)
+    :func:`warp_and_derivs`, then :func:`refine_inner`."""
+    wx, wy, mask, dIs = warp_and_derivs(flow, im1, im2, cfg)
     uu, vv = refine_inner(wx, wy, mask, dIs, cfg, level + 1)
     return torch.stack([uu, vv], dim=-1)

@@ -10,8 +10,10 @@ Energy constants: datanorm = 0.1^2, eps_color = eps_grad = eps_smooth =
 0.001^2; weights quarter_alpha = alpha/4, half_delta_over3 = delta/6,
 half_gamma_over3 = gamma/6.
 
-:func:`variational_refine_auto` routes to the K3 kernel
-(:mod:`.cuda.varref_fused`) by ``cfg.varref_backend``.
+:func:`variational_refine_auto` routes each field by
+:func:`varref_backend_for`: the plain stencils here, the K3 kernel
+(:mod:`.cuda.varref_fused`, one CTA) up to :data:`FUSED_MAX_PIXELS`, or
+the K4 kernel (:mod:`.cuda.varref_tiled`, the whole card) above it.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..config import DISConfig, use_kernel
+from ..config import DISConfig, use_kernel_on
 
 DATANORM = 0.1 * 0.1
 EPS_COLOR = 0.001 * 0.001
@@ -28,12 +30,35 @@ EPS_GRAD = 0.001 * 0.001
 EPS_SMOOTH = 0.001 * 0.001
 
 
+# Largest field (pixels) that goes to K3 on the card; larger ones go to K4.
+# The crossover of the two kernels' times on an H100 80GB HBM3 at 700 W:
+# K3 is faster at 896 px (0.069 vs 0.097 ms), K4 at 1,344 px (0.096 vs
+# 0.111 ms) and beyond (PERF.md); linear between the two.
+FUSED_MAX_PIXELS = 1_180
+
+
+def varref_backend_for(cfg: DISConfig, h: int, w: int,
+                       device_type: str) -> str:
+    """Resolve ``cfg.varref_backend`` for an h x w field on a device of
+    ``device_type`` ("cpu", "cuda"): "xla" (the plain stencils), "fused"
+    (K3) or "tiled" (K4).  The TPU package's Mosaic compile probe, its
+    seeded verdicts and its 128-lane width rule guard a TPU compiler and
+    have no counterpart here."""
+    if not use_kernel_on(cfg.varref_backend, device_type):
+        return "xla"
+    return "fused" if h * w <= FUSED_MAX_PIXELS else "tiled"
+
+
 def variational_refine_auto(flow, im1, im2, cfg: DISConfig, level: int):
-    """Refine by ``cfg.varref_backend``: the K3 kernel (fused inner loop)
-    or the plain stencil form."""
-    if use_kernel(cfg.varref_backend, flow):
+    """Refine on the backend of :func:`varref_backend_for`."""
+    backend = varref_backend_for(cfg, flow.shape[0], flow.shape[1],
+                                 flow.device.type)
+    if backend == "fused":
         from .cuda.varref_fused import variational_refine_fused
         return variational_refine_fused(flow, im1, im2, cfg, level)
+    if backend == "tiled":
+        from .cuda.varref_tiled import variational_refine_tiled
+        return variational_refine_tiled(flow, im1, im2, cfg, level)
     return variational_refine(flow, im1, im2, cfg, level)
 
 

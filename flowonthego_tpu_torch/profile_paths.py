@@ -1,0 +1,121 @@
+"""Where the device time goes on the port's main paths (one NVIDIA GPU).
+
+    python -m flowonthego_tpu_torch.profile_paths [--reps N]
+
+For each path: the wall time per pair without the profiler (host clock,
+ending in a sync), then ``torch.profiler`` over the same calls: device
+time per pair split by kernel (K1-K5, the small PyTorch kernels of the
+glue, GEMMs, copies), device launches per pair, and the busy share
+(device time over the unprofiled wall time).  The inputs are the seeded
+1024x436 scenes of ``chip_smoke.py``: the (16, 8)-px pair, a (2, 2)-px
+pair whose motion stays inside the op-3/op-4 outlier radius at every
+scale, and a four-frame op-3 stream moving (12, -6) px per frame.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import subprocess
+import time
+
+import torch
+
+# device-kernel name fragment -> the row it is counted under, first match
+CATEGORIES = (("dis_gn_kernel", "K2 gn"), ("varref_tiled_kernel", "K4"),
+              ("varref_kernel", "K3"), ("warp_kernel", "K5 warp"),
+              ("pool2x2_kernel", "K1 pool"), ("Memcpy", "copies"),
+              ("Memset", "copies"), ("gemm", "GEMM"))
+
+
+def category(name: str) -> str:
+    for frag, cat in CATEGORIES:
+        if frag in name:
+            return cat
+    return "small torch kernels"
+
+
+def device_breakdown(fn, reps: int):
+    """(total device ms, {category: (ms, launches)}) of ``reps`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            row = per[category(e.name)]
+            row[0] += e.time_range.elapsed_us() / 1e3
+            row[1] += 1
+    return sum(ms for ms, _ in per.values()), per
+
+
+def wall_ms(fn, reps: int) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def report(name: str, fn, reps: int, pairs_per_call: int = 1) -> dict:
+    fn()                                            # first call
+    wall = wall_ms(fn, reps) / pairs_per_call
+    dev_ms, per = device_breakdown(fn, reps)
+    n = reps * pairs_per_call
+    launches = sum(k for _, k in per.values()) / n
+    print(f"{name}: unprofiled wall {wall:.3f} ms/pair; device "
+          f"{dev_ms / n:.3f} ms/pair ({100 * dev_ms / n / wall:.1f}% busy); "
+          f"device launches/pair {launches:.0f}", flush=True)
+    for cat, (ms, k) in sorted(per.items(), key=lambda kv: -kv[1][0]):
+        print(f"   {cat:<22} {ms / n:8.3f} ms/pair  n/pair={k / n:.0f}",
+              flush=True)
+    return dict(wall=wall, device=dev_ms / n, launches=launches)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reps", type=int, default=5,
+                    help="calls per path, unprofiled and profiled")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_paths: needs a CUDA device")
+    import flowonthego_tpu_torch as port
+    from flowonthego_tpu_torch.config import pad_to_divisible
+    from flowonthego_tpu_torch.models.dis_flow import pin_fp32
+    from flowonthego_tpu_torch.ops.pyramid import pad_replicate
+    from flowonthego_tpu_torch.utils.synth import (synthetic_frames,
+                                                   synthetic_pair)
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0], flush=True)
+    pin_fp32()
+    dev = torch.device("cuda", 0)
+    cfg = {op: port.operating_point(op, width=1024) for op in (1, 3, 4)}
+    pairs = {s: [torch.as_tensor(x, device=dev)
+                 for x in synthetic_pair(0, 436, 1024, s)]
+             for s in ((16, 8), (2, 2))}
+    pads = pad_to_divisible(1024, 436, cfg[3].coarsest_scale)
+    frames = [pad_replicate(torch.as_tensor(f, device=dev), pads)
+              for f in synthetic_frames(5, 4, 436, 1024, (12, -6), factor=16)]
+
+    def pair(op, shift):
+        return lambda: port.compute_flow(*pairs[shift], cfg[op])
+
+    report("op 1 pair (16, 8)", pair(1, (16, 8)), args.reps)
+    report("op 4 pair (16, 8)", pair(4, (16, 8)), args.reps)
+    report("op 4 pair (2, 2)", pair(4, (2, 2)), args.reps)
+    report("op 3 stream, 4 frames (12, -6)",
+           lambda: list(port.stream_flow(frames, cfg[3], fetch=False)),
+           max(1, args.reps // 2), pairs_per_call=len(frames) - 1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

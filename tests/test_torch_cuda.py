@@ -17,7 +17,8 @@ import torch
 
 import flowonthego_tpu_torch as port
 from flowonthego_tpu_torch.ops import dis as dis_mod
-from flowonthego_tpu_torch.ops.cuda import dis_gn, pool, varref_fused
+from flowonthego_tpu_torch.ops.cuda import (dis_gn, pool, varref_fused,
+                                            varref_tiled, warp)
 from flowonthego_tpu_torch.ops.patches import (PatchGrid,
                                                extract_templates_and_hessians)
 from flowonthego_tpu_torch.ops.pyramid import build_pyramid
@@ -82,7 +83,7 @@ def test_varref_kernel(cuda, level):
     im1 = torch.as_tensor(i0, device=cuda)
     im2 = torch.as_tensor(i1, device=cuda)
     cfg = port.operating_point(2)
-    wx, wy, mask, dIs = varref_fused.warp_and_derivs(flow, im1, im2)
+    wx, wy, mask, dIs = varref_fused.warp_and_derivs(flow, im1, im2, cfg)
     n0 = varref_fused.launches
     uu, vv = varref_fused.refine_inner(wx, wy, mask, dIs, cfg, level + 1)
     assert varref_fused.launches == n0 + 1
@@ -90,6 +91,66 @@ def test_varref_kernel(cuda, level):
                                              level + 1)
     torch.testing.assert_close(uu, ru, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(vv, rv, rtol=1e-4, atol=1e-5)
+
+
+def _varref_planes(device, h, w, cfg):
+    i0, i1 = synthetic_frames(2, 2, h, w, (1, 0), factor=4)
+    g = torch.Generator().manual_seed(3)
+    flow = (torch.randn((h, w, 2), generator=g) * 0.3
+            + torch.tensor([1.0, 0.0])).to(device)
+    return varref_fused.warp_and_derivs(
+        flow, torch.as_tensor(i0, device=device),
+        torch.as_tensor(i1, device=device), cfg)
+
+
+def test_varref_tiled_kernel(cuda):
+    """K4 against the plain loop at op-3 scale 1 of 1024x448, and against
+    K3 on the scale-2 field (the same function, the same arithmetic)."""
+    cfg = port.operating_point(3)
+    P = _varref_planes(cuda, 224, 512, cfg)
+    n0 = varref_tiled.launches
+    uu, vv = varref_tiled.refine_inner_tiled(*P, cfg, 2)
+    assert varref_tiled.launches == n0 + 1
+    ru, rv = varref_tiled.refine_inner_plain(*P, cfg, 2)
+    torch.testing.assert_close(uu, ru, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(vv, rv, rtol=1e-4, atol=1e-5)
+    P = _varref_planes(cuda, 112, 256, cfg)
+    u4, v4 = varref_tiled.refine_inner_tiled(*P, cfg, 3)
+    u3, v3 = varref_fused.refine_inner(*P, cfg, 3)
+    torch.testing.assert_close(u4, u3, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(v4, v3, rtol=1e-4, atol=1e-5)
+
+
+def test_warp_kernel(cuda):
+    """K5 is bit-exact with the plain warp, border clamps and a
+    row-strided source included."""
+    g = torch.Generator().manual_seed(4)
+    big = (torch.rand((53, 77, 3), generator=g) * 255).to(cuda)
+    for src in (big[4:41, 8:69].contiguous(), big[4:41, 8:69]):
+        wx, wy = ((torch.rand((37, 61), generator=g) * 16 - 8).to(cuda)
+                  for _ in range(2))
+        n0 = warp.launches
+        got, gm = warp.warp_image(src, wx, wy)
+        assert warp.launches == n0 + 1
+        ref, rm = warp.warp_image_plain(src, wx, wy)
+        assert torch.equal(got, ref) and torch.equal(gm, rm)
+
+
+def test_compute_flow_op4_runs_k4_k5(cuda):
+    """Op 4 at 128x256 (scales 3..0, fields of 512 to 32,768 px) goes
+    through K1, K2, K4 and K5, within the band of the all-plain path."""
+    i0, i1 = synthetic_frames(5, 2, 128, 256, (2, 1), factor=4)
+    mods = (pool, dis_gn, varref_tiled, warp)
+    counts = [m.launches for m in mods]
+    got = port.compute_flow(i0, i1, op_point=4, device=cuda)
+    assert all(m.launches > n for m, n in zip(mods, counts))
+    plain = dataclasses.replace(port.operating_point(4, width=256),
+                                gn_backend="xla", varref_backend="xla")
+    counts = [m.launches for m in mods]
+    ref = port.compute_flow(i0, i1, plain, device=cuda)
+    assert [m.launches for m in mods] == counts
+    epe = torch.linalg.vector_norm(got - ref, dim=-1).double().cpu().numpy()
+    assert epe.mean() <= 1e-3 and np.quantile(epe, 0.99) <= 1e-2
 
 
 def test_compute_flow_runs_all_kernels(cuda):

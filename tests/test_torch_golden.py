@@ -1,14 +1,16 @@
-"""JAX golden flow for the card.
+"""JAX golden flows for the card.
 
-``tests/data/torch_port_golden_op2_1024x448.npz`` holds the JAX package's
-finest-scale op-2 flow (56x128x2) on the seeded synthetic 1024x436 pair
-(edge-padded to 1024x448) that ``chip_smoke.py`` drives on the GPU, with
-the seed and the shift.  The GPU machine has no JAX, so this file is how
-the GPU path is held against JAX.  This test regenerates the flow with
-``dis_flow_padded_jit`` on the CPU and checks both it and the port's CPU
-output against the file.
+``tests/data/torch_port_golden_op{2,3}_1024x448.npz`` hold the JAX
+package's finest-scale flow at operating point 2 (56x128x2) and 3
+(224x512x2) on the seeded synthetic 1024x436 pair (edge-padded to
+1024x448) that ``chip_smoke.py`` drives on the GPU, with the seed and the
+shift.  The GPU machine has no JAX, so these files are how the GPU path
+is held against JAX.  These tests regenerate each flow with
+``dis_flow_padded_jit`` on the CPU and check both it and the port's CPU
+output against the file.  (Op 4 is held on the card against the all-plain
+path instead: its JAX run takes ~90 s on the CPU.)
 
-Write the file anew with ``python tests/test_torch_golden.py``.
+Write the files anew with ``python tests/test_torch_golden.py``.
 """
 
 import os
@@ -16,8 +18,9 @@ import os
 import numpy as np
 import torch
 
-GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
-                      "torch_port_golden_op2_1024x448.npz")
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+GOLDEN = os.path.join(DATA, "torch_port_golden_op2_1024x448.npz")
+GOLDEN_OP3 = os.path.join(DATA, "torch_port_golden_op3_1024x448.npz")
 SEED, SHIFT, HEIGHT, WIDTH = 0, (16, 8), 436, 1024
 
 torch.set_num_threads(1)
@@ -33,35 +36,43 @@ def _padded_pair(seed, shift):
     return np.pad(i0, pad, mode="edge"), np.pad(i1, pad, mode="edge")
 
 
-def _jax_flow(i0p, i1p):
+def _jax_flow(i0p, i1p, op_point=2):
     import jax.numpy as jnp
     from flowonthego_tpu.config import operating_point
     from flowonthego_tpu.models.dis_flow import dis_flow_padded_jit
-    cfg = operating_point(2, width=WIDTH)
+    cfg = operating_point(op_point, width=WIDTH)
     return np.asarray(dis_flow_padded_jit(jnp.asarray(i0p), jnp.asarray(i1p),
                                           cfg))
 
 
-def test_golden_matches_jax_and_port():
+def _check_golden(path, op_point, shape):
     from test_torch_slice import assert_flow_band
     from flowonthego_tpu_torch import operating_point
     from flowonthego_tpu_torch.models.dis_flow import dis_flow_padded
 
-    g = np.load(GOLDEN)
+    g = np.load(path)
     seed, shift = int(g["seed"]), tuple(int(s) for s in g["shift"])
     golden = g["flow"]
-    assert golden.shape == (56, 128, 2) and golden.dtype == np.float32
+    assert golden.shape == shape and golden.dtype == np.float32
     i0p, i1p = _padded_pair(seed, shift)
     assert i0p.shape == (448, 1024, 3)
 
-    assert_flow_band(_jax_flow(i0p, i1p), golden)
-    got = dis_flow_padded(torch.as_tensor(i0p), torch.as_tensor(i1p),
-                          operating_point(2, width=WIDTH))
+    assert_flow_band(_jax_flow(i0p, i1p, op_point), golden)
+    cfg = operating_point(op_point, width=WIDTH)
+    got = dis_flow_padded(torch.as_tensor(i0p), torch.as_tensor(i1p), cfg)
     assert_flow_band(got.numpy(), golden)
-    # the texture moves by a multiple of 8 px: exactly (2, 1) px at 1/8
+    # the texture moves by a multiple of 8 px: exactly shift / 2^fs
     np.testing.assert_allclose(
         np.median(golden[4:-4, 4:-4].reshape(-1, 2), axis=0),
-        np.asarray(shift) / 8.0, atol=0.01)
+        np.asarray(shift) / 2 ** cfg.finest_scale, atol=0.01)
+
+
+def test_golden_matches_jax_and_port():
+    _check_golden(GOLDEN, 2, (56, 128, 2))
+
+
+def test_golden_op3_matches_jax_and_port():
+    _check_golden(GOLDEN_OP3, 3, (224, 512, 2))
 
 
 if __name__ == "__main__":
@@ -69,6 +80,8 @@ if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     i0p, i1p = _padded_pair(SEED, SHIFT)
-    np.savez_compressed(GOLDEN, flow=_jax_flow(i0p, i1p).astype(np.float32),
-                        seed=np.int64(SEED), shift=np.asarray(SHIFT, np.int64))
-    print("wrote", GOLDEN)
+    for path, op_point in ((GOLDEN, 2), (GOLDEN_OP3, 3)):
+        np.savez_compressed(
+            path, flow=_jax_flow(i0p, i1p, op_point).astype(np.float32),
+            seed=np.int64(SEED), shift=np.asarray(SHIFT, np.int64))
+        print("wrote", path)

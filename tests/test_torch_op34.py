@@ -1,0 +1,211 @@
+"""Operating points 1, 3 and 4 of the PyTorch port against the JAX package.
+
+The slice adds K4 (the var-ref loop over the whole card) and K5 (the
+var-ref warp), the resolver that sends each field to K3, K4 or the plain
+stencils, and ``compute_flow_timed``.  On the CPU the port runs each
+kernel's plain version; the JAX side runs its Pallas kernels in interpret
+mode, as the JAX package's own tests do.  Tolerances are stated per test.
+"""
+
+import dataclasses
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from scipy.ndimage import gaussian_filter
+
+import flowonthego_tpu as fot
+from flowonthego_tpu.config import DISConfig as JaxConfig
+from flowonthego_tpu.ops.patches import PatchGrid as JaxPatchGrid
+from flowonthego_tpu.ops.pallas.varref_fused import \
+    variational_refine_tiled as jax_varref_tiled
+from flowonthego_tpu.ops.pallas.warp import warp_image_banded
+from flowonthego_tpu.ops.variational import warp_image as jax_warp_image
+from flowonthego_tpu.parallel.frame_parallel import \
+    stream_flow as jax_stream_flow
+from flowonthego_tpu.utils.timing import PhaseTimer as JaxPhaseTimer
+
+import flowonthego_tpu_torch as port
+from flowonthego_tpu_torch.convert import config_from_jax
+from flowonthego_tpu_torch.ops import variational as pvar
+from flowonthego_tpu_torch.ops.cuda import varref_tiled, warp
+from flowonthego_tpu_torch.utils import timing
+from flowonthego_tpu_torch.utils.synth import synthetic_frames
+from test_torch_slice import assert_flow_band
+
+torch.set_num_threads(1)
+
+
+# ---------------------------------------------------------------- K5 warp
+
+@pytest.mark.parametrize("h,w,bound", [(60, 96, 6.0), (37, 64, 4.0)])
+def test_warp_matches_banded_and_gather(rng, h, w, bound):
+    """The port's warp (its plain version on CPU tensors) against JAX's
+    banded Pallas warp and its gather warp, as
+    tests/test_variational.py::test_warp_banded_matches_gather holds the
+    two JAX forms together.  Mask: equal.  Warped image: within atol 1e-3
+    of the banded form, which sums rows then columns (1-2 ulp of 0..255);
+    exact against the gather, which sums the four corners in the same
+    order.  Integer flows: exact against both (single-tap selects)."""
+    src = (rng.random((h, w, 3)) * 255).astype(np.float32)
+    wx = ((rng.random((h, w)) * 2 - 1) * bound).astype(np.float32)
+    wy = ((rng.random((h, w)) * 2 - 1) * bound).astype(np.float32)
+    got_w, got_m = warp.warp_image(*map(torch.as_tensor, (src, wx, wy)))
+    band_w, band_m = warp_image_banded(jnp.asarray(src), jnp.asarray(wx),
+                                       jnp.asarray(wy), bound, tile_rows=32,
+                                       interpret=True)
+    gat_w, gat_m = jax_warp_image(jnp.asarray(src), jnp.asarray(wx),
+                                  jnp.asarray(wy), force_onehot=False)
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(band_m))
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(gat_m))
+    np.testing.assert_allclose(got_w.numpy(), np.asarray(band_w), rtol=0,
+                               atol=1e-3)
+    np.testing.assert_array_equal(got_w.numpy(), np.asarray(gat_w))
+
+    wxi, wyi = np.round(wx), np.round(wy)
+    got_i, _ = warp.warp_image(*map(torch.as_tensor, (src, wxi, wyi)))
+    band_i, _ = warp_image_banded(jnp.asarray(src), jnp.asarray(wxi),
+                                  jnp.asarray(wyi), bound, tile_rows=32,
+                                  interpret=True)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(band_i))
+
+
+# ---------------------------------------------------------------- K4 var-ref
+
+@pytest.mark.parametrize("level,channels", [(0, 3), (1, 3), (0, 1), (1, 1)])
+def test_varref_tiled_matches_pallas_oracle(rng, level, channels):
+    """rtol 1e-4 / atol 1e-5, as tests/test_pallas_kernels.py holds JAX's
+    tiled form against its stencils: the TPU kernel uses rsqrt and sums
+    channels in another order.  Small tiles make JAX's grid real (row and
+    column tiles, image edges inside and outside tiles)."""
+    h, w = 61, 83
+    base = gaussian_filter(
+        rng.standard_normal((h + 8, w + 8, channels)).astype(np.float32),
+        sigma=(3, 3, 0)) * 120 + 128
+    im1, im2 = base[4:4 + h, 4:4 + w], base[4:4 + h, 3:3 + w]
+    flow = (0.3 * rng.standard_normal((h, w, 2)).astype(np.float32)
+            + np.array([1.0, 0.0], np.float32))
+    jc = JaxConfig()
+    ref = np.asarray(jax_varref_tiled(
+        jnp.asarray(flow), jnp.asarray(im1), jnp.asarray(im2), jc, level,
+        interpret=True, tile_rows=24, tile_cols=32))
+    got = varref_tiled.variational_refine_tiled(
+        *map(torch.as_tensor, (flow, im1, im2)),
+        config_from_jax(dataclasses.asdict(jc)), level)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------- resolver
+
+def test_varref_resolver():
+    cfg = port.operating_point(3)
+    n = pvar.FUSED_MAX_PIXELS
+    small, large = (1, n), (1, n + 1)
+    for shape in (small, large):
+        assert pvar.varref_backend_for(cfg, *shape, "cpu") == "xla"
+        plain = dataclasses.replace(cfg, varref_backend="xla")
+        assert pvar.varref_backend_for(plain, *shape, "cuda") == "xla"
+    assert pvar.varref_backend_for(cfg, *small, "cuda") == "fused"
+    assert pvar.varref_backend_for(cfg, *large, "cuda") == "tiled"
+    forced = dataclasses.replace(cfg, varref_backend="pallas")
+    assert pvar.varref_backend_for(forced, *large, "cuda") == "tiled"
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        pvar.varref_backend_for(forced, *small, "cpu")
+    # at 1024x448 the coarsest field (scale 5) goes to K3, the others to K4
+    assert 14 * 32 <= n < 28 * 64
+
+
+# ---------------------------------------------------------------- the slice
+
+@pytest.mark.parametrize("op_point,h,w", [(1, 96, 192), (3, 96, 192),
+                                          (4, 64, 128)])
+def test_compute_flow_op_matches_jax(op_point, h, w):
+    """The band of tests/test_torch_slice.py (mean EPE <= 1e-3 px, p99 <=
+    1e-2 px), and the median within 0.1 px of the known shift."""
+    i0, i1 = synthetic_frames(11, 2, h, w, (2, 1), factor=4)
+    ref = np.asarray(fot.compute_flow(i0, i1, op_point=op_point))
+    got = port.compute_flow(i0, i1, op_point=op_point).numpy()
+    assert_flow_band(got, ref)
+    np.testing.assert_allclose(
+        np.median(got[8:-8, 8:-8].reshape(-1, 2), axis=0), [2.0, 1.0],
+        atol=0.1)
+
+
+def test_stream_flow_op3_matches_jax():
+    frames = synthetic_frames(12, 3, 96, 192, (2, -1), factor=4)
+    cfg = port.operating_point(3, width=192)
+    ref = list(jax_stream_flow(iter(frames), fot.operating_point(3, width=192)))
+    got = list(port.stream_flow(iter(frames), cfg))
+    assert len(got) == len(ref) == 2
+    for g, r in zip(got, ref):
+        assert_flow_band(g, r)
+        np.testing.assert_allclose(
+            np.median(g[8:-8, 8:-8].reshape(-1, 2), axis=0), [2.0, -1.0],
+            atol=0.1)
+
+
+_SC = re.compile(r"^TIME \(Sc: (\d+), #p:\s*(\d+), pconst, pinit, poptim, "
+                 r"cflow, tvopt, total\):(\s+[-\d.]+){5} -> \s*[\d.]+ ms\.$")
+
+
+def test_compute_flow_timed_lines_and_flow():
+    """One ``TIME (Sc:`` line per scale in JAX's format, with the scale and
+    the patch count of JAX's grid; the pyramid, run-time and phase-report
+    lines; and compute_flow's flow (the same calls in the same order:
+    equal).  (JAX's own compute_flow_timed runs op by op, which costs
+    ~30 s on the CPU for these few lines, so its grid stands in.)"""
+    i0, i1 = synthetic_frames(13, 2, 48, 64, (2, 0), factor=4)
+    kw = dict(coarsest_scale=2, finest_scale=1, grad_descent_iter=4)
+    lines = []
+    got = port.compute_flow_timed(i0, i1, cfg=port.DISConfig(**kw),
+                                  printer=lines.append)
+    np.testing.assert_array_equal(
+        got.numpy(), port.compute_flow(i0, i1, port.DISConfig(**kw)).numpy())
+
+    jc = JaxConfig(**kw)
+    want = [(sl, JaxPatchGrid.create(jc, 64 >> sl, 48 >> sl).n_patches)
+            for sl in (2, 1)]
+    text = "\n".join(lines)
+    assert [tuple(map(int, m.groups()[:2]))
+            for m in map(_SC.match, text.splitlines()) if m] == want
+    for key in ("TIME (Pyramide+Gradients) (ms):",
+                "TIME (O.Flow Run-Time   ) (ms):", "Timings (ms)", "[opti",
+                "[aggregate", "[var_ref"):
+        assert key in text
+    fb = port.DISConfig(**kw, use_fb_consistency=True)
+    with pytest.raises(NotImplementedError, match="forward-backward"):
+        port.compute_flow_timed(i0, i1, cfg=fb, printer=lines.append)
+
+
+def test_profile_categories():
+    """profile_paths files each device kernel under its own row (K3's
+    kernel, ``varref_kernel``, must not catch K4's)."""
+    from flowonthego_tpu_torch.profile_paths import category
+    names = {"(anonymous namespace)::dis_gn_kernel(float const*, int)": "K2 gn",
+             "(anonymous namespace)::varref_tiled_kernel(float const*)": "K4",
+             "(anonymous namespace)::varref_kernel(float const*)": "K3",
+             "(anonymous namespace)::warp_kernel(float const*)": "K5 warp",
+             "void (anonymous namespace)::pool2x2_kernel<float>()": "K1 pool",
+             "Memcpy HtoD (Pageable -> Device)": "copies",
+             "void at::native::elementwise_kernel<128, 2>()":
+                 "small torch kernels"}
+    assert {n: category(n) for n in names} == names
+
+
+def test_timing_helpers():
+    """PhaseTimer counts and reports as JAX's does; warmup and time_fn run
+    on the CPU, where the sync is a no-op."""
+    timers = JaxPhaseTimer(), timing.PhaseTimer(torch.device("cpu"))
+    for t in timers:
+        for name in ("pyramid", "opti", "opti"):
+            with t.phase(name):
+                pass
+        assert dict(t.counts) == {"pyramid": 1, "opti": 2}
+        t.totals.update(pyramid=1.5, opti=12.25)
+    assert timers[1].report() == timers[0].report()
+    timing.warmup("cpu")
+    calls = []
+    assert timing.time_fn(calls.append, 1, iters=3, warmup_iters=1) >= 0.0
+    assert calls == [1] * 4

@@ -76,6 +76,28 @@ def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
     assert _build._library is None
 
 
+def test_library_name_follows_sources_and_headers(monkeypatch, tmp_path):
+    """The library is named by every csrc/*.cu and *.cuh, so an edited
+    header builds anew; only the .cu files are compiled."""
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    first = _build.library_path()
+    assert _build.sources() == [tmp_path / "k.cu"]
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    assert _build.library_path() != first
+
+
+def test_parallel_build_reports_every_failure():
+    with pytest.raises(_build.KernelBuildError) as err:
+        _build._run_all([["sh", "-c", "exit 0"],
+                         ["sh", "-c", "echo first; exit 3"],
+                         ["sh", "-c", "echo second; exit 4"]])
+    msg = str(err.value)
+    assert "exited with 3" in msg and "first" in msg
+    assert "exited with 4" in msg and "second" in msg
+
+
 def test_flo_roundtrip_and_metrics(tmp_path, rng):
     flow = rng.standard_normal((7, 9, 2)).astype(np.float32)
     path = tmp_path / "f.flo"
