@@ -21,8 +21,21 @@ Phases (any failure raises and the script exits non-zero):
      1024x436 frames) and op 1 (``compute_flow`` on the first pair); then
      the same inputs through the plain path on the card, the op-2 and
      op-3 1024x448 finest-scale flows against the JAX goldens in
-     ``tests/data`` (the GPU run needs no JAX), and one
-     ``compute_flow_timed`` op-4 call with its TIME lines.
+     ``tests/data`` (the GPU run needs no JAX), the op-2 finest flows with
+     forward-backward consistency and with the l1 cost and ``min_iter=4``
+     against their JAX goldens, and one ``compute_flow_timed`` op-4 call
+     with its TIME lines;
+  5. K2-K5 against their plain versions at C = 1 (the gray and gradmag
+     modes' shapes), timed;
+  6. the command line at full width on that pair written as PPM files:
+     ``python -m flowonthego_tpu_torch`` once as a user runs it (op 2 with
+     ``--viz``), then ``cli.run`` in-process for every mode (``--fb``,
+     ``--cost huber``, ``--cost l1 --min-iter 4``, ``--densify-weight
+     abs``, ``--channels gray|gradmag``, ``--mode depth`` on a horizontal
+     pair, the 13-parameter form at verbosity 2 with ``--fb``), each with
+     the counters from zero, held to the known motion and against the
+     same command with a plain-path config, and the ``--fb`` flow run
+     twice and compared bit for bit.
 It prints one JSON line of per-kernel results and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
 prints no result.
@@ -44,6 +57,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = {op: os.path.join(REPO, "tests", "data",
                            f"torch_port_golden_op{op}_1024x448.npz")
           for op in (2, 3)}
+# op-2 goldens of two modes: (file, config fields)
+GOLDEN_MODES = {
+    "fb": ("torch_port_golden_op2_fb_1024x448.npz",
+           dict(use_fb_consistency=True)),
+    "l1 min_iter 4": ("torch_port_golden_op2_l1_1024x448.npz",
+                      dict(cost_fn="l1", min_iter=4)),
+}
 
 # Kernel-vs-plain tolerances (the CPU tests' bounds against JAX).
 TOL_POOL = dict(rtol=1e-6, atol=1e-4)
@@ -70,6 +90,25 @@ SMALL_SHIFT = (2, 2)
 # between the first two, where the two kernels cross.
 SWEEP = ((14, 32, 5), (28, 32, 4), (28, 48, 4), (28, 64, 4), (56, 128, 3),
          (112, 256, 2), (224, 512, 1))
+# The command line's runs: (name, arguments after the three paths,
+# kernels that must launch, kernels that must not).  The robust costs and
+# min_iter take the reference-form solve (no K2), as in the JAX package;
+# depth runs the pyramid (K1) and a 1-D solve with no refinement.
+ALL = ("pool", "gn", "varref", "varref_tiled", "warp")
+NO_GN = ("pool", "varref", "varref_tiled", "warp")
+CLI_RUNS = (
+    ("fb", ["2", "--fb"], ALL, ()),
+    ("cost huber", ["2", "--cost", "huber"], NO_GN, ("gn",)),
+    ("cost l1 min-iter 4", ["2", "--cost", "l1", "--min-iter", "4"], NO_GN,
+     ("gn",)),
+    ("densify-weight abs", ["2", "--densify-weight", "abs"], ALL, ()),
+    ("channels gray", ["2", "--channels", "gray"], ALL, ()),
+    ("channels gradmag", ["2", "--channels", "gradmag"], ALL, ()),
+    ("mode depth", ["2", "--mode", "depth"], ("pool",), NO_GN[1:] + ("gn",)),
+    ("13-param verbosity 2 fb",
+     "5 3 12 8 0.4 1 1 10 10 5 3 1.6 2 --fb".split(), ALL, ()),
+)
+DEPTH_SHIFT = (-16, 0)   # a horizontal pair: disparity <= 0 (cam 0)
 
 
 def log(*args):
@@ -122,8 +161,36 @@ def flow_band(got, ref, what):
     assert mean <= BAND_MEAN and p99 <= BAND_P99, what
 
 
+def plain(cfg):
+    """``cfg`` on the plain path: every kernel's plain PyTorch version."""
+    return dataclasses.replace(cfg, gn_backend="xla", varref_backend="xla")
+
+
+def kernel_modules():
+    from flowonthego_tpu_torch.ops.cuda import (dis_gn, pool, varref_fused,
+                                                varref_tiled, warp)
+    return {"pool": pool, "gn": dis_gn, "varref": varref_fused,
+            "varref_tiled": varref_tiled, "warp": warp}
+
+
+def counted(name, fn, expect, absent=()):
+    """Run one path with the launch counters from zero; check that every
+    kernel in ``expect`` launched and none in ``absent``; return (result,
+    counts)."""
+    wrappers = kernel_modules()
+    for m in wrappers.values():
+        m.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {k: m.launches for k, m in wrappers.items()}
+    log(f"{name} launches: {counts}")
+    assert all(counts[k] > 0 for k in expect), (name, counts)
+    assert not any(counts[k] for k in absent), (name, counts)
+    return out, counts
+
+
 def check_shift(flow, shift, border, what):
-    inner = flow[border:-border, border:-border].reshape(-1, 2)
+    inner = flow[border:-border, border:-border].reshape(-1, len(shift))
     med = inner.median(dim=0).values.cpu().numpy()
     log(f"  {what}: median flow {med.tolist()} vs shift {list(shift)}")
     assert np.abs(med - np.asarray(shift)).max() <= SHIFT_TOL, what
@@ -131,15 +198,59 @@ def check_shift(flow, shift, border, what):
 
 # ------------------------------------------------------------------ kernels
 
-def kernel_phase(dev):
+# K2 at the op-2 scales with 448 (1024x448, scale 3) and 510 (4K, scale 5)
+# patches, cold and warm; at op 4's scale 1 of 1024x448 (ps 12, 128
+# iterations, 12,825 patches), warm
+GN_SHAPES = ((2, 56, 128, ("cold", "warm")), (2, 68, 120, ("cold", "warm")),
+             (4, 224, 512, ("warm",)))
+
+
+def gn_inputs(dev, op, h, w, g, channels=3):
+    """K2's arguments at one scale of operating point ``op``: (cfg, grid,
+    {"cold"/"warm": positional args}, keyword args)."""
     from flowonthego_tpu_torch import operating_point
     from flowonthego_tpu_torch.ops import dis as dis_mod
-    from flowonthego_tpu_torch.ops.cuda import (dis_gn, pool, varref_fused,
-                                                varref_tiled, warp)
     from flowonthego_tpu_torch.ops.patches import (
         PatchGrid, extract_templates_and_hessians)
     from flowonthego_tpu_torch.ops.pyramid import build_pyramid
     from flowonthego_tpu_torch.utils.synth import synthetic_frames
+    cfg = operating_point(op)
+    i0, i1 = synthetic_frames(1, 2, h, w, (1, 1), channels=channels,
+                              factor=4)
+    lvl0 = build_pyramid(torch.as_tensor(i0, device=dev), 1, cfg.padding)[0]
+    lvl1 = build_pyramid(torch.as_tensor(i1, device=dev), 1, cfg.padding)[0]
+    grid = PatchGrid.create(cfg, w, h)
+    cold = dis_mod.init_state(*extract_templates_and_hessians(
+        lvl0.image, lvl0.grad_x, lvl0.grad_y, grid, cfg), grid)
+    coarse = (torch.randn((h // 2, w // 2, 2), generator=g) * 2.0).to(dev)
+    states = {"cold": cold,
+              "warm": dis_mod.init_from_coarser(cold, coarse, grid)}
+    args = {name: (lvl1.image, st.templates, st.tgrad_x, st.tgrad_y, st.H,
+                   st.mid_org, st.p_cur, st.p_org, ~st.converged)
+            for name, st in states.items()}
+    kw = dict(n_iters=cfg.grad_descent_iter, padding=grid.padding,
+              thresh=cfg.outlier_thresh, l_bound=grid.l_bound,
+              ub_w=grid.u_bound_w, ub_h=grid.u_bound_h, mean_on=1.0)
+    return cfg, grid, args, kw
+
+
+def varref_inputs(dev, cfg, h, w, g, seed=2, channels=3):
+    """The var-ref loop's planes for a flow near (1, 0) on a seeded pair."""
+    from flowonthego_tpu_torch.ops.cuda import varref_fused
+    from flowonthego_tpu_torch.utils.synth import synthetic_frames
+    i0, i1 = synthetic_frames(seed, 2, h, w, (1, 0), channels=channels,
+                              factor=4)
+    flow = ((torch.randn((h, w, 2), generator=g) * 0.3
+             + torch.tensor([1.0, 0.0])).to(dev))
+    return varref_fused.warp_and_derivs(
+        flow, torch.as_tensor(i0, device=dev),
+        torch.as_tensor(i1, device=dev), cfg)
+
+
+def kernel_phase(dev):
+    from flowonthego_tpu_torch import operating_point
+    from flowonthego_tpu_torch.ops.cuda import (dis_gn, pool, varref_fused,
+                                                varref_tiled, warp)
 
     g = torch.Generator().manual_seed(0)
     results = {}
@@ -166,90 +277,78 @@ def kernel_phase(dev):
         log(line)
     results["pool"]["max_abs_err"] = max(errs)
 
-    # K2 at the op-2 scales with 448 (1024x448, scale 3) and 510 (4K,
-    # scale 5) patches, cold and warm; at op 4's scale 1 of 1024x448
-    # (ps 12, 128 iterations, 12,825 patches), warm
+    # K2 at GN_SHAPES, at C = 3 and at C = 1 (the gray and gradmag modes;
+    # 64 threads = 2 warps per patch at ps 8); C = 1 draws from g1, so the
+    # C = 3 inputs stay as they were
+    g1 = torch.Generator().manual_seed(1)
     errs = []
-    for op, h, w, names in ((2, 56, 128, ("cold", "warm")),
-                            (2, 68, 120, ("cold", "warm")),
-                            (4, 224, 512, ("warm",))):
-        cfg = operating_point(op)
-        i0, i1 = synthetic_frames(1, 2, h, w, (1, 1), factor=4)
-        lvl0 = build_pyramid(torch.as_tensor(i0, device=dev), 1, cfg.padding)[0]
-        lvl1 = build_pyramid(torch.as_tensor(i1, device=dev), 1, cfg.padding)[0]
-        grid = PatchGrid.create(cfg, w, h)
-        cold = dis_mod.init_state(*extract_templates_and_hessians(
-            lvl0.image, lvl0.grad_x, lvl0.grad_y, grid, cfg), grid)
-        coarse = (torch.randn((h // 2, w // 2, 2), generator=g) * 2.0).to(dev)
-        states = {"cold": cold,
-                  "warm": dis_mod.init_from_coarser(cold, coarse, grid)}
-        for name in names:
-            st = states[name]
-            args = (lvl1.image, st.templates, st.tgrad_x, st.tgrad_y, st.H,
-                    st.mid_org, st.p_cur, st.p_org, ~st.converged)
-            kw = dict(n_iters=cfg.grad_descent_iter, padding=grid.padding,
-                      thresh=cfg.outlier_thresh, l_bound=grid.l_bound,
-                      ub_w=grid.u_bound_w, ub_h=grid.u_bound_h, mean_on=1.0)
-            p, cost = dis_gn.gn_scale_loop(*args, **kw)
-            rp, rcost = dis_gn.gn_scale_loop_plain(*args, **kw)
-            torch.cuda.synchronize()
-            line = (f"K2 gn op {op} {h}x{w} ({grid.n_patches} patches, "
-                    f"{cfg.grad_descent_iter} iterations, {name}): "
-                    f"p max_abs_err {max_err(p, rp):.3g}, cost max_abs_err "
-                    f"{max_err(cost, rcost):.3g}")
-            if op == 2:
-                torch.testing.assert_close(p, rp, **TOL_GN_P)
-                torch.testing.assert_close(cost, rcost, **TOL_GN_COST)
-                errs.append(max_err(p, rp))
-            else:
-                off_p = share_off(p, rp, **TOL_GN_P)
-                off_c = share_off(cost, rcost, **TOL_GN_COST)
-                line += (f"; patches outside tolerance: p {off_p:.3g}, "
-                         f"cost {off_c:.3g} (bound {GN_FLIP_SHARE:g})")
-                assert off_p <= GN_FLIP_SHARE and off_c <= GN_FLIP_SHARE, line
-            if (op, h, name) == (2, 68, "cold"):
-                ms = cuda_ms(lambda: dis_gn.gn_scale_loop(*args, **kw), 50)
-                plain_ms = cuda_ms(
-                    lambda: dis_gn.gn_scale_loop_plain(*args, **kw), 10)
-                results["gn"] = dict(ms=ms, plain_ms=plain_ms)
-                line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-            if op == 4:
-                ms = cuda_ms(lambda: dis_gn.gn_scale_loop(*args, **kw), 10)
-                plain_ms = cuda_ms(
-                    lambda: dis_gn.gn_scale_loop_plain(*args, **kw), 1, 1)
-                line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-            log(line)
+    for C, gen in ((3, g), (1, g1)):
+        for op, h, w, names in GN_SHAPES:
+            cfg, grid, gn_args, kw = gn_inputs(dev, op, h, w, gen, C)
+            for name in names:
+                args = gn_args[name]
+                p, cost = dis_gn.gn_scale_loop(*args, **kw)
+                rp, rcost = dis_gn.gn_scale_loop_plain(*args, **kw)
+                torch.cuda.synchronize()
+                line = (f"K2 gn C={C} op {op} {h}x{w} ({grid.n_patches} "
+                        f"patches, {cfg.grad_descent_iter} iterations, "
+                        f"{name}): p max_abs_err {max_err(p, rp):.3g}, "
+                        f"cost max_abs_err {max_err(cost, rcost):.3g}")
+                if op == 2:
+                    torch.testing.assert_close(p, rp, **TOL_GN_P)
+                    torch.testing.assert_close(cost, rcost, **TOL_GN_COST)
+                    errs.append(max_err(p, rp))
+                else:
+                    off_p = share_off(p, rp, **TOL_GN_P)
+                    off_c = share_off(cost, rcost, **TOL_GN_COST)
+                    line += (f"; patches outside tolerance: p {off_p:.3g}, "
+                             f"cost {off_c:.3g} (bound {GN_FLIP_SHARE:g})")
+                    assert max(off_p, off_c) <= GN_FLIP_SHARE, line
+                if (op, h, name) == (2, 68, "cold"):
+                    ms = cuda_ms(
+                        lambda: dis_gn.gn_scale_loop(*args, **kw), 50)
+                    plain_ms = cuda_ms(
+                        lambda: dis_gn.gn_scale_loop_plain(*args, **kw), 10)
+                    if C == 3:
+                        results["gn"] = dict(ms=ms, plain_ms=plain_ms)
+                    line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                if op == 4:
+                    ms = cuda_ms(
+                        lambda: dis_gn.gn_scale_loop(*args, **kw), 10)
+                    plain_ms = cuda_ms(
+                        lambda: dis_gn.gn_scale_loop_plain(*args, **kw), 1, 1)
+                    line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                log(line)
     results["gn"]["max_abs_err"] = max(errs)
 
-    def varref_planes(cfg, h, w, seed=2):
-        i0, i1 = synthetic_frames(seed, 2, h, w, (1, 0), factor=4)
-        flow = ((torch.randn((h, w, 2), generator=g) * 0.3
-                 + torch.tensor([1.0, 0.0])).to(dev))
-        return varref_fused.warp_and_derivs(
-            flow, torch.as_tensor(i0, device=dev),
-            torch.as_tensor(i1, device=dev), cfg)
+    def varref_planes(cfg, h, w, seed=2, C=3):
+        return varref_inputs(dev, cfg, h, w, g if C == 3 else g1, seed, C)
 
     # K3 on the fields it gets on the main paths: the coarsest of 1024x448
-    # (14x32, level 5; ops 2-4) and of the 4K stream (17x30, level 7)
+    # (14x32, level 5; ops 2-4) and of the 4K stream (17x30, level 7); at
+    # C = 3 and C = 1
     cfg = operating_point(2)
     errs = []
-    for h, w, level in ((14, 32, 5), (17, 30, 7)):
-        P = varref_planes(cfg, h, w)
-        uu, vv = varref_fused.refine_inner(*P, cfg, level + 1)
-        ru, rv = varref_fused.refine_inner_plain(*P, cfg, level + 1)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(uu, ru, **TOL_VARREF)
-        torch.testing.assert_close(vv, rv, **TOL_VARREF)
-        errs.append(max(max_err(uu, ru), max_err(vv, rv)))
-        line = f"K3 varref {h}x{w} level {level}: max_abs_err {errs[-1]:.3g}"
-        if level == 5:
-            ms = cuda_ms(lambda: varref_fused.refine_inner(
-                *P, cfg, level + 1), 20)
-            plain_ms = cuda_ms(lambda: varref_fused.refine_inner_plain(
-                *P, cfg, level + 1), 5)
-            results["varref"] = dict(ms=ms, plain_ms=plain_ms)
-            line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-        log(line)
+    for C in (3, 1):
+        for h, w, level in ((14, 32, 5), (17, 30, 7)):
+            P = varref_planes(cfg, h, w, C=C)
+            uu, vv = varref_fused.refine_inner(*P, cfg, level + 1)
+            ru, rv = varref_fused.refine_inner_plain(*P, cfg, level + 1)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(uu, ru, **TOL_VARREF)
+            torch.testing.assert_close(vv, rv, **TOL_VARREF)
+            errs.append(max(max_err(uu, ru), max_err(vv, rv)))
+            line = (f"K3 varref C={C} {h}x{w} level {level}: max_abs_err "
+                    f"{errs[-1]:.3g}")
+            if level == 5:
+                ms = cuda_ms(lambda: varref_fused.refine_inner(
+                    *P, cfg, level + 1), 20)
+                plain_ms = cuda_ms(lambda: varref_fused.refine_inner_plain(
+                    *P, cfg, level + 1), 5)
+                if C == 3:
+                    results["varref"] = dict(ms=ms, plain_ms=plain_ms)
+                line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            log(line)
     results["varref"]["max_abs_err"] = max(errs)
 
     # K4 at op-3/op-4 scale 1 and op-4 scale 0 of 1024x448 against the
@@ -257,23 +356,26 @@ def kernel_phase(dev):
     # field and the op-3 scale-2 field
     cfg = operating_point(3)
     errs = []
-    for h, w, level in ((224, 512, 1), (448, 1024, 0)):
-        P = varref_planes(cfg, h, w)
-        uu, vv = varref_tiled.refine_inner_tiled(*P, cfg, level + 1)
-        ru, rv = varref_tiled.refine_inner_plain(*P, cfg, level + 1)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(uu, ru, **TOL_VARREF)
-        torch.testing.assert_close(vv, rv, **TOL_VARREF)
-        errs.append(max(max_err(uu, ru), max_err(vv, rv)))
-        line = f"K4 varref {h}x{w} level {level}: max_abs_err {errs[-1]:.3g}"
-        if level == 0:
-            ms = cuda_ms(lambda: varref_tiled.refine_inner_tiled(
-                *P, cfg, level + 1), 20)
-            plain_ms = cuda_ms(lambda: varref_tiled.refine_inner_plain(
-                *P, cfg, level + 1), 3)
-            results["varref_tiled"] = dict(ms=ms, plain_ms=plain_ms)
-            line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-        log(line)
+    for C in (3, 1):
+        for h, w, level in ((224, 512, 1), (448, 1024, 0)):
+            P = varref_planes(cfg, h, w, C=C)
+            uu, vv = varref_tiled.refine_inner_tiled(*P, cfg, level + 1)
+            ru, rv = varref_tiled.refine_inner_plain(*P, cfg, level + 1)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(uu, ru, **TOL_VARREF)
+            torch.testing.assert_close(vv, rv, **TOL_VARREF)
+            errs.append(max(max_err(uu, ru), max_err(vv, rv)))
+            line = (f"K4 varref C={C} {h}x{w} level {level}: max_abs_err "
+                    f"{errs[-1]:.3g}")
+            if level == 0:
+                ms = cuda_ms(lambda: varref_tiled.refine_inner_tiled(
+                    *P, cfg, level + 1), 20)
+                plain_ms = cuda_ms(lambda: varref_tiled.refine_inner_plain(
+                    *P, cfg, level + 1), 3)
+                if C == 3:
+                    results["varref_tiled"] = dict(ms=ms, plain_ms=plain_ms)
+                line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            log(line)
     results["varref_tiled"]["max_abs_err"] = max(errs)
     for h, w, level in ((68, 120, 5), (112, 256, 2)):
         P = varref_planes(cfg, h, w)
@@ -297,21 +399,26 @@ def kernel_phase(dev):
     # K5 at op-4 scale 0 of 1024x448 (timed) and a ragged field; flows of
     # +-(outlier_thresh + 2) px, so border clamps fire
     bound = cfg.outlier_thresh + 2.0
-    for h, w, timed in ((448, 1024, True), (37, 61, False)):
-        src = (torch.rand((h, w, 3), generator=g) * 255).to(dev)
-        wx, wy = (((torch.rand((h, w), generator=g) * 2 - 1) * bound).to(dev)
-                  for _ in range(2))
-        got, gm = warp.warp_image(src, wx, wy)
-        ref, rm = warp.warp_image_plain(src, wx, wy)
-        torch.cuda.synchronize()
-        assert torch.equal(got, ref) and torch.equal(gm, rm), "K5 not exact"
-        line = f"K5 warp {h}x{w}x3 |flow| <= {bound:g}: bit-exact"
-        if timed:
-            ms = cuda_ms(lambda: warp.warp_image(src, wx, wy), 50)
-            plain_ms = cuda_ms(lambda: warp.warp_image_plain(src, wx, wy), 20)
-            results["warp"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0)
-            line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-        log(line)
+    for C, gen in ((3, g), (1, g1)):
+        for h, w, timed in ((448, 1024, True), (37, 61, False)):
+            src = (torch.rand((h, w, C), generator=gen) * 255).to(dev)
+            wx, wy = (((torch.rand((h, w), generator=gen) * 2 - 1) * bound)
+                      .to(dev) for _ in range(2))
+            got, gm = warp.warp_image(src, wx, wy)
+            ref, rm = warp.warp_image_plain(src, wx, wy)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref) and torch.equal(gm, rm), \
+                "K5 not exact"
+            line = f"K5 warp {h}x{w}x{C} |flow| <= {bound:g}: bit-exact"
+            if timed:
+                ms = cuda_ms(lambda: warp.warp_image(src, wx, wy), 50)
+                plain_ms = cuda_ms(
+                    lambda: warp.warp_image_plain(src, wx, wy), 20)
+                if C == 3:
+                    results["warp"] = dict(ms=ms, plain_ms=plain_ms,
+                                           max_abs_err=0.0)
+                line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            log(line)
     return results
 
 
@@ -321,28 +428,9 @@ def slice_phase(dev):
     import flowonthego_tpu_torch as port
     from flowonthego_tpu_torch.config import pad_to_divisible
     from flowonthego_tpu_torch.models.dis_flow import dis_flow_padded
-    from flowonthego_tpu_torch.ops.cuda import (dis_gn, pool, varref_fused,
-                                                varref_tiled, warp)
     from flowonthego_tpu_torch.ops.pyramid import pad_replicate
     from flowonthego_tpu_torch.utils.synth import (synthetic_frames,
                                                    synthetic_pair)
-    wrappers = {"pool": pool, "gn": dis_gn, "varref": varref_fused,
-                "varref_tiled": varref_tiled, "warp": warp}
-
-    def plain(cfg):
-        return dataclasses.replace(cfg, gn_backend="xla", varref_backend="xla")
-
-    def counted(name, fn, expect):
-        """Run one path with the counters from zero; check that every
-        kernel in ``expect`` launched; return (result, counts)."""
-        for m in wrappers.values():
-            m.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        counts = {k: m.launches for k, m in wrappers.items()}
-        log(f"{name} launches: {counts}")
-        assert all(counts[k] > 0 for k in expect), (name, counts)
-        return out, counts
 
     def padded_frames(stream, cfg, seed):
         h, w, factor, shift, n = stream
@@ -413,11 +501,10 @@ def slice_phase(dev):
     (pair1, ms1), n_pair1 = counted(
         "op 1 compute_flow 1024x436 x11",
         lambda: timed_pair(cfg[1], 10, (i0, i1)),
-        ("pool", "gn"))
-    assert not any(n_pair1[k] for k in ("varref", "varref_tiled", "warp"))
+        ("pool", "gn"), ("varref", "varref_tiled", "warp"))
     launches = {k: sum(n[k] for n in (n_pair2, n_4k, n_pair4, n_pair4s,
                                       n_op3, n_pair1))
-                for k in wrappers}
+                for k in n_pair1}
 
     # ---- checks: finite, known motion, plain path, JAX goldens ----
     for op, pair, motion, flow, ms, reps in (
@@ -438,6 +525,12 @@ def slice_phase(dev):
         fin = dis_flow_padded(i0p, i1p, cfg[op])
         flow_band(fin, torch.as_tensor(golden[op]["flow"], device=dev),
                   f"op {op} 1024x448 finest flow vs JAX golden")
+    for what, (name, fields) in GOLDEN_MODES.items():
+        g = np.load(os.path.join(REPO, "tests", "data", name))
+        assert int(g["seed"]) == seed and tuple(g["shift"]) == shift
+        fin = dis_flow_padded(i0p, i1p, dataclasses.replace(cfg[2], **fields))
+        flow_band(fin, torch.as_tensor(g["flow"], device=dev),
+                  f"op 2 {what} 1024x448 finest flow vs JAX golden")
 
     for what, frames, cfg_s, flows, ms, motion, border in (
             ("op 2 4K", frames_4k, cfg_4k, flows_4k, ms_4k, STREAM_4K[3], 64),
@@ -458,6 +551,108 @@ def slice_phase(dev):
     timed = port.compute_flow_timed(i0, i1, cfg[4],
                                     printer=lambda s: log("  " + s))
     flow_band(timed, pair4, "compute_flow_timed vs compute_flow")
+    return launches
+
+
+# ------------------------------------------------------------------ CLI
+
+def cli_phase(dev):
+    """The command line at full width on the golden pair, written as PPM
+    files; returns the launches of its runs."""
+    import tempfile
+
+    from flowonthego_tpu_torch import cli, load_image, read_flo, read_pfm
+    from flowonthego_tpu_torch.io.images import save_image
+    from flowonthego_tpu_torch.utils.synth import synthetic_pair
+
+    g = np.load(GOLDEN[2])
+    seed, shift = int(g["seed"]), tuple(int(s) for s in g["shift"])
+    launches = dict.fromkeys(kernel_modules(), 0)
+    with tempfile.TemporaryDirectory() as d:
+        pairs = {}
+        for tag, motion in (("flow", shift), ("depth", DEPTH_SHIFT)):
+            pairs[tag] = [os.path.join(d, f"{k}_{tag}.ppm") for k in "ab"]
+            for path, img in zip(pairs[tag],
+                                 synthetic_pair(seed, 436, 1024, motion)):
+                save_image(path, img)
+        log(f"CLI inputs: 1024x436 uint8 PPM pairs moving {shift} and "
+            f"{DEPTH_SHIFT} px")
+
+        def check(out, what, motion):
+            res = read_pfm(out) if out.endswith(".pfm") else read_flo(out)
+            res = torch.as_tensor(res)
+            shape = (436, 1024) + ((2,) if len(motion) == 2 else ())
+            assert tuple(res.shape) == shape, (what, tuple(res.shape))
+            assert torch.isfinite(res).all(), what
+            check_shift(res, motion, 16, f"{what} vs known motion")
+            return res
+
+        # as a user runs it, in a process of its own
+        out, viz = os.path.join(d, "op2.flo"), os.path.join(d, "op2.ppm")
+        argv = [sys.executable, "-m", "flowonthego_tpu_torch",
+                *pairs["flow"], out, "2", "--viz", viz]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=REPO, capture_output=True, text=True,
+                              timeout=600)
+        ms = (time.perf_counter() - t0) * 1e3
+        log(f"python -m flowonthego_tpu_torch ... 2 --viz: rc "
+            f"{proc.returncode}, {ms:.1f} ms for the process; it printed:")
+        for line in (proc.stdout + proc.stderr).splitlines():
+            log("  " + line)
+        assert proc.returncode == 0, "python -m flowonthego_tpu_torch failed"
+        check(out, "CLI op 2 (process)", shift)
+        assert load_image(viz).shape == (436, 1024, 3)
+
+        def timed_run(cmd):
+            t0 = time.perf_counter()
+            rc = cli.run(cmd)
+            return rc, (time.perf_counter() - t0) * 1e3
+
+        fb_first = None
+        for name, args, expect, absent in CLI_RUNS:
+            depth = "depth" in args
+            suffix = ".pfm" if depth else ".flo"
+            motion = DEPTH_SHIFT[:1] if depth else shift
+            src = pairs["depth" if depth else "flow"]
+            cmd = cli.parse_command(
+                src + [os.path.join(d, name.replace(" ", "_") + suffix)]
+                + args)
+            (rc, ms), counts = counted(f"CLI {name}", lambda: timed_run(cmd),
+                                       expect, absent)
+            assert rc == 0, name
+            for k in launches:
+                launches[k] += counts[k]
+            got = check(cmd.out, f"CLI {name}", motion)
+            if depth:
+                assert (got <= 0).all(), "disparity not sign-clamped"
+            ref_cmd = dataclasses.replace(
+                cmd, out=os.path.join(d, "plain" + suffix),
+                overrides=dict(cmd.overrides, gn_backend="xla",
+                               varref_backend="xla"))
+            rc, plain_ms = timed_run(ref_cmd)
+            assert rc == 0, name
+            ref = check(ref_cmd.out, f"CLI {name} plain path", motion)
+            if depth:
+                got, ref = (torch.stack([x, torch.zeros_like(x)], -1)
+                            for x in (got, ref))
+            flow_band(got, ref, f"CLI {name} kernels vs plain path")
+            log(f"CLI {name}: {ms:.3f} ms/call with the kernels, "
+                f"{plain_ms:.3f} ms/call on the plain path (host clock, "
+                "from reading the PPMs to writing the output)")
+            if name == "fb":
+                fb_first = got
+        # the forward-backward merge is deterministic on the card
+        cmd = cli.parse_command(pairs["flow"]
+                                + [os.path.join(d, "fb_again.flo"), "2",
+                                   "--fb"])
+        (rc, _), counts = counted("CLI fb again", lambda: timed_run(cmd),
+                                  ALL)
+        for k in launches:
+            launches[k] += counts[k]
+        again = torch.as_tensor(read_flo(cmd.out))
+        assert rc == 0 and torch.equal(again, fb_first), \
+            "--fb flow differs between two runs"
+        log("CLI fb: two runs bit-identical")
     return launches
 
 
@@ -487,6 +682,8 @@ def main() -> int:
 
     kernels = kernel_phase(dev)
     launches = slice_phase(dev)
+    for k, n in cli_phase(dev).items():
+        launches[k] += n
 
     src = "flowonthego_tpu_torch/csrc/"
     pallas = "flowonthego_tpu/ops/pallas/"

@@ -9,15 +9,19 @@ PyTorch versions.  This package never imports JAX.
 """
 
 from .config import DISConfig, auto_coarsest_scale, operating_point, pad_to_divisible
-from .io import read_flo, write_flo
+from .io import (flow_to_color, load_image, read_flo, read_pfm, save_image,
+                 write_flo, write_pfm)
 from .models.dis_flow import (DISFlow, compute_flow, compute_flow_timed,
                               dis_flow_padded)
+from .models.stereo import compute_disparity
+from .ops.channels import prepare_input
 from .parallel.frame_parallel import stream_flow
 from .utils.metrics import average_epe, endpoint_error
 
 __all__ = [
     "DISConfig", "operating_point", "auto_coarsest_scale", "pad_to_divisible",
     "DISFlow", "compute_flow", "compute_flow_timed", "dis_flow_padded",
-    "stream_flow",
-    "read_flo", "write_flo", "average_epe", "endpoint_error",
+    "stream_flow", "compute_disparity", "prepare_input",
+    "read_flo", "write_flo", "read_pfm", "write_pfm", "load_image",
+    "save_image", "flow_to_color", "average_epe", "endpoint_error",
 ]

@@ -4,8 +4,10 @@
     pad to 2^coarsest divisibility -> image+gradient pyramids ->
     per scale (coarse to fine):
         extract templates+Hessians -> warm start from the coarser flow ->
-        inverse-search optimize (K2) -> densify -> variational refinement
-        (warp K5, then K3 or K4 by field size)
+        inverse-search optimize (K2, or the reference form for robust
+        costs) -> densify -> variational refinement (warp K5, then K3 or
+        K4 by field size); with forward-backward consistency the same for
+        the backward grid, merged in densify
     -> upsample the finest flow to input resolution -> crop the padding.
 
 PyTorch runs eagerly, so there is no jitted variant: every function here
@@ -83,32 +85,55 @@ def dis_flow_from_pyramids(pyr0, pyr1, cfg: DISConfig,
     phase = timer.phase if timer is not None else (
         lambda name: contextlib.nullcontext())
 
+    def make_state(lvl, grid):
+        templates, gx, gy, Hs = extract_templates_and_hessians(
+            lvl.image, lvl.grad_x, lvl.grad_y, grid, cfg)
+        return dis_mod.init_state(templates, gx, gy, Hs, grid)
+
+    # Forward-backward consistency: the complementary I1->I0 grid is
+    # optimized beside the forward one, each densification merges the
+    # other's reversed flow, and the backward chain (warm-started only from
+    # its own coarser flow) stops at the finest scale, where nothing reads
+    # it.  Under a timer both directions run inside the same phase.
+    fb = cfg.use_fb_consistency
     flow = None
+    flow_bw = None
     for sl in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
         w_sl, h_sl = W >> sl, H >> sl
         grid = PatchGrid.create(cfg, w_sl, h_sl)
         lvl0, lvl1 = pyr0[sl], pyr1[sl]
+        go_bw = fb and sl > cfg.finest_scale
 
         with phase("extract"):
-            templates, gx, gy, Hs = extract_templates_and_hessians(
-                lvl0.image, lvl0.grad_x, lvl0.grad_y, grid, cfg)
-            state = dis_mod.init_state(templates, gx, gy, Hs, grid)
+            state = make_state(lvl0, grid)
+            state_bw = make_state(lvl1, grid) if fb else None
         with phase("coarse"):
             warm = flow if flow is not None else init_flow
             if warm is not None:
                 state = dis_mod.init_from_coarser(state, warm, grid)
+            if fb and flow_bw is not None:
+                state_bw = dis_mod.init_from_coarser(state_bw, flow_bw, grid)
         with phase("opti"):
             state = dis_mod.optimize(state, lvl1.image, grid, cfg)
+            if fb:
+                state_bw = dis_mod.optimize(state_bw, lvl0.image, grid, cfg)
         with phase("aggregate"):
-            flow = densify_mod.densify(state, grid, cfg)
+            flow = densify_mod.densify(state, grid, cfg, compl_state=state_bw)
+            if go_bw:
+                flow_bw = densify_mod.densify(state_bw, grid, cfg,
+                                              compl_state=state)
 
         if cfg.use_var_ref:
             with phase("var_ref"):
                 p = cfg.padding
                 im1 = lvl0.image[p:p + h_sl, p:p + w_sl, :]
                 im2 = lvl1.image[p:p + h_sl, p:p + w_sl, :]
+                level = sl + level_offset
                 flow = var_mod.variational_refine_auto(flow, im1, im2, cfg,
-                                                       sl + level_offset)
+                                                       level)
+                if go_bw:
+                    flow_bw = var_mod.variational_refine_auto(
+                        flow_bw, im2, im1, cfg, level)
         if timer is not None:
             ms = [timer.last.get(name, 0.0) for name in _SCALE_PHASES]
             printer(f"TIME (Sc: {sl}, #p:{grid.n_patches:6d}, pconst, pinit, "

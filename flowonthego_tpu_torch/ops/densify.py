@@ -1,5 +1,5 @@
 """Patch-to-dense flow aggregation (port of
-``flowonthego_tpu/ops/densify.py``, without the forward-backward merge).
+``flowonthego_tpu/ops/densify.py``).
 
 Patch origins are static integer grid midpoints, so with the periodic
 split py = m*steps + pr an in-patch row lands on output row
@@ -9,9 +9,15 @@ of pure reshapes — no scatter, no atomics, deterministic.
 Per-pixel weight absw = 1 / sum_c max(min_errval, cost_px[c]),
 accumulating (absw, absw*u, absw*v), then normalize where the weight is
 positive.  Contributions outside the image are dropped (2-D clipping).
+
+The forward-backward merge (:func:`_fb_merge_scatter`) lands patches at
+optimized, data-dependent positions, so it is a real scatter-add; it
+accumulates in a fixed order (see there).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +35,59 @@ def _pixel_weights(state: PatchState, cfg: DISConfig) -> torch.Tensor:
         err = torch.sqrt(err)
     clamped = torch.clamp(err, min=cfg.min_errval)
     return 1.0 / clamped.sum(dim=-1)
+
+
+def _fb_merge_scatter(state: PatchState, grid: PatchGrid, cfg: DISConfig,
+                      out_h: int, out_w: int) -> torch.Tensor:
+    """Complementary-grid merge: scatter the *reversed* backward flow.
+
+    Each complementary patch lands at its optimized position ``mid_org +
+    p_cur`` (coordinates of the other frame); its per-pixel weights are
+    spread bilinearly over the 4 neighbour cells and its NEGATED flow is
+    accumulated.  A pixel counts only where all 4 cells lie inside
+    [1, w-1) x [1, h-1).  Returns a [out_h, out_w, 3] (weight, u, v)
+    accumulator.
+
+    Deterministic: one ``index_put_(accumulate=True)`` takes the four
+    corners' contributions in the JAX package's order (corners outer,
+    patches in grid order within a corner).  On the CPU it adds serially
+    in that order, as JAX does.  On the card it sorts the flat indices
+    stably and reduces each cell's run without atomics, so two runs agree
+    bit for bit; the run's sum may associate differently from the CPU's.
+    """
+    ps = grid.patch_size
+    pos = state.mid_org + state.p_cur                 # [n_h, n_w, 2]
+    px = pos[..., 0]
+    py = pos[..., 1]
+    cx = torch.ceil(px + 1e-5).to(torch.int64)
+    cy = torch.ceil(py + 1e-5).to(torch.int64)
+    fx = torch.floor(px)
+    fy = torch.floor(py)
+    rx = (px - fx)[..., None, None]
+    ry = (py - fy)[..., None, None]
+    wbil = [rx * ry, (1 - rx) * ry, rx * (1 - ry), (1 - rx) * (1 - ry)]
+    corner_off = [(0, 0), (1, 0), (0, 1), (1, 1)]      # (dx, dy) subtracted
+
+    absw = _pixel_weights(state, cfg)                 # [n_h, n_w, ps, ps]
+    u = state.p_cur[..., 0][..., None, None]
+    v = state.p_cur[..., 1][..., None, None]
+
+    lb = -ps // 2
+    ar = torch.arange(lb, lb + ps, device=pos.device)
+    xt = cx[..., None, None] + ar[None, :]            # [n_h, n_w, ps, ps]
+    yt = cy[..., None, None] + ar[:, None]
+    valid = (xt >= 1) & (yt >= 1) & (xt < out_w - 1) & (yt < out_h - 1)
+
+    n = out_h * out_w
+    base = torch.stack([absw, -u * absw, -v * absw], dim=-1)
+    idx = torch.cat([((yt - oy) * out_w + (xt - ox)).reshape(-1)
+                     for ox, oy in corner_off])
+    idx = torch.where(valid.reshape(-1).repeat(4), idx, n)  # row n: dropped
+    vals = torch.cat([torch.where(valid[..., None], wb[..., None] * base,
+                                  0.0).reshape(-1, 3) for wb in wbil])
+    acc = torch.zeros((n + 1, 3), dtype=absw.dtype, device=absw.device)
+    acc.index_put_((idx,), vals, accumulate=True)
+    return acc[:n].reshape(out_h, out_w, 3)
 
 
 def overlap_add_canvas(contrib: torch.Tensor, ps: int, st: int) -> torch.Tensor:
@@ -58,10 +117,12 @@ def overlap_add_canvas(contrib: torch.Tensor, ps: int, st: int) -> torch.Tensor:
     return cols
 
 
-def densify(state: PatchState, grid: PatchGrid, cfg: DISConfig) -> torch.Tensor:
-    """Aggregate per-patch flow into a dense [H, W, 2] field."""
-    if cfg.use_fb_consistency:
-        raise NotImplementedError("the forward-backward merge is not ported")
+def densify(state: PatchState, grid: PatchGrid, cfg: DISConfig,
+            compl_state: Optional[PatchState] = None) -> torch.Tensor:
+    """Aggregate per-patch flow into a dense [H, W, 2] field.
+
+    ``compl_state`` optionally merges a complementary (opposite-direction)
+    grid's reversed flow: forward-backward consistency."""
     ps, st = grid.patch_size, grid.steps
     h, w = grid.height, grid.width
     r = -(-ps // st)
@@ -80,5 +141,7 @@ def densify(state: PatchState, grid: PatchGrid, cfg: DISConfig) -> torch.Tensor:
     acc = F.pad(canvas, (0, 0, left, w + 2 * margin - left - Xp,
                          top, h + 2 * margin - top - Yp))
     acc = acc[margin:margin + h, margin:margin + w, :]
+    if compl_state is not None:
+        acc = acc + _fb_merge_scatter(compl_state, grid, cfg, h, w)
     weight = acc[..., 0:1]
     return torch.where(weight > 0, acc[..., 1:3] / weight, 0.0)

@@ -1,13 +1,15 @@
 """Dense Inverse Search patch optimizer (port of
-``flowonthego_tpu/ops/dis.py``: state, warm start and the L2 fixed-trip
-solve).
+``flowonthego_tpu/ops/dis.py``: state, warm start, the L2 fixed-trip
+solve and the reference-form solve).
 
 The whole patch grid steps in lockstep: ``grad_descent_iter``
 projection+resample trips with a per-patch active mask.  A patch whose
 step leaves the outlier radius or the midpoint box resets to ``p_org``
-(the coarser-scale init) and freezes.  The solve itself is
+(the coarser-scale init) and freezes.  The fixed-trip L2 solve is
 :func:`.cuda.dis_gn.gn_scale_loop`: the K2 kernel on the card, the JAX
-package's reduction form in plain PyTorch otherwise.
+package's reduction form in plain PyTorch otherwise.  The robust costs,
+the ``min_iter`` early exits and ``res_thresh > 0`` take
+:func:`optimize_reference`, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from ..config import DISConfig, use_kernel
 from .cuda import dis_gn
+from .interp import sample_patches_bilinear
 from .patches import PatchGrid
 
 
@@ -33,7 +36,7 @@ class PatchState(NamedTuple):
     tgrad_y: torch.Tensor     # [n_h, n_w, ps, ps, C] template d/dy
     converged: torch.Tensor   # [n_h, n_w] bool
     cost_px: torch.Tensor     # [n_h, n_w, ps, ps, C] final per-pixel sq. residual
-    diff: torch.Tensor        # [n_h, n_w, ps, ps, C] residual (not kept: zeros)
+    diff: torch.Tensor        # [n_h, n_w, ps, ps, C] residual (zeros after K2)
 
 
 def init_state(templates, tgrad_x, tgrad_y, H, grid: PatchGrid) -> PatchState:
@@ -82,21 +85,134 @@ def init_from_coarser(state: PatchState, coarse_flow: torch.Tensor,
     return state._replace(p_cur=p, p_org=p, converged=oob)
 
 
+def _sample_residual(state: PatchState, I1_pad: torch.Tensor,
+                     grid: PatchGrid, cfg: DISConfig):
+    """Resample the target patch at ``mid_org + p_cur``, mean-normalize,
+    subtract the template and apply the cost's residual transform.
+
+    Returns (diff, cost_px, cost): the transformed residual and its
+    per-pixel cost, each like ``templates``, and the per-patch sum."""
+    mid = state.mid_org + state.p_cur
+    raw = sample_patches_bilinear(I1_pad, mid[..., 0], mid[..., 1],
+                                  grid.patch_size, grid.padding)
+    if cfg.use_mean_normalization:
+        raw = raw - raw.mean(dim=(2, 3, 4), keepdim=True)
+    diff = raw - state.templates
+    if cfg.cost_fn == "l1":
+        # sign(d) * sqrt(|d|)
+        diff = torch.sign(diff) * torch.sqrt(torch.abs(diff))
+        cost_px = torch.abs(diff)
+    elif cfg.cost_fn == "huber":
+        # pseudo-Huber: sign(d) * sqrt(2 b^2 (sqrt(1 + d^2/b^2) - 1))
+        b2 = cfg.norm_outlier * cfg.norm_outlier
+        diff = torch.sign(diff) * torch.sqrt(
+            2.0 * b2 * (torch.sqrt(1.0 + diff * diff / b2) - 1.0))
+        cost_px = torch.abs(diff)
+    else:
+        cost_px = diff * diff
+    return diff, cost_px, cost_px.sum(dim=(2, 3, 4))
+
+
+def _where(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
+    """Broadcast a [n_h, n_w] mask over the trailing dims of a and b."""
+    extra = a.dim() - mask.dim()
+    return torch.where(mask.reshape(mask.shape + (1,) * extra), a, b)
+
+
+def optimize_reference(state: PatchState, I1_pad: torch.Tensor,
+                       grid: PatchGrid, cfg: DISConfig) -> PatchState:
+    """The reference-form solve: the residual tensor is materialized every
+    iteration, so any cost transform and the 4-clause convergence test
+    apply.  The JAX package runs this form in XLA for l1/huber costs,
+    ``min_iter`` early exits and ``res_thresh > 0``; it has no Pallas
+    kernel, so this plain PyTorch version is its port on the card too.
+
+    Order as the JAX loop: sample at the warm start first, then
+    ``grad_descent_iter`` trips of project -> outlier reset -> resample ->
+    convergence test, every patch masked once converged.  Below
+    ``min_iter`` (None: ``grad_descent_iter``) the dp/dr clauses cannot
+    stop a patch.  Every patch ends converged.
+    """
+    # values per patch, channel-generic (gray/gradmag inputs have C = 1)
+    n_vals = float(np.prod(state.templates.shape[2:]))
+    max_iter = cfg.grad_descent_iter
+    min_iter = max_iter if cfg.min_iter is None else cfg.min_iter
+
+    active0 = ~state.converged
+    diff, cost_px, cost = _sample_residual(state, I1_pad, grid, cfg)
+    mares = cost / n_vals
+    state = state._replace(
+        diff=_where(active0, diff, state.diff),
+        cost_px=_where(active0, cost_px, state.cost_px),
+        converged=state.converged | (active0 & (mares <= cfg.res_thresh)))
+    # the previous trip's mares and the first trip's |delta_p|^2
+    mares_prev = mares
+    dp_init = torch.full_like(mares, 1e-10)
+
+    for cnt in range(1, max_iter + 1):
+        st = state
+        active = ~st.converged
+        # projection: delta_p = H^-1 J^T diff
+        dpx = (st.tgrad_x * st.diff).sum(dim=(2, 3, 4))
+        dpy = (st.tgrad_y * st.diff).sum(dim=(2, 3, 4))
+        h00, h01, h11 = st.H[..., 0], st.H[..., 1], st.H[..., 2]
+        det = h00 * h11 - h01 * h01
+        delta_px = (h11 * dpx - h01 * dpy) / det
+        delta_py = (h00 * dpy - h01 * dpx) / det
+        p_new = st.p_cur - torch.stack([delta_px, delta_py], dim=-1)
+        mid_new = st.mid_org + p_new
+
+        # beyond the outlier radius or out of the midpoint box: reset to
+        # p_org and stop
+        disp = mid_new - st.mid_org
+        norm = torch.sqrt(disp[..., 0] ** 2 + disp[..., 1] ** 2)
+        outlier = ((norm > cfg.outlier_thresh)
+                   | (mid_new[..., 0] < grid.l_bound)
+                   | (mid_new[..., 1] < grid.l_bound)
+                   | (mid_new[..., 0] > grid.u_bound_w)
+                   | (mid_new[..., 1] > grid.u_bound_h))
+        p_new = _where(outlier, st.p_org, p_new)
+        st = st._replace(p_cur=_where(active, p_new, st.p_cur))
+
+        diff, cost_px, cost = _sample_residual(st, I1_pad, grid, cfg)
+        mares = cost / n_vals
+
+        # |delta_p|^2 of the solved step, before the reset; the first
+        # trip's is the dp-ratio's denominator
+        dp_sq = delta_px * delta_px + delta_py * delta_py
+        if cnt == 1:
+            dp_init = torch.where(active, dp_sq, dp_init)
+
+        # go on while under max_iter and above res_thresh and, from
+        # min_iter on, while the step and the residual still shrink
+        keep_going = mares > cfg.res_thresh
+        if cnt >= max_iter:
+            keep_going = torch.zeros_like(keep_going)
+        if cnt >= min_iter:
+            keep_going = (keep_going & (dp_sq / dp_init >= cfg.dp_thresh)
+                          & (mares / mares_prev <= cfg.dr_thresh))
+        done_now = active & (outlier | ~keep_going)
+        mares_prev = torch.where(active, mares, mares_prev)
+        state = st._replace(diff=_where(active, diff, st.diff),
+                            cost_px=_where(active, cost_px, st.cost_px),
+                            converged=st.converged | done_now)
+    return state._replace(converged=torch.ones_like(state.converged))
+
+
 def optimize(state: PatchState, I1_pad: torch.Tensor, grid: PatchGrid,
              cfg: DISConfig) -> PatchState:
-    """Fixed-trip L2 inverse search on one scale.
+    """Inverse search on one scale.
 
-    ``cfg.gn_backend`` picks the K2 kernel or the plain version (see
-    :func:`..config.use_kernel`).  Only the fixed-trip L2 form is ported:
-    l1/huber costs, ``min_iter`` early exits and ``res_thresh > 0`` need
-    the JAX package's ``optimize_reference``, which is not ported yet.
+    As in the JAX package, ``res_thresh > 0``, a cost other than l2 and
+    ``min_iter < grad_descent_iter`` take :func:`optimize_reference`.  The
+    fixed-trip L2 solve takes K2 or its plain version by
+    ``cfg.gn_backend`` (see :func:`..config.use_kernel`); its bf16
+    sampling mode is not ported.
     """
     if (cfg.res_thresh > 0.0 or cfg.cost_fn != "l2"
             or (cfg.min_iter is not None
                 and cfg.min_iter < cfg.grad_descent_iter)):
-        raise NotImplementedError(
-            "only the fixed-trip L2 solve is ported (cost_fn='l2', "
-            "res_thresh=0, min_iter unset)")
+        return optimize_reference(state, I1_pad, grid, cfg)
     if cfg.dtype != "float32":
         raise NotImplementedError("only dtype='float32' is ported")
     started = ~state.converged

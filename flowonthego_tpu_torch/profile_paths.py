@@ -5,17 +5,22 @@
 For each path: the wall time per pair without the profiler (host clock,
 ending in a sync), then ``torch.profiler`` over the same calls: device
 time per pair split by kernel (K1-K5, the small PyTorch kernels of the
-glue, GEMMs, copies), device launches per pair, and the busy share
-(device time over the unprofiled wall time).  The inputs are the seeded
-1024x436 scenes of ``chip_smoke.py``: the (16, 8)-px pair, a (2, 2)-px
-pair whose motion stays inside the op-3/op-4 outlier radius at every
-scale, and a four-frame op-3 stream moving (12, -6) px per frame.
+glue, GEMMs, copies, the fb merge's sorted scatter), device launches per
+pair, and the busy share (device time over the unprofiled wall time).
+The inputs are the seeded 1024x436 scenes of ``chip_smoke.py``: the
+(16, 8)-px pair, a (2, 2)-px pair whose motion stays inside the
+op-3/op-4 outlier radius at every scale, a four-frame op-3 stream moving
+(12, -6) px per frame, and a horizontal (-16, 0)-px pair for depth.
+Besides op 1, 3 and 4, op 2 runs as the command line's modes run it:
+plain, with forward-backward consistency, with the pseudo-Huber cost
+(the reference-form solve), on gray input (C = 1) and as stereo depth.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import subprocess
 import time
 
@@ -25,7 +30,9 @@ import torch
 CATEGORIES = (("dis_gn_kernel", "K2 gn"), ("varref_tiled_kernel", "K4"),
               ("varref_kernel", "K3"), ("warp_kernel", "K5 warp"),
               ("pool2x2_kernel", "K1 pool"), ("Memcpy", "copies"),
-              ("Memset", "copies"), ("gemm", "GEMM"))
+              ("Memset", "copies"), ("gemm", "GEMM"),
+              ("indexing_backward_kernel", "index_put sort+sum"),
+              ("RadixSort", "index_put sort+sum"))
 
 
 def category(name: str) -> str:
@@ -97,10 +104,11 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0], flush=True)
     pin_fp32()
     dev = torch.device("cuda", 0)
-    cfg = {op: port.operating_point(op, width=1024) for op in (1, 3, 4)}
+    cfg = {op: port.operating_point(op, width=1024) for op in (1, 2, 3, 4)}
     pairs = {s: [torch.as_tensor(x, device=dev)
                  for x in synthetic_pair(0, 436, 1024, s)]
-             for s in ((16, 8), (2, 2))}
+             for s in ((16, 8), (2, 2), (-16, 0))}
+    gray = [port.prepare_input(x, "gray") for x in pairs[(16, 8)]]
     pads = pad_to_divisible(1024, 436, cfg[3].coarsest_scale)
     frames = [pad_replicate(torch.as_tensor(f, device=dev), pads)
               for f in synthetic_frames(5, 4, 436, 1024, (12, -6), factor=16)]
@@ -108,6 +116,18 @@ def main(argv=None) -> int:
     def pair(op, shift):
         return lambda: port.compute_flow(*pairs[shift], cfg[op])
 
+    def op2(**fields):
+        return dataclasses.replace(cfg[2], **fields)
+
+    report("op 2 pair (16, 8)", pair(2, (16, 8)), args.reps)
+    report("op 2 fb pair (16, 8)", lambda: port.compute_flow(
+        *pairs[(16, 8)], op2(use_fb_consistency=True)), args.reps)
+    report("op 2 huber pair (16, 8)", lambda: port.compute_flow(
+        *pairs[(16, 8)], op2(cost_fn="huber")), args.reps)
+    report("op 2 gray pair (16, 8)",
+           lambda: port.compute_flow(*gray, cfg[2]), args.reps)
+    report("op 2 depth pair (-16, 0)", lambda: port.compute_disparity(
+        *pairs[(-16, 0)], op2(use_var_ref=False)), args.reps)
     report("op 1 pair (16, 8)", pair(1, (16, 8)), args.reps)
     report("op 4 pair (16, 8)", pair(4, (16, 8)), args.reps)
     report("op 4 pair (2, 2)", pair(4, (2, 2)), args.reps)

@@ -46,8 +46,9 @@ def test_pool_kernel(cuda, dtype, bias):
     torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-4)
 
 
-def _level_state(device, h, w, warm):
-    i0, i1 = synthetic_frames(1, 2, h, w, (1, 1), factor=4)
+def _level_state(device, h, w, warm, channels=3):
+    i0, i1 = synthetic_frames(1, 2, h, w, (1, 1), channels=channels,
+                              factor=4)
     cfg = port.operating_point(2)
     lvl0 = build_pyramid(torch.as_tensor(i0, device=device), 1, 8)[0]
     lvl1 = build_pyramid(torch.as_tensor(i1, device=device), 1, 8)[0]
@@ -93,14 +94,45 @@ def test_varref_kernel(cuda, level):
     torch.testing.assert_close(vv, rv, rtol=1e-4, atol=1e-5)
 
 
-def _varref_planes(device, h, w, cfg):
-    i0, i1 = synthetic_frames(2, 2, h, w, (1, 0), factor=4)
+def _varref_planes(device, h, w, cfg, channels=3):
+    i0, i1 = synthetic_frames(2, 2, h, w, (1, 0), channels=channels,
+                              factor=4)
     g = torch.Generator().manual_seed(3)
     flow = (torch.randn((h, w, 2), generator=g) * 0.3
             + torch.tensor([1.0, 0.0])).to(device)
     return varref_fused.warp_and_derivs(
         flow, torch.as_tensor(i0, device=device),
         torch.as_tensor(i1, device=device), cfg)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_gn_kernel_one_channel(cuda, warm):
+    """K2 at C = 1 (the gray and gradmag modes): 64 threads, two warps,
+    per patch."""
+    cfg, grid, state, I1p = _level_state(cuda, 56, 128, warm, channels=1)
+    n0 = dis_gn.launches
+    got = dis_mod.optimize(state, I1p, grid,
+                           dataclasses.replace(cfg, gn_backend="pallas"))
+    assert dis_gn.launches == n0 + 1
+    ref = dis_mod.optimize(state, I1p, grid,
+                           dataclasses.replace(cfg, gn_backend="xla"))
+    torch.testing.assert_close(got.p_cur, ref.p_cur, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.cost_px, ref.cost_px, rtol=1e-3, atol=1e-3)
+
+
+def test_varref_kernels_one_channel(cuda):
+    """K3 and K4 against their plain loops on one-channel planes."""
+    cfg = port.operating_point(3)
+    P = _varref_planes(cuda, 14, 32, cfg, channels=1)
+    uu, vv = varref_fused.refine_inner(*P, cfg, 6)
+    ru, rv = varref_fused.refine_inner_plain(*P, cfg, 6)
+    torch.testing.assert_close(uu, ru, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(vv, rv, rtol=1e-4, atol=1e-5)
+    P = _varref_planes(cuda, 224, 512, cfg, channels=1)
+    uu, vv = varref_tiled.refine_inner_tiled(*P, cfg, 2)
+    ru, rv = varref_tiled.refine_inner_plain(*P, cfg, 2)
+    torch.testing.assert_close(uu, ru, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(vv, rv, rtol=1e-4, atol=1e-5)
 
 
 def test_varref_tiled_kernel(cuda):
@@ -126,7 +158,9 @@ def test_warp_kernel(cuda):
     row-strided source included."""
     g = torch.Generator().manual_seed(4)
     big = (torch.rand((53, 77, 3), generator=g) * 255).to(cuda)
-    for src in (big[4:41, 8:69].contiguous(), big[4:41, 8:69]):
+    gray = big[..., :1].contiguous()
+    for src in (big[4:41, 8:69].contiguous(), big[4:41, 8:69],
+                gray[4:41, 8:69]):
         wx, wy = ((torch.rand((37, 61), generator=g) * 16 - 8).to(cuda)
                   for _ in range(2))
         n0 = warp.launches
@@ -165,4 +199,48 @@ def test_compute_flow_runs_all_kernels(cuda):
                                 gn_backend="xla", varref_backend="xla")
     ref = port.compute_flow(i0, i1, plain, device=cuda)
     epe = torch.linalg.vector_norm(got - ref, dim=-1).double().cpu().numpy()
+    assert epe.mean() <= 1e-3 and np.quantile(epe, 0.99) <= 1e-2
+
+
+def test_fb_flow_deterministic(cuda):
+    """Forward-backward consistency runs K1-K3 and K5 on both grids, and
+    its merge (a scatter at data-dependent positions) adds in a fixed
+    order: two runs agree bit for bit, and the flow is within the band of
+    the all-plain path."""
+    i0, i1 = synthetic_frames(3, 2, 124, 256, (2, 1), factor=4)
+    cfg = dataclasses.replace(port.operating_point(2, width=256),
+                              use_fb_consistency=True)
+    mods = (pool, dis_gn, varref_fused, warp)
+    counts = [m.launches for m in mods]
+    first = port.compute_flow(i0, i1, cfg, device=cuda)
+    assert all(m.launches > n for m, n in zip(mods, counts))
+    assert torch.equal(port.compute_flow(i0, i1, cfg, device=cuda), first)
+    ref = port.compute_flow(i0, i1, dataclasses.replace(
+        cfg, gn_backend="xla", varref_backend="xla"), device=cuda)
+    epe = torch.linalg.vector_norm(first - ref, dim=-1).double().cpu().numpy()
+    assert epe.mean() <= 1e-3 and np.quantile(epe, 0.99) <= 1e-2
+
+
+@pytest.mark.parametrize("args", [["--channels", "gray", "--fb"],
+                                  ["--cost", "l1", "--min-iter", "4"],
+                                  ["--mode", "depth"]])
+def test_cli_on_card_matches_cpu(cuda, tmp_path, args):
+    """The command line on the card (its default device) against the same
+    command with ``--device cpu``: the band."""
+    from flowonthego_tpu_torch import cli, read_flo, read_pfm
+    from flowonthego_tpu_torch.io.images import save_image
+    shift = (-2, 0) if "depth" in args else (2, 1)
+    paths = [str(tmp_path / f"{k}.ppm") for k in "ab"]
+    for path, img in zip(paths, synthetic_frames(3, 2, 124, 256, shift,
+                                                 factor=4)):
+        save_image(path, img)
+    suffix = ".pfm" if "depth" in args else ".flo"
+    out = {}
+    for device in ("cuda", "cpu"):
+        out[device] = str(tmp_path / (device + suffix))
+        assert cli.main(paths + [out[device], "2", "--device", device]
+                        + args) == 0
+    read = read_pfm if suffix == ".pfm" else read_flo
+    got, ref = (read(out[k]).reshape(124, 256, -1) for k in ("cuda", "cpu"))
+    epe = np.sqrt(((got.astype(np.float64) - ref) ** 2).sum(-1))
     assert epe.mean() <= 1e-3 and np.quantile(epe, 0.99) <= 1e-2

@@ -4,11 +4,14 @@
 package's finest-scale flow at operating point 2 (56x128x2) and 3
 (224x512x2) on the seeded synthetic 1024x436 pair (edge-padded to
 1024x448) that ``chip_smoke.py`` drives on the GPU, with the seed and the
-shift.  The GPU machine has no JAX, so these files are how the GPU path
-is held against JAX.  These tests regenerate each flow with
+shift; ``torch_port_golden_op2_{fb,l1}_1024x448.npz`` the op-2 flow with
+forward-backward consistency, and with the l1 cost and ``min_iter=4``.
+The GPU machine has no JAX, so these files are how the GPU path is held
+against JAX.  The op-2/op-3 tests regenerate each flow with
 ``dis_flow_padded_jit`` on the CPU and check both it and the port's CPU
-output against the file.  (Op 4 is held on the card against the all-plain
-path instead: its JAX run takes ~90 s on the CPU.)
+output against the file; the fb and l1 tests hold the port's CPU output
+against the file.  (Op 4 is held on the card against the all-plain path
+instead: its JAX run takes ~90 s on the CPU.)
 
 Write the files anew with ``python tests/test_torch_golden.py``.
 """
@@ -16,11 +19,19 @@ Write the files anew with ``python tests/test_torch_golden.py``.
 import os
 
 import numpy as np
+import pytest
 import torch
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 GOLDEN = os.path.join(DATA, "torch_port_golden_op2_1024x448.npz")
 GOLDEN_OP3 = os.path.join(DATA, "torch_port_golden_op3_1024x448.npz")
+# the op-2 modes with a golden of their own: file -> config fields
+MODES = {
+    os.path.join(DATA, "torch_port_golden_op2_fb_1024x448.npz"):
+        dict(use_fb_consistency=True),
+    os.path.join(DATA, "torch_port_golden_op2_l1_1024x448.npz"):
+        dict(cost_fn="l1", min_iter=4),
+}
 SEED, SHIFT, HEIGHT, WIDTH = 0, (16, 8), 436, 1024
 
 torch.set_num_threads(1)
@@ -36,16 +47,19 @@ def _padded_pair(seed, shift):
     return np.pad(i0, pad, mode="edge"), np.pad(i1, pad, mode="edge")
 
 
-def _jax_flow(i0p, i1p, op_point=2):
+def _jax_flow(i0p, i1p, op_point=2, **fields):
+    import dataclasses
     import jax.numpy as jnp
     from flowonthego_tpu.config import operating_point
     from flowonthego_tpu.models.dis_flow import dis_flow_padded_jit
-    cfg = operating_point(op_point, width=WIDTH)
+    cfg = dataclasses.replace(operating_point(op_point, width=WIDTH),
+                              **fields)
     return np.asarray(dis_flow_padded_jit(jnp.asarray(i0p), jnp.asarray(i1p),
                                           cfg))
 
 
-def _check_golden(path, op_point, shape):
+def _check_golden(path, op_point, shape, with_jax=True, **fields):
+    import dataclasses
     from test_torch_slice import assert_flow_band
     from flowonthego_tpu_torch import operating_point
     from flowonthego_tpu_torch.models.dis_flow import dis_flow_padded
@@ -57,8 +71,10 @@ def _check_golden(path, op_point, shape):
     i0p, i1p = _padded_pair(seed, shift)
     assert i0p.shape == (448, 1024, 3)
 
-    assert_flow_band(_jax_flow(i0p, i1p, op_point), golden)
-    cfg = operating_point(op_point, width=WIDTH)
+    if with_jax:
+        assert_flow_band(_jax_flow(i0p, i1p, op_point, **fields), golden)
+    cfg = dataclasses.replace(operating_point(op_point, width=WIDTH),
+                              **fields)
     got = dis_flow_padded(torch.as_tensor(i0p), torch.as_tensor(i1p), cfg)
     assert_flow_band(got.numpy(), golden)
     # the texture moves by a multiple of 8 px: exactly shift / 2^fs
@@ -75,13 +91,21 @@ def test_golden_op3_matches_jax_and_port():
     _check_golden(GOLDEN_OP3, 3, (224, 512, 2))
 
 
+@pytest.mark.parametrize("path", sorted(MODES))
+def test_golden_op2_mode_matches_port(path):
+    _check_golden(path, 2, (56, 128, 2), with_jax=False, **MODES[path])
+
+
 if __name__ == "__main__":
     import sys
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     i0p, i1p = _padded_pair(SEED, SHIFT)
-    for path, op_point in ((GOLDEN, 2), (GOLDEN_OP3, 3)):
+    runs = [(GOLDEN, 2, {}), (GOLDEN_OP3, 3, {})]
+    runs += [(path, 2, fields) for path, fields in MODES.items()]
+    for path, op_point, fields in runs:
         np.savez_compressed(
-            path, flow=_jax_flow(i0p, i1p, op_point).astype(np.float32),
+            path, flow=_jax_flow(i0p, i1p, op_point,
+                                 **fields).astype(np.float32),
             seed=np.int64(SEED), shift=np.asarray(SHIFT, np.int64))
         print("wrote", path)

@@ -174,9 +174,15 @@ def test_compute_flow_timed_lines_and_flow():
                 "TIME (O.Flow Run-Time   ) (ms):", "Timings (ms)", "[opti",
                 "[aggregate", "[var_ref"):
         assert key in text
+    # forward-backward consistency runs both grids inside the same phases:
+    # the same lines per scale, and compute_flow's fb flow
     fb = port.DISConfig(**kw, use_fb_consistency=True)
-    with pytest.raises(NotImplementedError, match="forward-backward"):
-        port.compute_flow_timed(i0, i1, cfg=fb, printer=lines.append)
+    fb_lines = []
+    got = port.compute_flow_timed(i0, i1, cfg=fb, printer=fb_lines.append)
+    np.testing.assert_array_equal(
+        got.numpy(), port.compute_flow(i0, i1, fb).numpy())
+    assert [tuple(map(int, m.groups()[:2])) for m in
+            map(_SC.match, "\n".join(fb_lines).splitlines()) if m] == want
 
 
 def test_profile_categories():
@@ -189,6 +195,10 @@ def test_profile_categories():
              "(anonymous namespace)::warp_kernel(float const*)": "K5 warp",
              "void (anonymous namespace)::pool2x2_kernel<float>()": "K1 pool",
              "Memcpy HtoD (Pageable -> Device)": "copies",
+             "void at::native::indexing_backward_kernel<float>()":
+                 "index_put sort+sum",
+             "void cub::DeviceRadixSortOnesweepKernel<int>()":
+                 "index_put sort+sum",
              "void at::native::elementwise_kernel<128, 2>()":
                  "small torch kernels"}
     assert {n: category(n) for n in names} == names
