@@ -35,8 +35,22 @@ Phases (any failure raises and the script exits non-zero):
      pair, the 13-parameter form at verbosity 2 with ``--fb``), each with
      the counters from zero, held to the known motion and against the
      same command with a plain-path config, and the ``--fb`` flow run
-     twice and compared bit for bit.
-It prints one JSON line of per-kernel results and, last, the device line
+     twice and compared bit for bit;
+  7. K1-K5 on batches of four frames (op 2 and op 4 shapes at 1024x448)
+     against their plain versions and against one launch per frame (bit
+     for bit), K3 against K4 at B = 4 on the sweep's fields, and K2's
+     bf16 operand kernel against its plain version and the float32
+     kernel, timed;
+  8. the batched paths at 1024x436, each with the counters from zero:
+     ``batched_flow`` on four pairs, each moving its own motion, at op 2
+     and op 4 (each kernel must launch as often as for one pair: once per
+     scale for the batch; each frame against its single-pair
+     ``compute_flow`` and its motion), a four-stream ``MultiStream`` at op
+     2 against ``stream_flow`` on each stream, ``stream_video_chunks`` on a
+     9-frame video in four chunks, and the bf16 solve's flow against the
+     float32 flow, with ms per batch, frame and tick.
+It prints one JSON line of per-kernel results (the batched and bf16 rows
+with the launches of phase 8) and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
 prints no result.
 """
@@ -145,11 +159,29 @@ def max_err(a, b) -> float:
 
 
 def share_off(got, ref, rtol, atol) -> float:
-    """Share of patches (the two leading dims) with any value outside
-    ``atol + rtol * |ref|``."""
+    """Share of patches (the three leading dims: frame, grid row, grid
+    column) with any value outside ``atol + rtol * |ref|``."""
     bad = (got - ref).abs() > atol + rtol * ref.abs()
-    return float(bad.reshape(bad.shape[0], bad.shape[1], -1).any(-1)
-                 .float().mean())
+    return float(bad.reshape(*bad.shape[:3], -1).any(-1).float().mean())
+
+
+def check_gn(op, got, ref):
+    """K2's (p, cost) against the plain version's: within TOL_GN_P and
+    TOL_GN_COST at op 2; at op 4 (128 iterations) at most GN_FLIP_SHARE of
+    the patches outside them.  Returns (p max_abs_err, text to log)."""
+    (p, cost), (rp, rcost) = got, ref
+    err = max_err(p, rp)
+    text = f"p max_abs_err {err:.3g}, cost max_abs_err {max_err(cost, rcost):.3g}"
+    if op == 2:
+        torch.testing.assert_close(p, rp, **TOL_GN_P)
+        torch.testing.assert_close(cost, rcost, **TOL_GN_COST)
+    else:
+        off_p = share_off(p, rp, **TOL_GN_P)
+        off_c = share_off(cost, rcost, **TOL_GN_COST)
+        text += (f"; patches outside tolerance: p {off_p:.3g}, cost "
+                 f"{off_c:.3g} (bound {GN_FLIP_SHARE:g})")
+        assert max(off_p, off_c) <= GN_FLIP_SHARE, text
+    return err, text
 
 
 def flow_band(got, ref, what):
@@ -176,16 +208,21 @@ def kernel_modules():
 def counted(name, fn, expect, absent=()):
     """Run one path with the launch counters from zero; check that every
     kernel in ``expect`` launched and none in ``absent``; return (result,
-    counts)."""
+    counts).  "gn_bf16" counts K2's bf16 launches: with it in ``expect``
+    every K2 launch must be one (bf16 was asked for), else none."""
     wrappers = kernel_modules()
     for m in wrappers.values():
         m.launches = 0
+    wrappers["gn"].launches_bf16 = 0
     out = fn()
     torch.cuda.synchronize()
     counts = {k: m.launches for k, m in wrappers.items()}
+    counts["gn_bf16"] = wrappers["gn"].launches_bf16
     log(f"{name} launches: {counts}")
     assert all(counts[k] > 0 for k in expect), (name, counts)
     assert not any(counts[k] for k in absent), (name, counts)
+    assert counts["gn_bf16"] == (counts["gn"] if "gn_bf16" in expect
+                                 else 0), (name, counts)
     return out, counts
 
 
@@ -205,8 +242,9 @@ GN_SHAPES = ((2, 56, 128, ("cold", "warm")), (2, 68, 120, ("cold", "warm")),
              (4, 224, 512, ("warm",)))
 
 
-def gn_inputs(dev, op, h, w, g, channels=3):
-    """K2's arguments at one scale of operating point ``op``: (cfg, grid,
+def gn_inputs(dev, op, h, w, g, channels=3, n_frames=1):
+    """K2's arguments at one scale of operating point ``op`` for
+    ``n_frames`` frames (frame b from seed 1 + b): (cfg, grid,
     {"cold"/"warm": positional args}, keyword args)."""
     from flowonthego_tpu_torch import operating_point
     from flowonthego_tpu_torch.ops import dis as dis_mod
@@ -215,14 +253,16 @@ def gn_inputs(dev, op, h, w, g, channels=3):
     from flowonthego_tpu_torch.ops.pyramid import build_pyramid
     from flowonthego_tpu_torch.utils.synth import synthetic_frames
     cfg = operating_point(op)
-    i0, i1 = synthetic_frames(1, 2, h, w, (1, 1), channels=channels,
-                              factor=4)
-    lvl0 = build_pyramid(torch.as_tensor(i0, device=dev), 1, cfg.padding)[0]
-    lvl1 = build_pyramid(torch.as_tensor(i1, device=dev), 1, cfg.padding)[0]
+    pairs = [synthetic_frames(1 + b, 2, h, w, (1, 1), channels=channels,
+                              factor=4) for b in range(n_frames)]
+    lvl0, lvl1 = (build_pyramid(torch.as_tensor(
+        np.stack([p[k] for p in pairs]), device=dev), 1, cfg.padding)[0]
+        for k in (0, 1))
     grid = PatchGrid.create(cfg, w, h)
     cold = dis_mod.init_state(*extract_templates_and_hessians(
         lvl0.image, lvl0.grad_x, lvl0.grad_y, grid, cfg), grid)
-    coarse = (torch.randn((h // 2, w // 2, 2), generator=g) * 2.0).to(dev)
+    coarse = (torch.randn((n_frames, h // 2, w // 2, 2), generator=g)
+              * 2.0).to(dev)
     states = {"cold": cold,
               "warm": dis_mod.init_from_coarser(cold, coarse, grid)}
     args = {name: (lvl1.image, st.templates, st.tgrad_x, st.tgrad_y, st.H,
@@ -234,17 +274,18 @@ def gn_inputs(dev, op, h, w, g, channels=3):
     return cfg, grid, args, kw
 
 
-def varref_inputs(dev, cfg, h, w, g, seed=2, channels=3):
-    """The var-ref loop's planes for a flow near (1, 0) on a seeded pair."""
+def varref_inputs(dev, cfg, h, w, g, seed=2, channels=3, n_frames=1):
+    """The var-ref loop's planes for flows near (1, 0) on ``n_frames``
+    seeded pairs (frame b from seed + b)."""
     from flowonthego_tpu_torch.ops.cuda import varref_fused
     from flowonthego_tpu_torch.utils.synth import synthetic_frames
-    i0, i1 = synthetic_frames(seed, 2, h, w, (1, 0), channels=channels,
-                              factor=4)
-    flow = ((torch.randn((h, w, 2), generator=g) * 0.3
+    pairs = [synthetic_frames(seed + b, 2, h, w, (1, 0), channels=channels,
+                              factor=4) for b in range(n_frames)]
+    flow = ((torch.randn((n_frames, h, w, 2), generator=g) * 0.3
              + torch.tensor([1.0, 0.0])).to(dev))
-    return varref_fused.warp_and_derivs(
-        flow, torch.as_tensor(i0, device=dev),
-        torch.as_tensor(i1, device=dev), cfg)
+    im1, im2 = (torch.as_tensor(np.stack([p[k] for p in pairs]), device=dev)
+                for k in (0, 1))
+    return varref_fused.warp_and_derivs(flow, im1, im2, cfg)
 
 
 def kernel_phase(dev):
@@ -290,20 +331,12 @@ def kernel_phase(dev):
                 p, cost = dis_gn.gn_scale_loop(*args, **kw)
                 rp, rcost = dis_gn.gn_scale_loop_plain(*args, **kw)
                 torch.cuda.synchronize()
+                err, text = check_gn(op, (p, cost), (rp, rcost))
                 line = (f"K2 gn C={C} op {op} {h}x{w} ({grid.n_patches} "
                         f"patches, {cfg.grad_descent_iter} iterations, "
-                        f"{name}): p max_abs_err {max_err(p, rp):.3g}, "
-                        f"cost max_abs_err {max_err(cost, rcost):.3g}")
+                        f"{name}): {text}")
                 if op == 2:
-                    torch.testing.assert_close(p, rp, **TOL_GN_P)
-                    torch.testing.assert_close(cost, rcost, **TOL_GN_COST)
-                    errs.append(max_err(p, rp))
-                else:
-                    off_p = share_off(p, rp, **TOL_GN_P)
-                    off_c = share_off(cost, rcost, **TOL_GN_COST)
-                    line += (f"; patches outside tolerance: p {off_p:.3g}, "
-                             f"cost {off_c:.3g} (bound {GN_FLIP_SHARE:g})")
-                    assert max(off_p, off_c) <= GN_FLIP_SHARE, line
+                    errs.append(err)
                 if (op, h, name) == (2, 68, "cold"):
                     ms = cuda_ms(
                         lambda: dis_gn.gn_scale_loop(*args, **kw), 50)
@@ -401,9 +434,9 @@ def kernel_phase(dev):
     bound = cfg.outlier_thresh + 2.0
     for C, gen in ((3, g), (1, g1)):
         for h, w, timed in ((448, 1024, True), (37, 61, False)):
-            src = (torch.rand((h, w, C), generator=gen) * 255).to(dev)
-            wx, wy = (((torch.rand((h, w), generator=gen) * 2 - 1) * bound)
-                      .to(dev) for _ in range(2))
+            src = (torch.rand((1, h, w, C), generator=gen) * 255).to(dev)
+            wx, wy = (((torch.rand((1, h, w), generator=gen) * 2 - 1)
+                       * bound).to(dev) for _ in range(2))
             got, gm = warp.warp_image(src, wx, wy)
             ref, rm = warp.warp_image_plain(src, wx, wy)
             torch.cuda.synchronize()
@@ -419,6 +452,178 @@ def kernel_phase(dev):
                                            max_abs_err=0.0)
                 line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
             log(line)
+    return results
+
+
+# ------------------------------------------------------------------ batch
+
+B = 4            # frames of a batch, streams of a MultiStream
+BATCH_LEVEL0 = (448, 1024)   # level 0 of a 1024x436 batch: K1, K4, K5
+# K2 on a batch: op 2's finest scale of 1024x448 (448 patches a frame) and
+# op 4's scale 1 (12,825 patches a frame, 128 iterations)
+GN_SHAPES_B = ((2, 56, 128, ("cold", "warm")), (4, 224, 512, ("warm",)))
+# K2's bf16 operand mode: op 2 at 4K scale 5 (510 patches), op 4 scale 1
+GN_SHAPES_BF16 = ((2, 68, 120, ("cold", "warm")), (4, 224, 512, ("warm",)))
+
+
+def frames_equal(batch_out, single_fn, inputs, what):
+    """Each frame of a batched launch's outputs equals its own launch on
+    that frame alone, bit for bit; returns the time of the B single
+    launches (CUDA events)."""
+    for b in range(B):
+        one = single_fn(*(x[b:b + 1] for x in inputs))
+        for x, y in zip(batch_out, one):
+            assert torch.equal(x[b], y[0]), f"{what}: frame {b} differs"
+    return cuda_ms(lambda: [single_fn(*(x[b:b + 1] for x in inputs))
+                            for b in range(B)], 10)
+
+
+def batch_kernel_phase(dev):
+    """K1-K5 on batches of B frames against their plain versions and
+    against one launch per frame, and K2's bf16 kernel against its plain
+    version and against the float32 kernel; returns the rows' numbers."""
+    from flowonthego_tpu_torch import operating_point
+    from flowonthego_tpu_torch.ops.cuda import (dis_gn, pool, varref_fused,
+                                                varref_tiled, warp)
+    g = torch.Generator().manual_seed(10)
+    results = {}
+
+    # K1: level 0 of a batch at 1024x448, the frames stacked as rows
+    H0, W0 = BATCH_LEVEL0
+    x = (torch.rand((B * H0, W0 * 3), generator=g) * 255).to(dev)
+    got = pool.pool2x2_flat(x, 3)
+    ref = pool.pool2x2_flat_plain(x, 3)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, **TOL_POOL)
+    frames = x.reshape(B, H0, W0 * 3)
+    single = frames_equal((got.reshape(B, H0 // 2, W0 * 3 // 2),),
+                          lambda f: (pool.pool2x2_flat(f[0], 3)[None],),
+                          (frames,), "K1 batch")
+    ms = cuda_ms(lambda: pool.pool2x2_flat(x, 3), 50)
+    plain_ms = cuda_ms(lambda: pool.pool2x2_flat_plain(x, 3), 20)
+    results["pool_b4"] = dict(ms=ms, plain_ms=plain_ms,
+                              max_abs_err=max_err(got, ref))
+    log(f"K1 pool B={B} {tuple(x.shape)}: max_abs_err "
+        f"{results['pool_b4']['max_abs_err']:.3g}, frames bit-identical to "
+        f"single launches; kernel {ms:.4f} ms, {B} single launches "
+        f"{single:.4f} ms, plain {plain_ms:.4f} ms")
+
+    # K2 on the batch
+    errs = []
+    for op, h, w, names in GN_SHAPES_B:
+        cfg, grid, gn_args, kw = gn_inputs(dev, op, h, w, g, n_frames=B)
+        for name in names:
+            args = gn_args[name]
+            got = dis_gn.gn_scale_loop(*args, **kw)
+            ref = dis_gn.gn_scale_loop_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err, text = check_gn(op, got, ref)
+            line = (f"K2 gn B={B} op {op} {h}x{w} ({B} x {grid.n_patches} "
+                    f"patches, {name}): {text}")
+            single = frames_equal(
+                got, lambda *a: dis_gn.gn_scale_loop(*a, **kw), args,
+                f"K2 batch op {op} {name}")
+            line += "; frames bit-identical to single launches"
+            if op == 2:
+                errs.append(err)
+            if name == ("cold" if op == 2 else "warm"):
+                reps = 20 if op == 2 else 3
+                ms = cuda_ms(lambda: dis_gn.gn_scale_loop(*args, **kw), reps)
+                plain_ms = cuda_ms(
+                    lambda: dis_gn.gn_scale_loop_plain(*args, **kw),
+                    5 if op == 2 else 1, 1)
+                if op == 2:
+                    results["gn_b4"] = dict(ms=ms, plain_ms=plain_ms)
+                line += (f"; kernel {ms:.4f} ms, {B} single launches "
+                         f"{single:.4f} ms, plain {plain_ms:.4f} ms")
+            log(line)
+    results["gn_b4"]["max_abs_err"] = max(errs)
+
+    # K2's bf16 operand kernel (one frame) against the plain version on
+    # the same bf16-rounded operands, and timed against the float32 kernel
+    errs = []
+    for op, h, w, names in GN_SHAPES_BF16:
+        cfg, grid, gn_args, kw = gn_inputs(dev, op, h, w, g)
+        kb = dict(kw, bf16=True)
+        for name in names:
+            args = gn_args[name]
+            n0 = dis_gn.launches_bf16
+            got = dis_gn.gn_scale_loop(*args, **kb)
+            assert dis_gn.launches_bf16 == n0 + 1
+            ref = dis_gn.gn_scale_loop_plain(*args, **kb)
+            torch.cuda.synchronize()
+            err, text = check_gn(op, got, ref)
+            f32 = dis_gn.gn_scale_loop(*args, **kw)
+            line = (f"K2 gn bf16 op {op} {h}x{w} ({grid.n_patches} patches, "
+                    f"{name}): {text}; p vs the float32 kernel "
+                    f"{max_err(got[0], f32[0]):.3g} px")
+            if op == 2:
+                errs.append(err)
+            if name == ("cold" if op == 2 else "warm"):
+                reps = 50 if op == 2 else 10
+                ms = cuda_ms(lambda: dis_gn.gn_scale_loop(*args, **kb), reps)
+                ms32 = cuda_ms(lambda: dis_gn.gn_scale_loop(*args, **kw), reps)
+                plain_ms = cuda_ms(
+                    lambda: dis_gn.gn_scale_loop_plain(*args, **kb),
+                    10 if op == 2 else 1, 1)
+                if op == 2:
+                    results["gn_bf16"] = dict(ms=ms, plain_ms=plain_ms)
+                line += (f"; bf16 kernel {ms:.4f} ms, float32 kernel "
+                         f"{ms32:.4f} ms, plain bf16 {plain_ms:.4f} ms")
+            log(line)
+    results["gn_bf16"]["max_abs_err"] = max(errs)
+
+    # K3 (one CTA per field) and K4 (one launch over the batch) on the
+    # batch's coarsest field and op 4's level 0 at 1024x448
+    for key, mod, run, cfg, h, w, level in (
+            ("varref_b4", varref_fused, varref_fused.refine_inner,
+             operating_point(2), 14, 32, 5),
+            ("varref_tiled_b4", varref_tiled, varref_tiled.refine_inner_tiled,
+             operating_point(4), H0, W0, 0)):
+        P = varref_inputs(dev, cfg, h, w, g, n_frames=B)
+        uu, vv = run(*P, cfg, level + 1)
+        ru, rv = varref_fused.refine_inner_plain(*P, cfg, level + 1)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(uu, ru, **TOL_VARREF)
+        torch.testing.assert_close(vv, rv, **TOL_VARREF)
+        err = max(max_err(uu, ru), max_err(vv, rv))
+        single = frames_equal((uu, vv), lambda *a: run(*a, cfg, level + 1),
+                              P, f"{key} batch")
+        ms = cuda_ms(lambda: run(*P, cfg, level + 1), 20)
+        plain_ms = cuda_ms(lambda: varref_fused.refine_inner_plain(
+            *P, cfg, level + 1), 2, 1)
+        results[key] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
+        log(f"{'K3' if mod is varref_fused else 'K4'} varref B={B} {h}x{w} "
+            f"level {level}: max_abs_err {err:.3g}, frames bit-identical to "
+            f"single launches; kernel {ms:.4f} ms, {B} single launches "
+            f"{single:.4f} ms, plain {plain_ms:.4f} ms")
+
+    # K5 at level 0 of the batch, flows of +-(outlier_thresh + 2) px
+    bound = operating_point(3).outlier_thresh + 2.0
+    src = (torch.rand((B, H0, W0, 3), generator=g) * 255).to(dev)
+    wx, wy = (((torch.rand((B, H0, W0), generator=g) * 2 - 1) * bound)
+              .to(dev) for _ in range(2))
+    got = warp.warp_image(src, wx, wy)
+    ref = warp.warp_image_plain(src, wx, wy)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, ref)), "K5 not exact"
+    single = frames_equal(got, warp.warp_image, (src, wx, wy), "K5 batch")
+    ms = cuda_ms(lambda: warp.warp_image(src, wx, wy), 50)
+    plain_ms = cuda_ms(lambda: warp.warp_image_plain(src, wx, wy), 20)
+    results["warp_b4"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0)
+    log(f"K5 warp B={B} {H0}x{W0}x3: bit-exact, frames bit-identical to "
+        f"single launches; kernel {ms:.4f} ms, {B} single launches "
+        f"{single:.4f} ms, plain {plain_ms:.4f} ms")
+
+    cfg = operating_point(3)
+    log(f"K3 vs K4 at B={B} on the op-3 path's field sizes:")
+    for h, w, level in SWEEP:
+        P = varref_inputs(dev, cfg, h, w, g, seed=3, n_frames=B)
+        k3 = cuda_ms(lambda: varref_fused.refine_inner(*P, cfg, level + 1), 10)
+        k4 = cuda_ms(lambda: varref_tiled.refine_inner_tiled(
+            *P, cfg, level + 1), 10)
+        log(f"  {B} x {h}x{w} ({h * w} px a field) level {level}: K3 "
+            f"{k3:.4f} ms, K4 {k4:.4f} ms")
     return results
 
 
@@ -522,13 +727,14 @@ def slice_phase(dev):
             "ms/pair")
         flow_band(flow, ref, f"{what} kernels vs plain path")
     for op in (2, 3):
-        fin = dis_flow_padded(i0p, i1p, cfg[op])
+        fin = dis_flow_padded(i0p[None], i1p[None], cfg[op])[0]
         flow_band(fin, torch.as_tensor(golden[op]["flow"], device=dev),
                   f"op {op} 1024x448 finest flow vs JAX golden")
     for what, (name, fields) in GOLDEN_MODES.items():
         g = np.load(os.path.join(REPO, "tests", "data", name))
         assert int(g["seed"]) == seed and tuple(g["shift"]) == shift
-        fin = dis_flow_padded(i0p, i1p, dataclasses.replace(cfg[2], **fields))
+        fin = dis_flow_padded(i0p[None], i1p[None],
+                              dataclasses.replace(cfg[2], **fields))[0]
         flow_band(fin, torch.as_tensor(g["flow"], device=dev),
                   f"op 2 {what} 1024x448 finest flow vs JAX golden")
 
@@ -552,6 +758,194 @@ def slice_phase(dev):
                                     printer=lambda s: log("  " + s))
     flow_band(timed, pair4, "compute_flow_timed vs compute_flow")
     return launches
+
+
+# ------------------------------------------------------------------ batch paths
+
+# The batch's pairs at 1024x436: frame b from seed BATCH_SEED + b, moving
+# BATCH_SHIFTS[b] (multiples of 8 px, 2^finest_scale at op 2, so every
+# processed level moves whole pixels); the streams move the same way.
+BATCH_SEED = 20
+BATCH_HW = (436, 1024)
+BATCH_SHIFTS = ((16, 8), (-8, 8), (8, -16), (-16, -8))
+BATCH_OPS = (2, 4)
+BATCH_TOL = 1e-5    # a batched frame vs its single-pair flow (px)
+MOTION_TOL = 1e-3   # a batched frame's median vs its motion (px)
+STREAM_FRAMES = 4   # frames per MultiStream stream
+VIDEO = (9, 4)      # stream_video_chunks: frames, chunks
+# bf16 flow vs the float32 flow (px, mean / p99): a sanity bound well
+# below the motion.  bf16 keeps 8 significant bits, so grey levels near 200
+# round by up to 0.5; the JAX package's own test bounds its bf16 patch
+# solve at max 0.5 px on a small scene.
+BF16_MEAN, BF16_P99 = 0.1, 1.0
+BF16_RUNS = ((2, "pair"), (4, "pair"), (4, "small"))
+
+
+def batch_phase(dev):
+    """The batched entry points at 1024x436 and the bf16 solve, each
+    path with the counters from zero; returns (launches of the batched
+    paths, bf16 launches of the bf16 paths)."""
+    import flowonthego_tpu_torch as port
+    from flowonthego_tpu_torch.config import pad_to_divisible
+    from flowonthego_tpu_torch.ops.pyramid import pad_replicate
+    from flowonthego_tpu_torch.utils.synth import (synthetic_frames,
+                                                   synthetic_pair)
+    h, w = BATCH_HW
+    launches = dict.fromkeys(kernel_modules(), 0)
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    def total(counts):
+        return sum(counts[k] for k in launches)
+
+    def inner_median(flow, border=16):
+        inner = flow[border:-border, border:-border].reshape(-1, 2)
+        return inner.median(dim=0).values.cpu().numpy()
+
+    pairs = [tuple(torch.as_tensor(x, device=dev)
+                   for x in synthetic_pair(BATCH_SEED + b, h, w, s))
+             for b, s in enumerate(BATCH_SHIFTS)]
+    for op in BATCH_OPS:
+        cfg = port.operating_point(op, width=w)
+        pads = pad_to_divisible(w, h, cfg.coarsest_scale)
+        pt, pl = pads[0], pads[2]
+        I0, I1 = (torch.stack([pad_replicate(p[k], pads) for p in pairs])
+                  for k in (0, 1))
+        flows, n_batch = counted(f"op {op} batched_flow B={B} "
+                                 f"{tuple(I0.shape)}",
+                                 lambda: port.batched_flow(I0, I1, cfg),
+                                 ALL)
+        _, n_single = counted(f"op {op} compute_flow, frame 0 alone",
+                              lambda: port.compute_flow(*pairs[0], cfg),
+                              ALL)
+        assert n_batch == n_single, \
+            f"op {op}: the batch did not launch each kernel once per scale"
+        add(n_batch)
+        assert flows.shape == (B,) + tuple(I0.shape[1:3]) + (2,)
+        assert torch.isfinite(flows).all()
+        flows = flows[:, pt:pt + h, pl:pl + w]
+        for b, (pair, motion) in enumerate(zip(pairs, BATCH_SHIFTS)):
+            single = port.compute_flow(*pair, cfg)
+            err = max_err(flows[b], single)
+            med = inner_median(flows[b])
+            off = float(np.abs(med - np.asarray(motion)).max())
+            log(f"  op {op} batch frame {b} {motion}: max |batch - "
+                f"compute_flow| {err:.3g} px (bound {BATCH_TOL:g}); median "
+                f"{med.tolist()}, {off:.3g} px off (bound {MOTION_TOL:g})")
+            assert err <= BATCH_TOL and off <= MOTION_TOL, (op, b)
+        reps = 10 if op == 2 else 3
+        ms = host_ms(lambda: port.batched_flow(I0, I1, cfg), reps)
+        ms_single = host_ms(lambda: [port.compute_flow(*p, cfg)
+                                     for p in pairs], reps)
+        log(f"op {op} batched_flow B={B} {h}x{w}: {ms:.3f} ms/batch, "
+            f"{ms / B:.3f} ms/frame, {total(n_batch)} kernel launches/batch;"
+            f" {B} compute_flow calls: {ms_single:.3f} ms, "
+            f"{ms_single / B:.3f} ms/frame, {B * total(n_single)} kernel "
+            "launches (host clock to sync, device-resident pairs)")
+
+    # MultiStream: B streams x STREAM_FRAMES frames, op 2, against
+    # stream_flow on each stream's frames
+    cfg = port.operating_point(2, width=w)
+    pads = pad_to_divisible(w, h, cfg.coarsest_scale)
+    pt, pl = pads[0], pads[2]
+    videos = [torch.stack([pad_replicate(torch.as_tensor(f, device=dev), pads)
+                           for f in synthetic_frames(BATCH_SEED + k,
+                                                     STREAM_FRAMES, h, w, s)])
+              for k, s in enumerate(BATCH_SHIFTS)]
+    Hp, Wp = videos[0].shape[1:3]
+
+    def run_streams():
+        ms = port.MultiStream(cfg, Hp, Wp, n_streams=B, device=dev)
+        ms.start(torch.stack([v[0] for v in videos]))
+        return [ms.push(torch.stack([v[t] for v in videos]))
+                for t in range(1, STREAM_FRAMES)]
+
+    ticks, n_ms = counted(f"MultiStream {B} streams x {STREAM_FRAMES} "
+                          f"frames op 2 ({Hp}x{Wp})", run_streams, ALL)
+    _, n_sf = counted("stream_flow, stream 0 alone",
+                      lambda: list(port.stream_flow(videos[0], cfg,
+                                                    fetch=False)), ALL)
+    assert n_ms == n_sf, "MultiStream did not launch once per scale a tick"
+    add(n_ms)
+    for k, (v, motion) in enumerate(zip(videos, BATCH_SHIFTS)):
+        want = list(port.stream_flow(v, cfg, fetch=False))
+        err = max(max_err(t[k], f) for t, f in zip(ticks, want))
+        log(f"  stream {k} {motion}: max |MultiStream - stream_flow| "
+            f"{err:.3g} px over {len(want)} pairs (bound {BATCH_TOL:g})")
+        assert err <= BATCH_TOL, k
+        for t in ticks:
+            check_shift(t[k, pt:pt + h, pl:pl + w], motion, 16,
+                        f"stream {k} tick vs known shift")
+    stream = port.MultiStream(cfg, Hp, Wp, n_streams=B, device=dev)
+    stream.start(torch.stack([v[0] for v in videos]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(1, STREAM_FRAMES):
+        stream.push(torch.stack([v[t] for v in videos]))
+    torch.cuda.synchronize()
+    tick = (time.perf_counter() - t0) * 1e3 / (STREAM_FRAMES - 1)
+    seq = host_ms(lambda: [list(port.stream_flow(v, cfg, fetch=False))
+                           for v in videos], 1) / (STREAM_FRAMES - 1)
+    log(f"MultiStream op 2 {B} streams: {tick:.3f} ms/tick, "
+        f"{tick / B:.3f} ms/frame, {total(n_ms) // (STREAM_FRAMES - 1)} "
+        f"kernel launches/tick; {B} stream_flow loops: {seq:.3f} ms per "
+        "frame of every stream (host clock to sync)")
+
+    # stream_video_chunks: one video as B chunks
+    n_frames, n_chunks = VIDEO
+    motion = BATCH_SHIFTS[0]
+    video = torch.stack([pad_replicate(torch.as_tensor(f, device=dev), pads)
+                         for f in synthetic_frames(BATCH_SEED + 9, n_frames,
+                                                   h, w, motion)])
+    out, n_chunks_run = counted(
+        f"stream_video_chunks {n_frames} frames as {n_chunks} chunks",
+        lambda: port.stream_video_chunks(video, cfg, n_chunks, dev),
+        ALL)
+    add(n_chunks_run)
+    assert out.shape == (n_frames - 1, Hp, Wp, 2)
+    starts = [k * (n_frames - 1) // n_chunks for k in range(n_chunks + 1)]
+    err = 0.0
+    for k in range(n_chunks):
+        lo, hi = starts[k], starts[k + 1]
+        for p, f in zip(range(lo, hi), port.stream_flow(video[lo:hi + 1], cfg,
+                                                        fetch=False)):
+            err = max(err, max_err(torch.as_tensor(out[p], device=dev), f))
+    log(f"  stream_video_chunks: max |chunk - stream_flow over the chunk| "
+        f"{err:.3g} px (bound {BATCH_TOL:g})")
+    assert err <= BATCH_TOL
+    for p in range(n_frames - 1):
+        check_shift(torch.as_tensor(out[p, pt:pt + h, pl:pl + w]), motion,
+                    16, f"chunked video pair {p} vs known shift")
+
+    # bf16 operand mode: the flow against the float32 flow
+    g = np.load(GOLDEN[2])
+    seed, shift = int(g["seed"]), tuple(int(x) for x in g["shift"])
+    inputs = {"pair": (shift, synthetic_pair(seed, h, w, shift)),
+              "small": (SMALL_SHIFT, synthetic_pair(seed, h, w, SMALL_SHIFT))}
+    bf16 = 0
+    for op, which in BF16_RUNS:
+        motion, pair = inputs[which]
+        pair = tuple(torch.as_tensor(x, device=dev) for x in pair)
+        cfg = port.operating_point(op, width=w)
+        bf = dataclasses.replace(cfg, dtype="bfloat16")
+        flow, counts = counted(f"op {op} bf16 compute_flow {motion}",
+                               lambda: port.compute_flow(*pair, bf),
+                               ALL + ("gn_bf16",))
+        bf16 += counts["gn_bf16"]
+        ref = port.compute_flow(*pair, cfg)
+        epe = torch.linalg.vector_norm(flow.double() - ref.double(), dim=-1)
+        mean = float(epe.mean())
+        p99 = float(torch.quantile(epe.flatten()[::7], 0.99))
+        check_shift(flow, motion, 16, f"op {op} bf16 {motion} vs known shift")
+        ms = host_ms(lambda: port.compute_flow(*pair, bf), 3)
+        ms32 = host_ms(lambda: port.compute_flow(*pair, cfg), 3)
+        log(f"  op {op} bf16 vs float32 flow {motion}: mean EPE {mean:.3g} "
+            f"px, p99 {p99:.3g} px (bounds {BF16_MEAN:g} / {BF16_P99:g}); "
+            f"{ms:.3f} ms/pair bf16, {ms32:.3f} ms/pair float32")
+        assert mean <= BF16_MEAN and p99 <= BF16_P99, (op, which)
+    return launches, bf16
 
 
 # ------------------------------------------------------------------ CLI
@@ -681,9 +1075,14 @@ def main() -> int:
         f"{os.path.relpath(lib_path, REPO)}")
 
     kernels = kernel_phase(dev)
+    kernels.update(batch_kernel_phase(dev))
     launches = slice_phase(dev)
     for k, n in cli_phase(dev).items():
         launches[k] += n
+    batch_launches, bf16_launches = batch_phase(dev)
+    for k, n in batch_launches.items():
+        launches[k + "_b4"] = n
+    launches["gn_bf16"] = bf16_launches
 
     src = "flowonthego_tpu_torch/csrc/"
     pallas = "flowonthego_tpu/ops/pallas/"
@@ -696,6 +1095,13 @@ def main() -> int:
                          "varref_fused.py:327"),
         "warp": ("warp_image_banded", "warp.cu", "warp.py:121"),
     }
+    # the batched rows (a batch of B frames, one launch per scale) and
+    # K2's bf16 operand kernel
+    for key in ("pool", "gn", "varref", "varref_tiled", "warp"):
+        name, source, replaces = meta[key]
+        meta[key + "_b4"] = (f"{name} (batch of {B})", source, replaces)
+    meta["gn_bf16"] = ("gn_scale_loop (bf16 operands)", "dis_gn.cu",
+                       "dis_gn.py:310")
     rows = []
     for key, (name, source, replaces) in meta.items():
         r = kernels[key]

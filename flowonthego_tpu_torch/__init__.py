@@ -15,13 +15,15 @@ from .models.dis_flow import (DISFlow, compute_flow, compute_flow_timed,
                               dis_flow_padded)
 from .models.stereo import compute_disparity
 from .ops.channels import prepare_input
-from .parallel.frame_parallel import stream_flow
+from .parallel import (MultiStream, batched_flow, stream_flow,
+                       stream_video_chunks)
 from .utils.metrics import average_epe, endpoint_error
 
 __all__ = [
     "DISConfig", "operating_point", "auto_coarsest_scale", "pad_to_divisible",
     "DISFlow", "compute_flow", "compute_flow_timed", "dis_flow_padded",
-    "stream_flow", "compute_disparity", "prepare_input",
+    "stream_flow", "batched_flow", "MultiStream", "stream_video_chunks",
+    "compute_disparity", "prepare_input",
     "read_flo", "write_flo", "read_pfm", "write_pfm", "load_image",
     "save_image", "flow_to_color", "average_epe", "endpoint_error",
 ]

@@ -17,6 +17,18 @@
 // TPU's envelopes, band pairs and radix shift selects existed because the
 // TPU has no gather, and are not carried over.
 //
+// Batch: B frames are one launch of B*P CTAs; CTA blk solves patch blk % P
+// of frame blk / P and reads that frame's padded level image.  Every
+// per-patch array is indexed by blk, so nothing else changes.
+//
+// bf16 operands (the Pallas kernel's form, dis_gn.py:90-94): with
+// Load = __nv_bfloat16 the level image, template and gradients are read as
+// bf16 and upcast on load; every blend, reduction and carry stays float32.
+// The projection's constant sums (gx, gy, gx*T, gy*T) then come in as
+// float32 inputs, reduced from the float32 state outside (as the JAX
+// package computes them, ops/dis.py:439-444); in float32 the kernel
+// reduces them itself from the values it loaded, which are that state.
+//
 // Semantics of flowonthego_tpu/ops/dis.py (the XLA reduction form):
 //   * window start = floor(mid) + padding - ps/2, wrapped once if negative
 //     and clamped to [0, Hp-K] like lax.dynamic_slice;
@@ -27,6 +39,7 @@
 //   * the final per-pixel cost is ((S - mean S) - T)^2 at the final p.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -61,22 +74,30 @@ __device__ __forceinline__ void block_sum(float (&v)[NV],
   }
 }
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// One CTA per patch of the batch; Load is float or __nv_bfloat16.
+template <typename Load>
 __global__ void dis_gn_kernel(
-    const float* __restrict__ I1, int Hp, int Wp, int C,
-    const float* __restrict__ tmpl, const float* __restrict__ tgx,
-    const float* __restrict__ tgy, const float* __restrict__ H,
-    const float* __restrict__ mid, const float* __restrict__ pcur,
-    const float* __restrict__ porg, const uint8_t* __restrict__ started,
-    int ps, int padding, int n_iters, float thresh, float l_bound,
-    float ub_w, float ub_h, float mean_on, float* __restrict__ p_out,
-    float* __restrict__ cost_out) {
+    const Load* __restrict__ I1, int Hp, int Wp, int C,
+    const Load* __restrict__ tmpl, const Load* __restrict__ tgx,
+    const Load* __restrict__ tgy, const float* __restrict__ sums_in,
+    const float* __restrict__ H, const float* __restrict__ mid,
+    const float* __restrict__ pcur, const float* __restrict__ porg,
+    const uint8_t* __restrict__ started, int P, int ps, int padding,
+    int n_iters, float thresh, float l_bound, float ub_w, float ub_h,
+    float mean_on, float* __restrict__ p_out, float* __restrict__ cost_out) {
   __shared__ float red[4][kMaxWarps];
-  const int p = blockIdx.x;
+  const int p = blockIdx.x;  // patch of the batch: frame p / P
   const int t = threadIdx.x;
   const int psC = ps * C;
   const int N = ps * psC;
   const bool live = t < N;
   const int64_t base = (int64_t)p * N;
+  I1 += (int64_t)(p / P) * Hp * Wp * C;
 
   if (!started[p]) {  // uniform across the block
     if (t == 0) {
@@ -94,12 +115,21 @@ __global__ void dis_gn_kernel(
     c = rem / C;
     ch = rem - c * C;
   }
-  const float T = live ? tmpl[base + t] : 0.0f;
-  const float GX = live ? tgx[base + t] : 0.0f;
-  const float GY = live ? tgy[base + t] : 0.0f;
+  const float T = live ? to_f32(tmpl[base + t]) : 0.0f;
+  const float GX = live ? to_f32(tgx[base + t]) : 0.0f;
+  const float GY = live ? to_f32(tgy[base + t]) : 0.0f;
 
-  float sums[4] = {GX, GY, GX * T, GY * T};
-  block_sum<4>(sums, red);
+  float sums[4];
+  if (sums_in != nullptr) {  // uniform: the bf16 mode's float32 sums
+#pragma unroll
+    for (int k = 0; k < 4; ++k) sums[k] = sums_in[4 * p + k];
+  } else {
+    sums[0] = GX;
+    sums[1] = GY;
+    sums[2] = GX * T;
+    sums[3] = GY * T;
+    block_sum<4>(sums, red);
+  }
   const float gx_sum = sums[0], gy_sum = sums[1], gxT = sums[2], gyT = sums[3];
   const float h00 = H[3 * p], h01 = H[3 * p + 1], h11 = H[3 * p + 2];
   const float det = h00 * h11 - h01 * h01;
@@ -121,13 +151,14 @@ __global__ void dis_gn_kernel(
     sy = min(max(sy, 0), Hp - K);
     sx = min(max(sx, 0), Wp - K);
     if (!live) return 0.0f;
-    const float* q = I1 + (int64_t)(sy + r) * row_stride + (int64_t)(sx + c) * C + ch;
+    const Load* q = I1 + (int64_t)(sy + r) * row_stride + (int64_t)(sx + c) * C + ch;
     const float w_tl = (1.0f - rx) * (1.0f - ry);
     const float w_tr = rx * (1.0f - ry);
     const float w_bl = (1.0f - rx) * ry;
     const float w_br = rx * ry;
-    return ((w_tl * q[0] + w_tr * q[C]) + w_bl * q[row_stride]) +
-           w_br * q[row_stride + C];
+    return ((w_tl * to_f32(q[0]) + w_tr * to_f32(q[C])) +
+            w_bl * to_f32(q[row_stride])) +
+           w_br * to_f32(q[row_stride + C]);
   };
 
   float px = pcur[2 * p], py = pcur[2 * p + 1];
@@ -169,24 +200,50 @@ __global__ void dis_gn_kernel(
   }
 }
 
+template <typename Load>
+void launch(const void* I1, int Hp, int Wp, int C, const void* tmpl,
+            const void* tgx, const void* tgy, const void* sums,
+            const void* H, const void* mid, const void* pcur,
+            const void* porg, const void* started, int n_blocks, int P,
+            int ps, int padding, int n_iters, float thresh, float l_bound,
+            float ub_w, float ub_h, float mean_on, void* p_out,
+            void* cost_out, int threads, cudaStream_t stream) {
+  dis_gn_kernel<Load><<<n_blocks, threads, 0, stream>>>(
+      (const Load*)I1, Hp, Wp, C, (const Load*)tmpl, (const Load*)tgx,
+      (const Load*)tgy, (const float*)sums, (const float*)H,
+      (const float*)mid, (const float*)pcur, (const float*)porg,
+      (const uint8_t*)started, P, ps, padding, n_iters, thresh, l_bound,
+      ub_w, ub_h, mean_on, (float*)p_out, (float*)cost_out);
+}
+
 }  // namespace
 
-extern "C" int fot_dis_gn(const void* I1, int Hp, int Wp, int C,
-                          const void* tmpl, const void* tgx, const void* tgy,
-                          const void* H, const void* mid, const void* pcur,
-                          const void* porg, const void* started, int P, int ps,
-                          int padding, int n_iters, float thresh,
-                          float l_bound, float ub_w, float ub_h, float mean_on,
-                          void* p_out, void* cost_out, void* stream) {
+// bf16 != 0: I1, tmpl, tgx, tgy are __nv_bfloat16 and sums ([B*P, 4]
+// float32) is required; else they are float32 and sums is ignored.
+extern "C" int fot_dis_gn(const void* I1, int bf16, int B, int Hp, int Wp,
+                          int C, const void* tmpl, const void* tgx,
+                          const void* tgy, const void* sums, const void* H,
+                          const void* mid, const void* pcur, const void* porg,
+                          const void* started, int P, int ps, int padding,
+                          int n_iters, float thresh, float l_bound,
+                          float ub_w, float ub_h, float mean_on, void* p_out,
+                          void* cost_out, void* stream) {
   const int N = ps * ps * C;
   const int threads = ((N + 31) / 32) * 32;
-  if (P == 0) return 0;
-  if (threads > 1024) return (int)cudaErrorInvalidConfiguration;
-  dis_gn_kernel<<<P, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)I1, Hp, Wp, C, (const float*)tmpl, (const float*)tgx,
-      (const float*)tgy, (const float*)H, (const float*)mid,
-      (const float*)pcur, (const float*)porg, (const uint8_t*)started, ps,
-      padding, n_iters, thresh, l_bound, ub_w, ub_h, mean_on, (float*)p_out,
-      (float*)cost_out);
+  const long long n_blocks = (long long)B * P;
+  if (n_blocks == 0) return 0;
+  if (threads > 1024 || n_blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;
+  if (bf16 && sums == nullptr) return (int)cudaErrorInvalidValue;
+  if (bf16)
+    launch<__nv_bfloat16>(I1, Hp, Wp, C, tmpl, tgx, tgy, sums, H, mid, pcur,
+                          porg, started, (int)n_blocks, P, ps, padding,
+                          n_iters, thresh, l_bound, ub_w, ub_h, mean_on,
+                          p_out, cost_out, threads, (cudaStream_t)stream);
+  else
+    launch<float>(I1, Hp, Wp, C, tmpl, tgx, tgy, nullptr, H, mid, pcur, porg,
+                  started, (int)n_blocks, P, ps, padding, n_iters, thresh,
+                  l_bound, ub_w, ub_h, mean_on, p_out, cost_out, threads,
+                  (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

@@ -14,6 +14,12 @@
 //   D  solve_iter red-black SOR sweeps (odd cells first; dv uses the new du)
 // then uu = wx + du, vv = wy + dv.
 //
+// A batch of B frames: every plane is [B][h][w] and dIs is [B][8][C][h][w].
+// The loop walks idx over B*h*w; frame f = idx / (h*w), and the pixel's
+// row and column within its frame set every border rule, so row h-1 of
+// frame f never reads frame f+1 and the red-black parity is (i + j) of
+// the frame.  K3 runs it with B = 1 per CTA, K4 once over the batch.
+//
 // The 10 work planes live in device memory.  They are written and read
 // by other threads (other CTAs, for K4) within the launch, so they are
 // plain pointers: a const __restrict__ one could be read through the
@@ -34,30 +40,41 @@ constexpr float kEpsGrad = (float)(0.001 * 0.001);
 constexpr float kEpsSmooth = (float)(0.001 * 0.001);
 constexpr int kScratchPlanes = 10;  // s, s_h, s_v, A11, A22, a12, b1, b2, du, dv
 
-// Each pixel idx in [0, n) is visited by exactly one thread: idx = first,
-// first + stride, ...; sync() separates phases and half-sweeps.
+// Each pixel idx in [0, B*h*w) is visited by exactly one thread: idx =
+// first, first + stride, ...; sync() separates phases and half-sweeps.
 template <class Sync>
 __device__ __forceinline__ void refine_loop(
     const float* __restrict__ wx, const float* __restrict__ wy,
-    const float* __restrict__ mask, const float* __restrict__ dIs, int h,
-    int w, int C, int inner_iter, int solve_iter, float omega, float qa,
-    float hd3, float hg3, float* scratch, float* __restrict__ uu_out,
-    float* __restrict__ vv_out, int first, int stride, Sync sync) {
-  const int n = h * w;
+    const float* __restrict__ mask, const float* __restrict__ dIs,
+    int n_frames, int h, int w, int C, int inner_iter, int solve_iter,
+    float omega, float qa, float hd3, float hg3, float* scratch,
+    float* __restrict__ uu_out, float* __restrict__ vv_out, int first,
+    int stride, Sync sync) {
+  const int n = h * w;       // pixels of one frame
+  const int N = n_frames * n;
   float* s = scratch;
-  float* sh = s + n;
-  float* sv = sh + n;
-  float* A11 = sv + n;
-  float* A22 = A11 + n;
-  float* a12 = A22 + n;
-  float* b1 = a12 + n;
-  float* b2 = b1 + n;
-  float* du = b2 + n;
-  float* dv = du + n;
-  // dIs planes: [8][C][n] = Ix, Iy, Iz, Ixx, Ixy, Iyy, Ixz, Iyz
-  auto dI = [&](int k, int c, int idx) { return dIs[(k * C + c) * n + idx]; };
+  float* sh = s + N;
+  float* sv = sh + N;
+  float* A11 = sv + N;
+  float* A22 = A11 + N;
+  float* a12 = A22 + N;
+  float* b1 = a12 + N;
+  float* b2 = b1 + N;
+  float* du = b2 + N;
+  float* dv = du + N;
+  // dIs planes: [B][8][C][n] = Ix, Iy, Iz, Ixx, Ixy, Iyy, Ixz, Iyz
+  auto dI = [&](int k, int c, int idx) {
+    const int f = idx / n;
+    return dIs[((f * 8 + k) * C + c) * n + (idx - f * n)];
+  };
+  // (row, column) of idx within its frame
+  auto rc = [&](int idx, int& j, int& i) {
+    const int q = idx % n;
+    j = q / w;
+    i = q - j * w;
+  };
 
-  for (int idx = first; idx < n; idx += stride) {
+  for (int idx = first; idx < N; idx += stride) {
     du[idx] = 0.0f;
     dv[idx] = 0.0f;
   }
@@ -65,8 +82,9 @@ __device__ __forceinline__ void refine_loop(
 
   for (int it = 0; it < inner_iter; ++it) {
     // ---- A: smoothness ----
-    for (int idx = first; idx < n; idx += stride) {
-      const int j = idx / w, i = idx - j * w;
+    for (int idx = first; idx < N; idx += stride) {
+      int j, i;
+      rc(idx, j, i);
       const int iL = idx - (i > 0), iR = idx + (i < w - 1);
       const int jU = idx - (j > 0 ? w : 0), jD = idx + (j < h - 1 ? w : 0);
       const float ux = 0.5f * ((wx[iR] + du[iR]) - (wx[iL] + du[iL]));
@@ -77,15 +95,17 @@ __device__ __forceinline__ void refine_loop(
     }
     sync();
     // ---- B: pair sums ----
-    for (int idx = first; idx < n; idx += stride) {
-      const int j = idx / w, i = idx - j * w;
+    for (int idx = first; idx < N; idx += stride) {
+      int j, i;
+      rc(idx, j, i);
       sh[idx] = (i == w - 1) ? 0.0f : s[idx] + s[idx + 1];
       sv[idx] = (j == h - 1) ? 0.0f : s[idx] + s[idx + w];
     }
     sync();
     // ---- C: data term, sub-Laplacian, diagonal ----
-    for (int idx = first; idx < n; idx += stride) {
-      const int j = idx / w, i = idx - j * w;
+    for (int idx = first; idx < N; idx += stride) {
+      int j, i;
+      rc(idx, j, i);
       const float u0 = du[idx], v0 = dv[idx], m = mask[idx];
       // colour constancy
       float acc = 0.0f;
@@ -156,8 +176,9 @@ __device__ __forceinline__ void refine_loop(
     // ---- D: red-black SOR ----
     for (int sweep = 0; sweep < 2 * solve_iter; ++sweep) {
       const int want = (sweep & 1) ? 0 : 1;  // odd cells first
-      for (int idx = first; idx < n; idx += stride) {
-        const int j = idx / w, i = idx - j * w;
+      for (int idx = first; idx < N; idx += stride) {
+        int j, i;
+        rc(idx, j, i);
         if (((i + j) & 1) != want) continue;
         const float sh0 = sh[idx], sv0 = sv[idx];
         const float shl = i > 0 ? sh[idx - 1] : 0.0f;
@@ -183,7 +204,7 @@ __device__ __forceinline__ void refine_loop(
       sync();
     }
   }
-  for (int idx = first; idx < n; idx += stride) {
+  for (int idx = first; idx < N; idx += stride) {
     uu_out[idx] = wx[idx] + du[idx];
     vv_out[idx] = wy[idx] + dv[idx];
   }

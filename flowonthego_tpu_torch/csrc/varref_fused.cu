@@ -12,7 +12,12 @@
 // separates phases and half-sweeps; it also orders this block's
 // global-memory writes before the reads that follow.  Larger fields go to
 // K4, which spreads the same loop over the whole card.
+//
+// Batch: one CTA per frame (gridDim.x = B); CTA b runs the loop on frame
+// b's planes and its own 10 scratch planes, so each frame is computed as
+// a single-frame launch would compute it.
 
+#include <cstdint>
 #include <cuda_runtime.h>
 
 #include "varref_common.cuh"
@@ -29,21 +34,24 @@ __global__ void __launch_bounds__(1024) varref_kernel(
     int w, int C, int inner_iter, int solve_iter, float omega, float qa,
     float hd3, float hg3, float* scratch, float* __restrict__ uu_out,
     float* __restrict__ vv_out) {
-  fot_varref::refine_loop(wx, wy, mask, dIs, h, w, C, inner_iter, solve_iter,
-                          omega, qa, hd3, hg3, scratch, uu_out, vv_out,
-                          threadIdx.x, blockDim.x, BlockSync());
+  const int64_t n = (int64_t)h * w, f = blockIdx.x;
+  fot_varref::refine_loop(
+      wx + f * n, wy + f * n, mask + f * n, dIs + f * 8 * C * n, 1, h, w, C,
+      inner_iter, solve_iter, omega, qa, hd3, hg3,
+      scratch + f * fot_varref::kScratchPlanes * n, uu_out + f * n,
+      vv_out + f * n, threadIdx.x, blockDim.x, BlockSync());
 }
 
 }  // namespace
 
 extern "C" int fot_varref_fused(const void* wx, const void* wy,
-                                const void* mask, const void* dIs, int h,
-                                int w, int C, int inner_iter, int solve_iter,
-                                float omega, float qa, float hd3, float hg3,
-                                void* scratch, void* uu, void* vv,
-                                void* stream) {
-  if (h * w == 0) return 0;
-  varref_kernel<<<1, 1024, 0, (cudaStream_t)stream>>>(
+                                const void* mask, const void* dIs, int B,
+                                int h, int w, int C, int inner_iter,
+                                int solve_iter, float omega, float qa,
+                                float hd3, float hg3, void* scratch, void* uu,
+                                void* vv, void* stream) {
+  if (B * h * w == 0) return 0;
+  varref_kernel<<<B, 1024, 0, (cudaStream_t)stream>>>(
       (const float*)wx, (const float*)wy, (const float*)mask,
       (const float*)dIs, h, w, C, inner_iter, solve_iter, omega, qa, hd3, hg3,
       (float*)scratch, (float*)uu, (float*)vv);

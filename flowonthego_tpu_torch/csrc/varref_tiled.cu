@@ -19,6 +19,11 @@
 // barrier costs a few microseconds instead, ~10 per round.  A launch that
 // the card refuses (a grid that cannot be resident) returns its error; it
 // is never split or sent to K3.
+//
+// Batch: one launch walks all B*h*w pixels of the batch; refine_loop
+// derives each pixel's frame, row and column from its index, so border
+// rules and red-black parity stay per frame.  A launch the card refuses is
+// never split per frame either.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -35,11 +40,12 @@ struct GridSync {
 
 __global__ void __launch_bounds__(kThreads) varref_tiled_kernel(
     const float* __restrict__ wx, const float* __restrict__ wy,
-    const float* __restrict__ mask, const float* __restrict__ dIs, int h,
-    int w, int C, int inner_iter, int solve_iter, float omega, float qa,
-    float hd3, float hg3, float* scratch, float* __restrict__ uu_out,
-    float* __restrict__ vv_out) {
-  fot_varref::refine_loop(wx, wy, mask, dIs, h, w, C, inner_iter, solve_iter,
+    const float* __restrict__ mask, const float* __restrict__ dIs,
+    int n_frames, int h, int w, int C, int inner_iter, int solve_iter,
+    float omega, float qa, float hd3, float hg3, float* scratch,
+    float* __restrict__ uu_out, float* __restrict__ vv_out) {
+  fot_varref::refine_loop(wx, wy, mask, dIs, n_frames, h, w, C, inner_iter,
+                          solve_iter,
                           omega, qa, hd3, hg3, scratch, uu_out, vv_out,
                           blockIdx.x * blockDim.x + threadIdx.x,
                           gridDim.x * blockDim.x, GridSync());
@@ -48,12 +54,12 @@ __global__ void __launch_bounds__(kThreads) varref_tiled_kernel(
 }  // namespace
 
 extern "C" int fot_varref_tiled(const void* wx, const void* wy,
-                                const void* mask, const void* dIs, int h,
-                                int w, int C, int inner_iter, int solve_iter,
-                                float omega, float qa, float hd3, float hg3,
-                                void* scratch, void* uu, void* vv,
-                                void* stream) {
-  const int n = h * w;
+                                const void* mask, const void* dIs, int B,
+                                int h, int w, int C, int inner_iter,
+                                int solve_iter, float omega, float qa,
+                                float hd3, float hg3, void* scratch, void* uu,
+                                void* vv, void* stream) {
+  const int n = B * h * w;
   if (n == 0) return 0;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -74,10 +80,10 @@ extern "C" int fot_varref_tiled(const void* wx, const void* wy,
   float* scratch_f = (float*)scratch;
   float* uu_f = (float*)uu;
   float* vv_f = (float*)vv;
-  void* args[] = {&wx_f,       &wy_f,       &mask_f, &dIs_f, &h,
-                  &w,          &C,          &inner_iter, &solve_iter,
-                  &omega,      &qa,         &hd3,    &hg3,   &scratch_f,
-                  &uu_f,       &vv_f};
+  void* args[] = {&wx_f,  &wy_f,       &mask_f,     &dIs_f, &B,
+                  &h,     &w,          &C,          &inner_iter,
+                  &solve_iter, &omega, &qa,         &hd3,   &hg3,
+                  &scratch_f,  &uu_f,  &vv_f};
   // blocks == 0 (no CTA fits on an SM) is refused here as an invalid
   // configuration.
   err = cudaLaunchCooperativeKernel((const void*)varref_tiled_kernel,

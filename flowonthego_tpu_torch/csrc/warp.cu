@@ -16,22 +16,28 @@
 // evaluated left to right.  With --fmad=false nothing is contracted, so
 // the kernel is bit-exact with the plain version.
 //
-// The source may be a row-strided view (a crop of a padded pyramid
-// level): row r of src starts at src + r * row_stride, pixels are C
-// floats apart.
+// Batch: one thread per pixel over B*h*w; frame f = idx / (h*w), and the
+// taps clamp to frame f's image.  The source may be a strided view (a crop
+// of padded pyramid levels): row r of frame f starts at src + f *
+// frame_stride + r * row_stride, pixels are C floats apart.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void warp_kernel(const float* __restrict__ src, int64_t row_stride,
+__global__ void warp_kernel(const float* __restrict__ src,
+                            int64_t frame_stride, int64_t row_stride,
                             const float* __restrict__ wx,
-                            const float* __restrict__ wy, int h, int w, int C,
-                            float* __restrict__ out, float* __restrict__ mask) {
+                            const float* __restrict__ wy, int n_frames, int h,
+                            int w, int C, float* __restrict__ out,
+                            float* __restrict__ mask) {
+  const int n = h * w;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx < h * w) {
-    const int j = idx / w, i = idx - j * w;
+  if (idx < n_frames * n) {
+    const int f = idx / n, q = idx - f * n;
+    const int j = q / w, i = q - j * w;
+    src += f * frame_stride;
     const float xx = (float)i + wx[idx];
     const float yy = (float)j + wy[idx];
     const float x0 = floorf(xx);
@@ -59,15 +65,16 @@ __global__ void warp_kernel(const float* __restrict__ src, int64_t row_stride,
 
 }  // namespace
 
-extern "C" int fot_warp(const void* src, int64_t row_stride, const void* wx,
-                        const void* wy, int h, int w, int C, void* out,
-                        void* mask, void* stream) {
-  const int n = h * w;
+extern "C" int fot_warp(const void* src, int64_t frame_stride,
+                        int64_t row_stride, const void* wx, const void* wy,
+                        int B, int h, int w, int C, void* out, void* mask,
+                        void* stream) {
+  const int n = B * h * w;
   if (n == 0) return 0;
   const int threads = 256;
   const int blocks = (n + threads - 1) / threads;
   warp_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)src, row_stride, (const float*)wx, (const float*)wy, h, w,
-      C, (float*)out, (float*)mask);
+      (const float*)src, frame_stride, row_stride, (const float*)wx,
+      (const float*)wy, B, h, w, C, (float*)out, (float*)mask);
   return (int)cudaGetLastError();
 }

@@ -10,6 +10,13 @@
         the backward grid, merged in densify
     -> upsample the finest flow to input resolution -> crop the padding.
 
+The pipeline runs on a batch of B frame pairs with a leading batch axis
+(``dis_flow_padded``, ``dis_flow_from_pyramids``): each kernel launches
+once per scale (and direction) for the whole batch, as a ``vmap`` of the
+JAX pipeline adds one grid axis to each Pallas call.  The single-pair
+entry points (``compute_flow``, ``compute_flow_timed``, ``DISFlow``) run
+it with B = 1.
+
 PyTorch runs eagerly, so there is no jitted variant: every function here
 runs on the device its input tensors lie on.
 """
@@ -43,16 +50,20 @@ def pin_fp32() -> None:
 def dis_flow_padded(I0: torch.Tensor, I1: torch.Tensor, cfg: DISConfig,
                     init_flow: Optional[torch.Tensor] = None,
                     level_offset: int = 0) -> torch.Tensor:
-    """DIS on divisibility-padded images I0, I1 [H, W, C] float32 (H, W
-    divisible by 2**coarsest_scale).
+    """DIS on B pairs of divisibility-padded images I0, I1 [B, H, W, C]
+    float32 (H, W divisible by 2**coarsest_scale).
 
-    init_flow: optional warm start [H/2^(cs+1), W/2^(cs+1), 2].
+    init_flow: optional warm start [B, H/2^(cs+1), W/2^(cs+1), 2].
     level_offset shifts the level index that sets the variational
     inner-iteration count (inner_iter = level + 1).
-    Returns flow [H/2^fs, W/2^fs, 2] at the finest processed scale.
+    Returns flows [B, H/2^fs, W/2^fs, 2] at the finest processed scale.
     """
     pin_fp32()
-    H, W = I0.shape[0], I0.shape[1]
+    if I0.dim() != 4 or I0.shape != I1.shape:
+        raise ValueError(f"dis_flow_padded takes two [B, H, W, C] batches "
+                         f"of one shape, got {tuple(I0.shape)} and "
+                         f"{tuple(I1.shape)}")
+    H, W = I0.shape[1], I0.shape[2]
     div = 2 ** cfg.coarsest_scale
     if H % div or W % div:
         raise ValueError(f"image {H}x{W} not divisible by 2^{cfg.coarsest_scale}")
@@ -72,16 +83,17 @@ def dis_flow_from_pyramids(pyr0, pyr1, cfg: DISConfig,
                            level_offset: int = 0,
                            timer: Optional[PhaseTimer] = None,
                            printer=print) -> torch.Tensor:
-    """DIS on prebuilt pyramids (see :func:`dis_flow_padded`); video
-    streaming builds each frame's pyramid once and uses it for two pairs.
+    """DIS on prebuilt pyramids of B frames each (see
+    :func:`dis_flow_padded`); video streaming builds each frame's pyramid
+    once and uses it for two pairs.
 
     With a ``timer``, each phase of a scale runs under ``timer.phase`` (so
     it ends with a device sync) and ``printer`` gets the reference's line
     ``TIME (Sc: %i, #p:%6i, pconst, pinit, poptim, cflow, tvopt, total)``
     per scale."""
     lvl_c = pyr0[cfg.coarsest_scale]
-    H = lvl_c.image.shape[0] - 2 * cfg.padding << cfg.coarsest_scale
-    W = lvl_c.image.shape[1] - 2 * cfg.padding << cfg.coarsest_scale
+    H = lvl_c.image.shape[1] - 2 * cfg.padding << cfg.coarsest_scale
+    W = lvl_c.image.shape[2] - 2 * cfg.padding << cfg.coarsest_scale
     phase = timer.phase if timer is not None else (
         lambda name: contextlib.nullcontext())
 
@@ -126,8 +138,8 @@ def dis_flow_from_pyramids(pyr0, pyr1, cfg: DISConfig,
         if cfg.use_var_ref:
             with phase("var_ref"):
                 p = cfg.padding
-                im1 = lvl0.image[p:p + h_sl, p:p + w_sl, :]
-                im2 = lvl1.image[p:p + h_sl, p:p + w_sl, :]
+                im1 = lvl0.image[:, p:p + h_sl, p:p + w_sl, :]
+                im2 = lvl1.image[:, p:p + h_sl, p:p + w_sl, :]
                 level = sl + level_offset
                 flow = var_mod.variational_refine_auto(flow, im1, im2, cfg,
                                                        level)
@@ -145,7 +157,8 @@ def dis_flow_from_pyramids(pyr0, pyr1, cfg: DISConfig,
 
 def upsample_flow_to_full(flow: torch.Tensor, cfg: DISConfig,
                           out_h: int, out_w: int) -> torch.Tensor:
-    """Finest-level flow x2^fs, bilinearly resized to full resolution."""
+    """Finest-level flows [..., h, w, 2] x2^fs, bilinearly resized to full
+    resolution."""
     if cfg.finest_scale == 0:
         return flow
     return resize_matmul(flow * float(2 ** cfg.finest_scale), out_h, out_w)
@@ -195,10 +208,10 @@ def compute_flow(I0, I1, cfg: Optional[DISConfig] = None, op_point: int = 2,
     if cfg is None:
         cfg = operating_point(op_point, width=w)
     pads = pad_to_divisible(w, h, cfg.coarsest_scale)
-    I0p = pad_replicate(I0, pads)
-    I1p = pad_replicate(I1, pads)
-    flow = dis_flow_padded(I0p, I1p, cfg)
-    flow = upsample_flow_to_full(flow, cfg, I0p.shape[0], I0p.shape[1])
+    I0p = pad_replicate(I0, pads)[None]
+    I1p = pad_replicate(I1, pads)[None]
+    flow = dis_flow_padded(I0p, I1p, cfg)[0]
+    flow = upsample_flow_to_full(flow, cfg, I0p.shape[1], I0p.shape[2])
     pt, _, pl, _ = pads
     return flow[pt:pt + h, pl:pl + w, :]
 
@@ -223,8 +236,8 @@ def compute_flow_timed(I0, I1, cfg: Optional[DISConfig] = None,
         cfg = operating_point(op_point, width=w)
     pin_fp32()
     pads = pad_to_divisible(w, h, cfg.coarsest_scale)
-    I0p = pad_replicate(I0, pads)
-    I1p = pad_replicate(I1, pads)
+    I0p = pad_replicate(I0, pads)[None]
+    I1p = pad_replicate(I1, pads)[None]
     timer = PhaseTimer(I0p.device)
 
     t_all = time.perf_counter()
@@ -237,7 +250,8 @@ def compute_flow_timed(I0, I1, cfg: Optional[DISConfig] = None,
     flow = dis_flow_from_pyramids(pyr0, pyr1, cfg, timer=timer,
                                   printer=printer)
     with timer.phase("upsample"):
-        flow = upsample_flow_to_full(flow, cfg, I0p.shape[0], I0p.shape[1])
+        flow = upsample_flow_to_full(flow[0], cfg, I0p.shape[1],
+                                     I0p.shape[2])
         pt, _, pl, _ = pads
         flow = flow[pt:pt + h, pl:pl + w, :]
     printer(f"TIME (O.Flow Run-Time   ) (ms): "

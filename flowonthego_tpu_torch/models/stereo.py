@@ -32,7 +32,7 @@ def _optimize_1d(state: dis_mod.PatchState, I1_pad: torch.Tensor,
                  cam_lr: int) -> dis_mod.PatchState:
     """Fixed-trip 1-D inverse search with the disparity sign clamp."""
     # values per patch, channel-generic (gray/gradmag inputs have C = 1)
-    n_vals = float(np.prod(state.templates.shape[2:]))
+    n_vals = float(np.prod(state.templates.shape[-3:]))
 
     active0 = ~state.converged
     diff, cost_px, cost = dis_mod._sample_residual(state, I1_pad, grid, cfg)
@@ -45,7 +45,7 @@ def _optimize_1d(state: dis_mod.PatchState, I1_pad: torch.Tensor,
     for _ in range(cfg.grad_descent_iter):
         st = state
         active = ~st.converged
-        dpx = (st.tgrad_x * st.diff).sum(dim=(2, 3, 4))
+        dpx = (st.tgrad_x * st.diff).sum(dim=(-3, -2, -1))
         delta = dpx / st.H[..., 0]          # scalar Gauss-Newton step
         d_new = st.p_cur[..., 0] - delta
         d_new = (torch.clamp(d_new, max=0.0) if cam_lr == 0
@@ -74,13 +74,16 @@ def _optimize_1d(state: dis_mod.PatchState, I1_pad: torch.Tensor,
 def stereo_disparity_padded(I_left: torch.Tensor, I_right: torch.Tensor,
                             cfg: DISConfig, cam_lr: int = 0) -> torch.Tensor:
     """Dense disparity [H/2^fs, W/2^fs] at the finest processed scale of
-    divisibility-padded images.  ``cam_lr`` 0: the reference is the left
-    image and disparity <= 0; 1: mirrored."""
+    divisibility-padded images [H, W, C] (run as a batch of one).
+    ``cam_lr`` 0: the reference is the left image and disparity <= 0; 1:
+    mirrored."""
     pin_fp32()
     H, W = I_left.shape[0], I_left.shape[1]
     kw = dict(start_level=cfg.finest_scale, backend=pool_backend(cfg))
-    pyr0 = build_pyramid(I_left, cfg.coarsest_scale + 1, cfg.padding, **kw)
-    pyr1 = build_pyramid(I_right, cfg.coarsest_scale + 1, cfg.padding, **kw)
+    pyr0 = build_pyramid(I_left[None], cfg.coarsest_scale + 1, cfg.padding,
+                         **kw)
+    pyr1 = build_pyramid(I_right[None], cfg.coarsest_scale + 1, cfg.padding,
+                         **kw)
 
     flow = None
     for sl in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
@@ -96,7 +99,7 @@ def stereo_disparity_padded(I_left: torch.Tensor, I_right: torch.Tensor,
         # keep the vertical channel exactly zero between scales
         flow = torch.stack([flow[..., 0], torch.zeros_like(flow[..., 1])],
                            dim=-1)
-    return flow[..., 0]
+    return flow[0, ..., 0]
 
 
 def compute_disparity(I_left, I_right, cfg: Optional[DISConfig] = None,

@@ -1,4 +1,5 @@
-"""K2: one scale's whole Gauss-Newton patch solve (inverse search).
+"""K2: one scale's whole Gauss-Newton patch solve (inverse search), for a
+batch of frames.
 
 Replaces ``flowonthego_tpu/ops/pallas/dis_gn.py`` (``gn_scale_loop``,
 kernel ``_kernel``) with ``csrc/dis_gn.cu``.  On the card the solve is
@@ -11,9 +12,22 @@ from the padded level image (L1/L2-resident), and reduces with warp
 shuffles.  The TPU kernel's envelopes, band pairs and radix shift selects
 worked around the lack of a gather on the TPU and are not carried over.
 
+A batch of B frames is one launch of B*P CTAs (P patches a frame); CTA
+k solves patch k % P of frame k / P against that frame's level image,
+as a ``vmap`` of the Pallas call adds one grid axis.
+
+bf16 operand mode (``bf16=True``, ``cfg.dtype="bfloat16"``), the Pallas
+kernel's form (``dis_gn.py:90-94``): the wrapper rounds the level image,
+the templates and their gradients to bf16 once, on the device, and the
+kernel upcasts them on load; every blend, reduction and carry is
+float32.  The per-patch sums of gx, gy, gx*T and gy*T come from the
+float32 state, as the JAX package computes them outside its kernel
+(``ops/dis.py:439-444``), so they enter the kernel as float32 inputs.
+
 :func:`gn_scale_loop` launches the kernel for CUDA tensors and runs
 :func:`gn_scale_loop_plain` (the JAX package's XLA reduction form,
-``flowonthego_tpu/ops/dis.py:429-466, 559-622``) for CPU tensors.
+``flowonthego_tpu/ops/dis.py:429-466, 559-622``, with the Pallas form's
+bf16 rounding of its operands in bf16 mode) for CPU tensors.
 
 Edge rules (as the TPU kernel): a patch that was never started (frozen at
 warm start) keeps p_cur and has cost 0; a patch that trips the outlier or
@@ -28,40 +42,60 @@ import torch
 from . import _build
 from ..interp import blend_windows, gather_windows, sample_patches_bilinear
 
-# Kernel launches since the last reset (read and reset by chip_smoke.py).
+# Kernel launches since the last reset (read and reset by chip_smoke.py);
+# launches_bf16 counts those of them that ran the bf16 operand kernel.
 launches = 0
+launches_bf16 = 0
+
+_PATCH = (-3, -2, -1)
+
+
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def patch_sums(templates, tgrad_x, tgrad_y) -> torch.Tensor:
+    """[..., 4] float32 per-patch sums (gx, gy, gx*T, gy*T) of the float32
+    state: the projection's constant terms."""
+    return torch.stack([tgrad_x.sum(dim=_PATCH), tgrad_y.sum(dim=_PATCH),
+                        (tgrad_x * templates).sum(dim=_PATCH),
+                        (tgrad_y * templates).sum(dim=_PATCH)], dim=-1)
 
 
 def gn_scale_loop_plain(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org,
                         p_cur, p_org, started, *, n_iters: int, padding: int,
                         thresh: float, l_bound: float, ub_w: float,
-                        ub_h: float, mean_on: float):
+                        ub_h: float, mean_on: float, bf16: bool = False):
     """Plain PyTorch version of the scale solve.
 
-    I1_pad [Hp, Wp, C]; templates, tgrad_x, tgrad_y [n_h, n_w, ps, ps, C];
-    H [n_h, n_w, 3]; mid_org, p_cur, p_org [n_h, n_w, 2]; started
-    [n_h, n_w] bool.  Runs ``n_iters`` Gauss-Newton steps from p_cur
-    (projection from the linear reductions sum S, sum gx.S, sum gy.S,
-    outlier/bounds reset to p_org), then the per-pixel squared residual at
-    the final position.  Returns (p [n_h, n_w, 2], cost_px like
+    I1_pad [B, Hp, Wp, C]; templates, tgrad_x, tgrad_y [B, n_h, n_w, ps,
+    ps, C]; H [B, n_h, n_w, 3]; mid_org, p_cur, p_org [B, n_h, n_w, 2];
+    started [B, n_h, n_w] bool.  Runs ``n_iters`` Gauss-Newton steps from
+    p_cur (projection from the linear reductions sum S, sum gx.S, sum
+    gy.S, outlier/bounds reset to p_org), then the per-pixel squared
+    residual at the final position.  With ``bf16`` the image, templates
+    and gradients are rounded to bf16 (the sums of the projection's
+    constant terms are not).  Returns (p [B, n_h, n_w, 2], cost_px like
     templates).
     """
-    n_h, n_w, ps = templates.shape[:3]
-    N = templates[0, 0].numel()
-    gx_sum = tgrad_x.sum(dim=(2, 3, 4))
-    gy_sum = tgrad_y.sum(dim=(2, 3, 4))
-    gxT = (tgrad_x * templates).sum(dim=(2, 3, 4))
-    gyT = (tgrad_y * templates).sum(dim=(2, 3, 4))
+    ps = templates.shape[-3]
+    N = templates[0, 0, 0].numel()
+    lead = templates.shape[:-3]
+    gx_sum, gy_sum, gxT, gyT = patch_sums(templates, tgrad_x,
+                                          tgrad_y).unbind(-1)
+    if bf16:
+        I1_pad, templates, tgrad_x, tgrad_y = map(
+            _round_bf16, (I1_pad, templates, tgrad_x, tgrad_y))
     h00, h01, h11 = H[..., 0], H[..., 1], H[..., 2]
     det = h00 * h11 - h01 * h01
-    gxf = tgrad_x.reshape(n_h, n_w, N)
-    gyf = tgrad_y.reshape(n_h, n_w, N)
+    gxf = tgrad_x.reshape(*lead, N)
+    gyf = tgrad_y.reshape(*lead, N)
 
     def gn_step(p, active):
         mid = mid_org + p
         win, rx, ry = gather_windows(I1_pad, mid[..., 0], mid[..., 1], ps,
                                      padding)
-        S = blend_windows(win, rx, ry).reshape(n_h, n_w, N)
+        S = blend_windows(win, rx, ry).reshape(*lead, N)
         m = S.sum(-1) / N * mean_on
         dpx = (S * gxf).sum(-1) - m * gx_sum - gxT
         dpy = (S * gyf).sum(-1) - m * gy_sum - gyT
@@ -86,7 +120,7 @@ def gn_scale_loop_plain(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org,
     raw = sample_patches_bilinear(I1_pad, mid[..., 0], mid[..., 1], ps,
                                   padding)
     if mean_on:
-        raw = raw - raw.mean(dim=(2, 3, 4), keepdim=True)
+        raw = raw - raw.mean(dim=_PATCH, keepdim=True)
     diff = raw - templates
     cost_px = torch.where(started[..., None, None, None], diff * diff, 0.0)
     return p, cost_px
@@ -103,26 +137,28 @@ def _check(name, x, shape, dtype=torch.float32):
 def gn_scale_loop(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org, p_cur,
                   p_org, started, *, n_iters: int, padding: int,
                   thresh: float, l_bound: float, ub_w: float, ub_h: float,
-                  mean_on: float):
+                  mean_on: float, bf16: bool = False):
     """The scale solve of :func:`gn_scale_loop_plain` — launches the
-    kernel for CUDA tensors, runs the plain version for CPU tensors."""
-    global launches
+    kernel (the bf16 one with ``bf16``) once for the whole batch for CUDA
+    tensors, runs the plain version for CPU tensors."""
+    global launches, launches_bf16
     kw = dict(n_iters=n_iters, padding=padding, thresh=thresh,
-              l_bound=l_bound, ub_w=ub_w, ub_h=ub_h, mean_on=mean_on)
+              l_bound=l_bound, ub_w=ub_w, ub_h=ub_h, mean_on=mean_on,
+              bf16=bf16)
     if not I1_pad.is_cuda:
         return gn_scale_loop_plain(I1_pad, templates, tgrad_x, tgrad_y, H,
                                    mid_org, p_cur, p_org, started, **kw)
-    n_h, n_w, ps, _, C = templates.shape
-    Hp, Wp = I1_pad.shape[0], I1_pad.shape[1]
+    B, n_h, n_w, ps, _, C = templates.shape
+    Hp, Wp = I1_pad.shape[1], I1_pad.shape[2]
     P, N = n_h * n_w, ps * ps * C
-    _check("I1_pad", I1_pad, (Hp, Wp, C))
+    _check("I1_pad", I1_pad, (B, Hp, Wp, C))
     for name, x in (("templates", templates), ("tgrad_x", tgrad_x),
                     ("tgrad_y", tgrad_y)):
-        _check(name, x, (n_h, n_w, ps, ps, C))
-    _check("H", H, (n_h, n_w, 3))
+        _check(name, x, (B, n_h, n_w, ps, ps, C))
+    _check("H", H, (B, n_h, n_w, 3))
     for name, x in (("mid_org", mid_org), ("p_cur", p_cur), ("p_org", p_org)):
-        _check(name, x, (n_h, n_w, 2))
-    _check("started", started, (n_h, n_w), torch.bool)
+        _check(name, x, (B, n_h, n_w, 2))
+    _check("started", started, (B, n_h, n_w), torch.bool)
     if N > 1024:
         raise ValueError(f"gn_scale_loop: {N} values per patch exceed one "
                          "CTA of 1024 threads")
@@ -133,21 +169,33 @@ def gn_scale_loop(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org, p_cur,
         if x.device != dev:
             raise ValueError("gn_scale_loop: all tensors must be on "
                              f"{dev}, got {x.device}")
+    if bf16:
+        # the projection's constant terms from the float32 state; the
+        # operands rounded once for the whole scale
+        sums = patch_sums(templates, tgrad_x, tgrad_y).contiguous()
+        I1_pad, templates, tgrad_x, tgrad_y = (
+            x.to(torch.bfloat16) for x in (I1_pad, templates, tgrad_x,
+                                           tgrad_y))
+        sums_ptr = sums.data_ptr()
+    else:
+        sums_ptr = None
     args = [x.contiguous() for x in (I1_pad, templates, tgrad_x, tgrad_y, H,
                                      mid_org, p_cur, p_org)]
     st = started.to(torch.uint8).contiguous()
-    p_out = torch.empty((n_h, n_w, 2), dtype=torch.float32, device=dev)
-    cost = torch.empty((n_h, n_w, ps, ps, C), dtype=torch.float32, device=dev)
+    p_out = torch.empty((B, n_h, n_w, 2), dtype=torch.float32, device=dev)
+    cost = torch.empty((B, n_h, n_w, ps, ps, C), dtype=torch.float32,
+                       device=dev)
     lib = _build.load_library()
     I1c, tc, gxc, gyc, Hc, midc, pcc, poc = args
     with torch.cuda.device(dev):
         err = lib.fot_dis_gn(
-            I1c.data_ptr(), Hp, Wp, C, tc.data_ptr(), gxc.data_ptr(),
-            gyc.data_ptr(), Hc.data_ptr(), midc.data_ptr(), pcc.data_ptr(),
-            poc.data_ptr(), st.data_ptr(), P, ps, padding, n_iters,
-            float(thresh), float(l_bound), float(ub_w), float(ub_h),
-            float(mean_on), p_out.data_ptr(), cost.data_ptr(),
-            _build.stream_handle(I1c))
+            I1c.data_ptr(), int(bf16), B, Hp, Wp, C, tc.data_ptr(),
+            gxc.data_ptr(), gyc.data_ptr(), sums_ptr, Hc.data_ptr(),
+            midc.data_ptr(), pcc.data_ptr(), poc.data_ptr(), st.data_ptr(),
+            P, ps, padding, n_iters, float(thresh), float(l_bound),
+            float(ub_w), float(ub_h), float(mean_on), p_out.data_ptr(),
+            cost.data_ptr(), _build.stream_handle(I1c))
     _build.check(err, "gn_scale_loop")
     launches += 1
+    launches_bf16 += int(bf16)
     return p_out, cost

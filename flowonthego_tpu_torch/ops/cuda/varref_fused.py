@@ -19,6 +19,9 @@ they stay L2-resident, and ``__syncthreads()`` between phases.  The TPU
 design (all ~34 planes in one VMEM block) does not fit a CTA's 227 KB of
 shared memory.
 
+A batch of B fields is one launch of B CTAs, one per field, each with its
+own planes and scratch.
+
 :func:`refine_inner` launches the kernel for CUDA tensors and runs
 :func:`refine_inner_plain` for CPU tensors.
 """
@@ -38,9 +41,10 @@ _N_SCRATCH = 10   # s, s_h, s_v, A11, A22, a12, b1, b2, du, dv
 
 
 def warp_and_derivs(flow, im1, im2, cfg):
-    """(wx, wy, mask [h, w], dIs [8, C, h, w]) with dIs = Ix, Iy, Iz, Ixx,
-    Ixy, Iyy, Ixz, Iyz channel-first.  The warp is K5 where
-    ``cfg.varref_backend`` selects the kernels for ``flow``."""
+    """(wx, wy, mask [B, h, w], dIs [B, 8, C, h, w]) for flows [B, h, w,
+    2] and images [B, h, w, C], with dIs = Ix, Iy, Iz, Ixx, Ixy, Iyy, Ixz,
+    Iyz channel-first.  The warp is K5 where ``cfg.varref_backend``
+    selects the kernels for ``flow``."""
     wx = flow[..., 0].float().contiguous()
     wy = flow[..., 1].float().contiguous()
     if use_kernel(cfg.varref_backend, flow):
@@ -48,38 +52,43 @@ def warp_and_derivs(flow, im1, im2, cfg):
     else:
         w_im2, mask = warp.warp_image_plain(im2, wx, wy)
     d = get_derivatives(im1, w_im2)
-    dIs = torch.stack([x.permute(2, 0, 1) for x in d])
-    return wx, wy, mask, dIs.contiguous()
+    B, h, w, C = im1.shape
+    # one 4-D stack: PyTorch's CUDA cat copies input by input above four
+    # dims, eight launches where this is one
+    dIs = torch.stack([x.reshape(B, h * w, C).transpose(1, 2) for x in d],
+                      dim=1)
+    return wx, wy, mask, dIs.reshape(B, 8, C, h, w)
 
 
 def refine_inner_plain(wx, wy, mask, dIs, cfg, inner_iter: int):
     """Plain PyTorch version of the loop (``refine_loop``) -> (uu, vv)."""
-    d = Derivatives(*(x.permute(1, 2, 0) for x in dIs))
+    d = Derivatives(*(dIs[:, k].permute(0, 2, 3, 1) for k in range(8)))
     return refine_loop(wx, wy, mask, d, cfg, inner_iter)
 
 
 def launch_loop(entry: str, wx, wy, mask, dIs, cfg, inner_iter: int):
     """Check the planes and launch the C entry ``entry`` (K3's or K4's:
-    both take the same arguments) -> (uu, vv) [h, w]."""
-    h, w = wx.shape
-    C = dIs.shape[1]
-    for name, x, shape in (("wx", wx, (h, w)), ("wy", wy, (h, w)),
-                           ("mask", mask, (h, w)),
-                           ("dIs", dIs, (8, C, h, w))):
+    both take the same arguments) once for the batch -> (uu, vv) [B, h,
+    w]."""
+    B, h, w = wx.shape
+    C = dIs.shape[2]
+    for name, x, shape in (("wx", wx, (B, h, w)), ("wy", wy, (B, h, w)),
+                           ("mask", mask, (B, h, w)),
+                           ("dIs", dIs, (B, 8, C, h, w))):
         if tuple(x.shape) != shape or x.dtype != torch.float32:
             raise ValueError(f"{entry}: {name} is {tuple(x.shape)} "
                              f"{x.dtype}, expected {shape} float32")
         if x.device != wx.device or not x.is_contiguous():
             raise ValueError(f"{entry}: {name} must be contiguous on "
                              f"{wx.device}")
-    scratch = torch.empty((_N_SCRATCH, h, w), dtype=torch.float32,
+    scratch = torch.empty((_N_SCRATCH, B, h, w), dtype=torch.float32,
                           device=wx.device)
     uu = torch.empty_like(wx)
     vv = torch.empty_like(wx)
     fn = getattr(_build.load_library(), entry)
     with torch.cuda.device(wx.device):
         err = fn(wx.data_ptr(), wy.data_ptr(), mask.data_ptr(),
-                 dIs.data_ptr(), h, w, C, inner_iter, cfg.var_ref_iter,
+                 dIs.data_ptr(), B, h, w, C, inner_iter, cfg.var_ref_iter,
                  float(cfg.var_ref_sor_weight), float(0.25 * cfg.var_ref_alpha),
                  float(cfg.var_ref_delta * 0.5 / 3.0),
                  float(cfg.var_ref_gamma * 0.5 / 3.0),
@@ -101,7 +110,7 @@ def refine_inner(wx, wy, mask, dIs, cfg, inner_iter: int):
 
 
 def variational_refine_fused(flow, im1, im2, cfg, level: int) -> torch.Tensor:
-    """Refine a dense [h, w, 2] flow with the inner loop fused:
+    """Refine dense flows [B, h, w, 2] with the inner loop fused:
     :func:`warp_and_derivs`, then :func:`refine_inner`."""
     wx, wy, mask, dIs = warp_and_derivs(flow, im1, im2, cfg)
     uu, vv = refine_inner(wx, wy, mask, dIs, cfg, level + 1)

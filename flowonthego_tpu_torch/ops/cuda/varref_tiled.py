@@ -10,7 +10,8 @@ over the field.  The kernel is one cooperative launch with as many CTAs
 as fit on the card at once, walking the field grid-stride with a
 grid-wide barrier between phases; the per-pixel arithmetic is K3's, from
 the same source (``csrc/varref_common.cuh``).  Why a grid barrier and
-not the TPU kernel's recompute halo is in the CUDA source.
+not the TPU kernel's recompute halo is in the CUDA source.  A batch of
+fields is one launch that walks every pixel of the batch.
 
 :func:`refine_inner_tiled` launches the kernel for CUDA tensors and runs
 :func:`refine_inner_plain` for CPU tensors.
@@ -28,7 +29,7 @@ launches = 0
 
 def refine_inner_tiled(wx, wy, mask, dIs, cfg, inner_iter: int):
     """The loop over the whole card: the kernel for CUDA tensors, the
-    plain version for CPU tensors -> (uu, vv) [h, w]."""
+    plain version for CPU tensors -> (uu, vv) [B, h, w]."""
     global launches
     if not wx.is_cuda:
         return refine_inner_plain(wx, wy, mask, dIs, cfg, inner_iter)
@@ -38,7 +39,7 @@ def refine_inner_tiled(wx, wy, mask, dIs, cfg, inner_iter: int):
 
 
 def variational_refine_tiled(flow, im1, im2, cfg, level: int) -> torch.Tensor:
-    """Refine a dense [h, w, 2] flow: warp + derivatives
+    """Refine dense flows [B, h, w, 2]: warp + derivatives
     (:func:`warp_and_derivs`), then :func:`refine_inner_tiled`."""
     wx, wy, mask, dIs = warp_and_derivs(flow, im1, im2, cfg)
     uu, vv = refine_inner_tiled(wx, wy, mask, dIs, cfg, level + 1)

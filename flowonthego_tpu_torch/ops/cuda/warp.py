@@ -7,7 +7,8 @@ taps mostly hit L1/L2), so the kernel is one thread per pixel doing the
 four clamped taps for every channel and the in-bounds mask.  The TPU
 kernel's banded stencil stood in for a gather the TPU lacks, and needed
 ``|flow| <= bound``; the kernel needs no bound.  It computes the plain
-version's arithmetic in the same order, so the two are bit-exact.
+version's arithmetic in the same order, so the two are bit-exact.  A
+batch of frames is one launch of one thread per pixel of the batch.
 
 :func:`warp_image` launches the kernel for CUDA tensors and runs
 :func:`warp_image_plain` (``ops/variational.warp_image``) for CPU tensors.
@@ -25,17 +26,18 @@ launches = 0
 
 
 def warp_image(src: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor):
-    """Backward-warp ``src`` [H, W, C] by flow (wx, wy) [H, W] -> (warped
-    [H, W, C], mask [H, W]).  ``src`` may be a crop whose rows are strided
-    (a view into a padded level); its pixels must be dense."""
+    """Backward-warp the frames ``src`` [B, H, W, C] by flows (wx, wy)
+    [B, H, W] -> (warped [B, H, W, C], mask [B, H, W]), one launch for the
+    batch.  ``src`` may be a crop whose frames and rows are strided (a
+    view into padded levels); its pixels must be dense."""
     global launches
     if not src.is_cuda:
         return warp_image_plain(src, wx, wy)
-    if src.dim() != 3:
-        raise ValueError(f"warp_image: src must be [H, W, C], got "
+    if src.dim() != 4:
+        raise ValueError(f"warp_image: src must be [B, H, W, C], got "
                          f"{tuple(src.shape)}")
-    h, w, C = src.shape
-    if src.stride(2) != 1 or src.stride(1) != C:
+    B, h, w, C = src.shape
+    if src.stride(3) != 1 or src.stride(2) != C:
         raise ValueError(f"warp_image: src pixels must be dense, got strides "
                          f"{src.stride()}")
     for name, x in (("src", src), ("wx", wx), ("wy", wy)):
@@ -43,16 +45,17 @@ def warp_image(src: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor):
             raise ValueError(f"warp_image: {name} must be float32 on "
                              f"{src.device}, got {x.dtype} on {x.device}")
     for name, x in (("wx", wx), ("wy", wy)):
-        if tuple(x.shape) != (h, w) or not x.is_contiguous():
+        if tuple(x.shape) != (B, h, w) or not x.is_contiguous():
             raise ValueError(f"warp_image: {name} must be a contiguous "
-                             f"{(h, w)} tensor, got {tuple(x.shape)}")
-    out = torch.empty((h, w, C), dtype=torch.float32, device=src.device)
-    mask = torch.empty((h, w), dtype=torch.float32, device=src.device)
+                             f"{(B, h, w)} tensor, got {tuple(x.shape)}")
+    out = torch.empty((B, h, w, C), dtype=torch.float32, device=src.device)
+    mask = torch.empty((B, h, w), dtype=torch.float32, device=src.device)
     lib = _build.load_library()
     with torch.cuda.device(src.device):
-        err = lib.fot_warp(src.data_ptr(), src.stride(0), wx.data_ptr(),
-                           wy.data_ptr(), h, w, C, out.data_ptr(),
-                           mask.data_ptr(), _build.stream_handle(src))
+        err = lib.fot_warp(src.data_ptr(), src.stride(0), src.stride(1),
+                           wx.data_ptr(), wy.data_ptr(), B, h, w, C,
+                           out.data_ptr(), mask.data_ptr(),
+                           _build.stream_handle(src))
     _build.check(err, "warp_image")
     launches += 1
     return out, mask

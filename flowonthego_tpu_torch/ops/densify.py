@@ -45,18 +45,23 @@ def _fb_merge_scatter(state: PatchState, grid: PatchGrid, cfg: DISConfig,
     p_cur`` (coordinates of the other frame); its per-pixel weights are
     spread bilinearly over the 4 neighbour cells and its NEGATED flow is
     accumulated.  A pixel counts only where all 4 cells lie inside
-    [1, w-1) x [1, h-1).  Returns a [out_h, out_w, 3] (weight, u, v)
+    [1, w-1) x [1, h-1).  Returns a [B, out_h, out_w, 3] (weight, u, v)
     accumulator.
 
-    Deterministic: one ``index_put_(accumulate=True)`` takes the four
-    corners' contributions in the JAX package's order (corners outer,
-    patches in grid order within a corner).  On the CPU it adds serially
-    in that order, as JAX does.  On the card it sorts the flat indices
-    stably and reduces each cell's run without atomics, so two runs agree
-    bit for bit; the run's sum may associate differently from the CPU's.
+    Deterministic: one scatter-add for the whole batch takes each frame's
+    contributions in the JAX package's order (corners outer, patches in
+    grid order within a corner), frame after frame, each frame's cells
+    offset by b * out_h * out_w.  Frames never share a cell, so every cell
+    sees the contributions a single-pair merge gives it, in the same
+    order.  On the CPU ``index_add_`` adds serially in that order, as JAX
+    does.  On the card ``index_put_(accumulate=True)`` sorts the flat
+    indices stably and reduces each cell's run without atomics, so two
+    runs agree bit for bit; the run's sum may associate differently from
+    the CPU's.
     """
     ps = grid.patch_size
-    pos = state.mid_org + state.p_cur                 # [n_h, n_w, 2]
+    B = state.p_cur.shape[0]
+    pos = state.mid_org + state.p_cur                 # [B, n_h, n_w, 2]
     px = pos[..., 0]
     py = pos[..., 1]
     cx = torch.ceil(px + 1e-5).to(torch.int64)
@@ -68,50 +73,59 @@ def _fb_merge_scatter(state: PatchState, grid: PatchGrid, cfg: DISConfig,
     wbil = [rx * ry, (1 - rx) * ry, rx * (1 - ry), (1 - rx) * (1 - ry)]
     corner_off = [(0, 0), (1, 0), (0, 1), (1, 1)]      # (dx, dy) subtracted
 
-    absw = _pixel_weights(state, cfg)                 # [n_h, n_w, ps, ps]
+    absw = _pixel_weights(state, cfg)             # [B, n_h, n_w, ps, ps]
     u = state.p_cur[..., 0][..., None, None]
     v = state.p_cur[..., 1][..., None, None]
 
     lb = -ps // 2
     ar = torch.arange(lb, lb + ps, device=pos.device)
-    xt = cx[..., None, None] + ar[None, :]            # [n_h, n_w, ps, ps]
+    xt = cx[..., None, None] + ar[None, :]        # [B, n_h, n_w, ps, ps]
     yt = cy[..., None, None] + ar[:, None]
     valid = (xt >= 1) & (yt >= 1) & (xt < out_w - 1) & (yt < out_h - 1)
 
     n = out_h * out_w
+    frame = (torch.arange(B, device=pos.device) * n).reshape(B, 1, 1, 1, 1)
     base = torch.stack([absw, -u * absw, -v * absw], dim=-1)
-    idx = torch.cat([((yt - oy) * out_w + (xt - ox)).reshape(-1)
-                     for ox, oy in corner_off])
-    idx = torch.where(valid.reshape(-1).repeat(4), idx, n)  # row n: dropped
-    vals = torch.cat([torch.where(valid[..., None], wb[..., None] * base,
-                                  0.0).reshape(-1, 3) for wb in wbil])
-    acc = torch.zeros((n + 1, 3), dtype=absw.dtype, device=absw.device)
-    acc.index_put_((idx,), vals, accumulate=True)
-    return acc[:n].reshape(out_h, out_w, 3)
+    # [B, 4 corners, patch values]: frame-major, then JAX's order
+    idx = torch.stack([(frame + (yt - oy) * out_w + (xt - ox)).reshape(B, -1)
+                       for ox, oy in corner_off], dim=1)
+    valid4 = valid.reshape(B, 1, -1).expand(B, 4, -1)
+    idx = torch.where(valid4, idx, B * n).reshape(-1)   # row B*n: dropped
+    vals = torch.stack([torch.where(valid[..., None], wb[..., None] * base,
+                                    0.0).reshape(B, -1, 3) for wb in wbil],
+                       dim=1).reshape(-1, 3)
+    acc = torch.zeros((B * n + 1, 3), dtype=absw.dtype, device=absw.device)
+    if acc.is_cuda:
+        acc.index_put_((idx,), vals, accumulate=True)
+    else:
+        # index_put_ adds in parallel on the CPU when torch has several
+        # threads; index_add_ adds serially, in index order
+        acc.index_add_(0, idx, vals)
+    return acc[:B * n].reshape(B, out_h, out_w, 3)
 
 
 def overlap_add_canvas(contrib: torch.Tensor, ps: int, st: int) -> torch.Tensor:
-    """Overlap-add the [n_h, n_w, ps, ps, F] contribution grid into a
-    canvas [(n_h+r-1)*st, (n_w+r-1)*st, F] whose (0, 0) sits at image
-    position (first patch midpoint - ps/2) on each axis."""
-    n_h, n_w = contrib.shape[:2]
+    """Overlap-add the [B, n_h, n_w, ps, ps, F] contribution grid into
+    per-frame canvases [B, (n_h+r-1)*st, (n_w+r-1)*st, F] whose (0, 0) sits
+    at image position (first patch midpoint - ps/2) on each axis."""
+    B, n_h, n_w = contrib.shape[:3]
     Fd = contrib.shape[-1]
     r = -(-ps // st)
     R = r * st
     c = F.pad(contrib, (0, 0, 0, R - ps, 0, R - ps))
-    c = c.reshape(n_h, n_w, r, st, r, st, Fd)     # py=(m,pr), px=(q,qc)
+    c = c.reshape(B, n_h, n_w, r, st, r, st, Fd)  # py=(m,pr), px=(q,qc)
     Yp = (n_h + r - 1) * st
     rows = None
     for m in range(r):
-        part = c[:, :, m].permute(0, 2, 1, 3, 4, 5).reshape(
-            n_h * st, n_w, r, st, Fd)
+        part = c[:, :, :, m].permute(0, 1, 3, 2, 4, 5, 6).reshape(
+            B, n_h * st, n_w, r, st, Fd)
         sh = F.pad(part, (0, 0, 0, 0, 0, 0, 0, 0,
                           m * st, Yp - m * st - n_h * st))
         rows = sh if rows is None else rows + sh
     Xp = (n_w + r - 1) * st
     cols = None
     for q in range(r):
-        part = rows[:, :, q].reshape(Yp, n_w * st, Fd)
+        part = rows[:, :, :, q].reshape(B, Yp, n_w * st, Fd)
         sh = F.pad(part, (0, 0, q * st, Xp - q * st - n_w * st))
         cols = sh if cols is None else cols + sh
     return cols
@@ -119,7 +133,9 @@ def overlap_add_canvas(contrib: torch.Tensor, ps: int, st: int) -> torch.Tensor:
 
 def densify(state: PatchState, grid: PatchGrid, cfg: DISConfig,
             compl_state: Optional[PatchState] = None) -> torch.Tensor:
-    """Aggregate per-patch flow into a dense [H, W, 2] field.
+    """Aggregate each frame's per-patch flow into a dense [B, H, W, 2]
+    field; contributions outside a frame are dropped (2-D clipping per
+    frame), so none reaches the next frame.
 
     ``compl_state`` optionally merges a complementary (opposite-direction)
     grid's reversed flow: forward-backward consistency."""
@@ -129,18 +145,18 @@ def densify(state: PatchState, grid: PatchGrid, cfg: DISConfig,
     R = r * st
     margin = ps + 2 * R       # generous static margin, cropped at the end
 
-    absw = _pixel_weights(state, cfg)                     # [n_h, n_w, ps, ps]
+    absw = _pixel_weights(state, cfg)                # [B, n_h, n_w, ps, ps]
     u = state.p_cur[..., 0][..., None, None]
     v = state.p_cur[..., 1][..., None, None]
     contrib = torch.stack([absw, absw * u, absw * v], dim=-1)
 
     canvas = overlap_add_canvas(contrib, ps, st)
-    Yp, Xp = canvas.shape[0], canvas.shape[1]
+    Yp, Xp = canvas.shape[1], canvas.shape[2]
     top = margin + grid.offset_h - ps // 2
     left = margin + grid.offset_w - ps // 2
     acc = F.pad(canvas, (0, 0, left, w + 2 * margin - left - Xp,
                          top, h + 2 * margin - top - Yp))
-    acc = acc[margin:margin + h, margin:margin + w, :]
+    acc = acc[:, margin:margin + h, margin:margin + w, :]
     if compl_state is not None:
         acc = acc + _fb_merge_scatter(compl_state, grid, cfg, h, w)
     weight = acc[..., 0:1]

@@ -2,7 +2,9 @@
 ``flowonthego_tpu/ops/dis.py``: state, warm start, the L2 fixed-trip
 solve and the reference-form solve).
 
-The whole patch grid steps in lockstep: ``grad_descent_iter``
+Every tensor carries a leading batch axis: B frames' patch grids step
+together (a single pair is B = 1).  The whole patch grid steps in
+lockstep: ``grad_descent_iter``
 projection+resample trips with a per-patch active mask.  A patch whose
 step leaves the outlier radius or the midpoint box resets to ``p_org``
 (the coarser-scale init) and freezes.  The fixed-trip L2 solve is
@@ -10,6 +12,12 @@ step leaves the outlier radius or the midpoint box resets to ``p_org``
 package's reduction form in plain PyTorch otherwise.  The robust costs,
 the ``min_iter`` early exits and ``res_thresh > 0`` take
 :func:`optimize_reference`, as in the JAX package.
+
+``cfg.dtype="bfloat16"`` is the Pallas kernel's operand mode: the level
+image, the templates and their gradients are rounded to bf16 once per
+scale; the blend, the reductions and the carries stay float32, and the
+per-patch sums of the gradients and of gradient x template come from
+the float32 state.
 """
 
 from __future__ import annotations
@@ -26,26 +34,33 @@ from .patches import PatchGrid
 
 
 class PatchState(NamedTuple):
-    """Struct-of-arrays patch state, shaped [n_h, n_w] (+ trailing dims)."""
-    p_cur: torch.Tensor       # [n_h, n_w, 2] current flow (u, v)
-    p_org: torch.Tensor       # [n_h, n_w, 2] init flow (outlier reset target)
-    mid_org: torch.Tensor     # [n_h, n_w, 2] grid midpoint (x, y)
-    H: torch.Tensor           # [n_h, n_w, 3] Hessian (H00, H01, H11)
-    templates: torch.Tensor   # [n_h, n_w, ps, ps, C] mean-normalized template
-    tgrad_x: torch.Tensor     # [n_h, n_w, ps, ps, C] template d/dx
-    tgrad_y: torch.Tensor     # [n_h, n_w, ps, ps, C] template d/dy
-    converged: torch.Tensor   # [n_h, n_w] bool
-    cost_px: torch.Tensor     # [n_h, n_w, ps, ps, C] final per-pixel sq. residual
-    diff: torch.Tensor        # [n_h, n_w, ps, ps, C] residual (zeros after K2)
+    """Struct-of-arrays patch state of B frames, shaped [B, n_h, n_w] (+
+    trailing dims)."""
+    p_cur: torch.Tensor       # [B, n_h, n_w, 2] current flow (u, v)
+    p_org: torch.Tensor       # [B, n_h, n_w, 2] init flow (outlier reset target)
+    mid_org: torch.Tensor     # [B, n_h, n_w, 2] grid midpoint (x, y)
+    H: torch.Tensor           # [B, n_h, n_w, 3] Hessian (H00, H01, H11)
+    templates: torch.Tensor   # [B, n_h, n_w, ps, ps, C] mean-normalized template
+    tgrad_x: torch.Tensor     # [B, n_h, n_w, ps, ps, C] template d/dx
+    tgrad_y: torch.Tensor     # [B, n_h, n_w, ps, ps, C] template d/dy
+    converged: torch.Tensor   # [B, n_h, n_w] bool
+    cost_px: torch.Tensor     # [B, n_h, n_w, ps, ps, C] final per-pixel sq. residual
+    diff: torch.Tensor        # [B, n_h, n_w, ps, ps, C] residual (zeros after K2)
+
+
+_PATCH = (-3, -2, -1)         # the ps, ps, C dims of a per-pixel patch tensor
 
 
 def init_state(templates, tgrad_x, tgrad_y, H, grid: PatchGrid) -> PatchState:
-    """Fresh per-scale state: zero flow, nothing converged."""
+    """Fresh per-scale state of templates [B, n_h, n_w, ps, ps, C]: zero
+    flow, nothing converged."""
     mx, my = grid.midpoints()
     dev, dt = templates.device, templates.dtype
-    mid_org = torch.stack([torch.as_tensor(mx, device=dev),
-                           torch.as_tensor(my, device=dev)], dim=-1).to(dt)
-    zeros2 = torch.zeros((grid.n_h, grid.n_w, 2), dtype=dt, device=dev)
+    B = templates.shape[0]
+    mid = np.broadcast_to(np.stack([mx, my], axis=-1),
+                          (B, grid.n_h, grid.n_w, 2))
+    mid_org = torch.as_tensor(mid.copy(), device=dev).to(dt)
+    zeros2 = torch.zeros((B, grid.n_h, grid.n_w, 2), dtype=dt, device=dev)
     return PatchState(
         p_cur=zeros2,
         p_org=zeros2,
@@ -54,7 +69,7 @@ def init_state(templates, tgrad_x, tgrad_y, H, grid: PatchGrid) -> PatchState:
         templates=templates,
         tgrad_x=tgrad_x,
         tgrad_y=tgrad_y,
-        converged=torch.zeros((grid.n_h, grid.n_w), dtype=torch.bool,
+        converged=torch.zeros((B, grid.n_h, grid.n_w), dtype=torch.bool,
                               device=dev),
         cost_px=torch.zeros_like(templates),
         diff=torch.zeros_like(templates),
@@ -63,21 +78,22 @@ def init_state(templates, tgrad_x, tgrad_y, H, grid: PatchGrid) -> PatchState:
 
 def init_from_coarser(state: PatchState, coarse_flow: torch.Tensor,
                       grid: PatchGrid) -> PatchState:
-    """Warm start from the coarser scale's dense flow: nearest lookup at
-    floor(midpoint / 2), flow x2 (deliberately not bilinear).  Patches
-    whose warm-started midpoint leaves the valid box are frozen at once
-    (converged, cost 0).
+    """Warm start from the coarser scale's dense flow [B, ch, cw, 2]:
+    nearest lookup at floor(midpoint / 2), flow x2 (deliberately not
+    bilinear), each frame from its own field.  Patches whose warm-started
+    midpoint leaves the valid box are frozen at once (converged, cost 0).
 
     The lookup clamps to the coarse field, as JAX's gather does: a warm
     start at 1/2^(cs+1) of a height like 2176 (8 rows, from 8.5) is one
-    row short of floor(midpoint / 2) for the last grid row.
+    row short of floor(midpoint / 2) for the last grid row.  The clamp
+    is per frame: the index never leaves frame b's field.
     """
     mx, my = grid.midpoints()
     dev = coarse_flow.device
-    ch, cw = coarse_flow.shape[0], coarse_flow.shape[1]
+    ch, cw = coarse_flow.shape[1], coarse_flow.shape[2]
     ix = torch.as_tensor(np.minimum(mx.astype(int) // 2, cw - 1), device=dev)
     iy = torch.as_tensor(np.minimum(my.astype(int) // 2, ch - 1), device=dev)
-    p = coarse_flow[iy, ix, :] * 2.0           # [n_h, n_w, 2]
+    p = coarse_flow[:, iy, ix, :] * 2.0        # [B, n_h, n_w, 2]
 
     mid = state.mid_org + p
     oob = ((mid[..., 0] < grid.l_bound) | (mid[..., 1] < grid.l_bound)
@@ -96,7 +112,7 @@ def _sample_residual(state: PatchState, I1_pad: torch.Tensor,
     raw = sample_patches_bilinear(I1_pad, mid[..., 0], mid[..., 1],
                                   grid.patch_size, grid.padding)
     if cfg.use_mean_normalization:
-        raw = raw - raw.mean(dim=(2, 3, 4), keepdim=True)
+        raw = raw - raw.mean(dim=_PATCH, keepdim=True)
     diff = raw - state.templates
     if cfg.cost_fn == "l1":
         # sign(d) * sqrt(|d|)
@@ -110,11 +126,11 @@ def _sample_residual(state: PatchState, I1_pad: torch.Tensor,
         cost_px = torch.abs(diff)
     else:
         cost_px = diff * diff
-    return diff, cost_px, cost_px.sum(dim=(2, 3, 4))
+    return diff, cost_px, cost_px.sum(dim=_PATCH)
 
 
 def _where(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
-    """Broadcast a [n_h, n_w] mask over the trailing dims of a and b."""
+    """Broadcast a [B, n_h, n_w] mask over the trailing dims of a and b."""
     extra = a.dim() - mask.dim()
     return torch.where(mask.reshape(mask.shape + (1,) * extra), a, b)
 
@@ -134,7 +150,7 @@ def optimize_reference(state: PatchState, I1_pad: torch.Tensor,
     stop a patch.  Every patch ends converged.
     """
     # values per patch, channel-generic (gray/gradmag inputs have C = 1)
-    n_vals = float(np.prod(state.templates.shape[2:]))
+    n_vals = float(np.prod(state.templates.shape[-3:]))
     max_iter = cfg.grad_descent_iter
     min_iter = max_iter if cfg.min_iter is None else cfg.min_iter
 
@@ -153,8 +169,8 @@ def optimize_reference(state: PatchState, I1_pad: torch.Tensor,
         st = state
         active = ~st.converged
         # projection: delta_p = H^-1 J^T diff
-        dpx = (st.tgrad_x * st.diff).sum(dim=(2, 3, 4))
-        dpy = (st.tgrad_y * st.diff).sum(dim=(2, 3, 4))
+        dpx = (st.tgrad_x * st.diff).sum(dim=_PATCH)
+        dpy = (st.tgrad_y * st.diff).sum(dim=_PATCH)
         h00, h01, h11 = st.H[..., 0], st.H[..., 1], st.H[..., 2]
         det = h00 * h11 - h01 * h01
         delta_px = (h11 * dpx - h01 * dpy) / det
@@ -206,20 +222,24 @@ def optimize(state: PatchState, I1_pad: torch.Tensor, grid: PatchGrid,
     As in the JAX package, ``res_thresh > 0``, a cost other than l2 and
     ``min_iter < grad_descent_iter`` take :func:`optimize_reference`.  The
     fixed-trip L2 solve takes K2 or its plain version by
-    ``cfg.gn_backend`` (see :func:`..config.use_kernel`); its bf16
-    sampling mode is not ported.
+    ``cfg.gn_backend`` (see :func:`..config.use_kernel`), in float32 or,
+    with ``cfg.dtype="bfloat16"``, in the Pallas kernel's bf16 operand
+    mode (module docstring).  ``state`` holds B frames and ``I1_pad`` is
+    [B, Hp, Wp, C]: one solve for the whole batch.
     """
     if (cfg.res_thresh > 0.0 or cfg.cost_fn != "l2"
             or (cfg.min_iter is not None
                 and cfg.min_iter < cfg.grad_descent_iter)):
         return optimize_reference(state, I1_pad, grid, cfg)
-    if cfg.dtype != "float32":
-        raise NotImplementedError("only dtype='float32' is ported")
+    if cfg.dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown dtype {cfg.dtype!r} "
+                         "(expected 'float32' or 'bfloat16')")
     started = ~state.converged
     kw = dict(n_iters=cfg.grad_descent_iter, padding=grid.padding,
               thresh=cfg.outlier_thresh, l_bound=grid.l_bound,
               ub_w=grid.u_bound_w, ub_h=grid.u_bound_h,
-              mean_on=1.0 if cfg.use_mean_normalization else 0.0)
+              mean_on=1.0 if cfg.use_mean_normalization else 0.0,
+              bf16=cfg.dtype == "bfloat16")
     args = (I1_pad, state.templates, state.tgrad_x, state.tgrad_y, state.H,
             state.mid_org, state.p_cur, state.p_org, started)
     if use_kernel(cfg.gn_backend, I1_pad):

@@ -72,57 +72,63 @@ class PatchGrid:
 
 
 def extract_windows(img_pad: torch.Tensor, grid: PatchGrid) -> torch.Tensor:
-    """All template windows as one tensor [n_h, n_w, ps, ps, C]:
-    window[y, x, r, c] = img_pad[pad + my - ps/2 + r, pad + mx - ps/2 + c]."""
+    """All template windows of each frame as one tensor [B, n_h, n_w, ps,
+    ps, C] from padded levels [B, Hp, Wp, C]:
+    window[b, y, x, r, c] = img_pad[b, pad + my - ps/2 + r, pad + mx - ps/2 + c]."""
     ps, st = grid.patch_size, grid.steps
-    C = img_pad.shape[2]
+    B, C = img_pad.shape[0], img_pad.shape[3]
     top = grid.padding + grid.offset_h - ps // 2
     left = grid.padding + grid.offset_w - ps // 2
     rows = (grid.n_h - 1) * st + ps
     cols = (grid.n_w - 1) * st + ps
-    region = img_pad[top:top + rows, left:left + cols, :]
+    region = img_pad[:, top:top + rows, left:left + cols, :]
     if ps % st == 0:
-        # Grouped form: windows are k^2 contiguous reshaped tilings.
+        # Grouped form: windows are k^2 contiguous reshaped tilings.  Both
+        # cats stay at four dims or fewer (PyTorch's CUDA cat copies input
+        # by input above four).
         k = ps // st
-        T = region.reshape(grid.n_h - 1 + k, st, cols, C)
-        rows_st = torch.cat([T[a:a + grid.n_h] for a in range(k)],
-                            dim=1)                        # [n_h, ps, cols, C]
-        X = rows_st.reshape(grid.n_h, ps, grid.n_w - 1 + k, st, C)
-        cols_st = torch.cat([X[:, :, b:b + grid.n_w] for b in range(k)],
-                            dim=3)                   # [n_h, ps, n_w, ps, C]
-        return cols_st.permute(0, 2, 1, 3, 4).contiguous()
+        T = region.reshape(B, grid.n_h - 1 + k, st, cols * C)
+        rows_st = torch.cat([T[:, a:a + grid.n_h] for a in range(k)],
+                            dim=2)                 # [B, n_h, ps, cols*C]
+        X = rows_st.reshape(-1, grid.n_w - 1 + k, st * C)
+        cols_st = torch.cat([X[:, b:b + grid.n_w] for b in range(k)],
+                            dim=2)                 # [B*n_h*ps, n_w, ps*C]
+        return cols_st.reshape(B, grid.n_h, ps, grid.n_w, ps, C).permute(
+            0, 1, 3, 2, 4, 5).contiguous()
     # Strided form: the ps*ps static shifts as strided slices.
     shifted = [
-        region[r:r + (grid.n_h - 1) * st + 1:st,
+        region[:, r:r + (grid.n_h - 1) * st + 1:st,
                c:c + (grid.n_w - 1) * st + 1:st, :]
         for r in range(ps) for c in range(ps)
     ]
-    stacked = torch.stack(shifted, dim=2)   # [n_h, n_w, ps*ps, C]
-    return stacked.reshape(grid.n_h, grid.n_w, ps, ps, C)
+    stacked = torch.stack(shifted, dim=3)   # [B, n_h, n_w, ps*ps, C]
+    return stacked.reshape(B, grid.n_h, grid.n_w, ps, ps, C)
 
 
 def extract_templates_and_hessians(
         I0_pad: torch.Tensor, I0x_pad: torch.Tensor, I0y_pad: torch.Tensor,
         grid: PatchGrid, cfg: DISConfig):
-    """Mean-normalized templates, their gradients, and 2x2 GN Hessians.
+    """Mean-normalized templates, their gradients, and 2x2 GN Hessians of
+    padded levels [B, Hp, Wp, C].
 
     * template = window(I0) - mean(window(I0)) over all ps*ps*C values
     * H = [[sum gx^2, sum gx gy], [sum gx gy, sum gy^2]]; where det == 0
       the diagonal gets +1e-10.
 
-    Returns (templates, tgrad_x, tgrad_y, H): [n_h, n_w, ps, ps, C] x3 and
-    [n_h, n_w, 3] (H00, H01, H11).
+    Returns (templates, tgrad_x, tgrad_y, H): [B, n_h, n_w, ps, ps, C] x3
+    and [B, n_h, n_w, 3] (H00, H01, H11).
     """
     templates = extract_windows(I0_pad, grid)
     gx = extract_windows(I0x_pad, grid)
     gy = extract_windows(I0y_pad, grid)
+    patch = (-3, -2, -1)
 
     if cfg.use_mean_normalization:
-        templates = templates - templates.mean(dim=(2, 3, 4), keepdim=True)
+        templates = templates - templates.mean(dim=patch, keepdim=True)
 
-    h00 = (gx * gx).sum(dim=(2, 3, 4))
-    h01 = (gx * gy).sum(dim=(2, 3, 4))
-    h11 = (gy * gy).sum(dim=(2, 3, 4))
+    h00 = (gx * gx).sum(dim=patch)
+    h01 = (gx * gy).sum(dim=patch)
+    h11 = (gy * gy).sum(dim=patch)
     det = h00 * h11 - h01 * h01
     bump = torch.where(det == 0.0, 1e-10, 0.0).to(h00.dtype)
     H = torch.stack([h00 + bump, h01, h11 + bump], dim=-1)

@@ -3,10 +3,15 @@
 Per level: downsample x0.5 (a 2x2 box average for even dims) ->
 central-difference gradients (kernel {1, 0, -1}, replicate border, no 1/2
 factor) -> replicate-pad the image and zero-pad the gradients by
-``padding`` on every side.  Images are ``[H, W, C]``.
+``padding`` on every side.  A pyramid is built for a batch of frames
+``[B, H, W, C]`` (a single pair is B = 1); the padding and stencil
+helpers act on the last three dims, so they take ``[H, W, C]`` too.
 
-Every downsample runs on the flat ``[H, W*C]`` view through
-:func:`.cuda.pool.pool2x2_flat` — the K1 kernel for a CUDA tensor.
+Every downsample runs on the flat ``[B*H, W*C]`` view through
+:func:`.cuda.pool.pool2x2_flat` — the K1 kernel for a CUDA tensor.  The
+level heights above the coarsest are even (H is divisible by
+2^(n_levels-1)), so a 2x2 window never spans two frames and the batch
+pools as stacked rows in one launch with no change to the kernel.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from .cuda.pool import pool2x2_flat, pool2x2_flat_plain
 
 
 class PyramidLevel(NamedTuple):
-    """One pyramid level, each tensor [H + 2p, W + 2p, C] (padded)."""
+    """One pyramid level, each tensor [B, H + 2p, W + 2p, C] (padded)."""
     image: torch.Tensor      # replicate-padded image
     grad_x: Optional[torch.Tensor]   # zero-padded d/dx
     grad_y: Optional[torch.Tensor]   # zero-padded d/dy
@@ -32,26 +37,27 @@ def _edge_index(n: int, lo: int, hi: int, device) -> torch.Tensor:
 
 
 def pad_replicate(img: torch.Tensor, pad) -> torch.Tensor:
-    """Replicate-pad the spatial dims of [H, W, C]; ``pad`` is an int or
-    (top, bottom, left, right)."""
+    """Replicate-pad the spatial dims of [..., H, W, C]; ``pad`` is an int
+    or (top, bottom, left, right)."""
     pt, pb, pl, pr = (pad,) * 4 if isinstance(pad, int) else pad
-    H, W = img.shape[0], img.shape[1]
+    H, W = img.shape[-3], img.shape[-2]
     rows = _edge_index(H, pt, pb, img.device)
     cols = _edge_index(W, pl, pr, img.device)
-    return img.index_select(0, rows).index_select(1, cols)
+    return img.index_select(-3, rows).index_select(-2, cols)
 
 
 def pad_constant(img: torch.Tensor, pad: int, value: float = 0.0) -> torch.Tensor:
-    """Constant-pad the spatial dims of [H, W, C]."""
+    """Constant-pad the spatial dims of [..., H, W, C]."""
     return F.pad(img, (0, 0, pad, pad, pad, pad), value=value)
 
 
 def central_diff(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """gx[y, x] = I[y, x+1] - I[y, x-1], gy likewise; replicate border."""
+    """gx[y, x] = I[y, x+1] - I[y, x-1], gy likewise; replicate border;
+    [..., H, W, C]."""
     xpad = pad_replicate(img, (0, 0, 1, 1))
-    gx = xpad[:, 2:, :] - xpad[:, :-2, :]
+    gx = xpad[..., 2:, :] - xpad[..., :-2, :]
     ypad = pad_replicate(img, (1, 1, 0, 0))
-    gy = ypad[2:, :, :] - ypad[:-2, :, :]
+    gy = ypad[..., 2:, :, :] - ypad[..., :-2, :, :]
     return gx, gy
 
 
@@ -63,19 +69,19 @@ def _downsample_half_flat(x: torch.Tensor, C: int, bias=None,
 
 
 def downsample_half(img: torch.Tensor, backend: str = "auto") -> torch.Tensor:
-    """x0.5 bilinear downsample == 2x2 average pool of [H, W, C] (even
-    dims)."""
-    H, W, C = img.shape
-    out = _downsample_half_flat(img.reshape(H, W * C), C, backend=backend)
-    return out.reshape(H // 2, W // 2, C)
+    """x0.5 bilinear downsample == 2x2 average pool of [..., H, W, C]
+    (even dims); leading frames stack as rows of one flat pool."""
+    *lead, H, W, C = img.shape
+    out = _downsample_half_flat(img.reshape(-1, W * C), C, backend=backend)
+    return out.reshape(*lead, H // 2, W // 2, C)
 
 
 def build_pyramid(img: torch.Tensor, n_levels: int, padding: int,
                   start_level: int = 0, ingest_bias=None,
                   backend: str = "auto") -> List[PyramidLevel]:
     """Build ``n_levels`` levels (level 0 = full res) of padded image and
-    gradient pyramids from ``img`` [H, W, C] (float32 or uint8), H and W
-    divisible by ``2**(n_levels-1)``.
+    gradient pyramids from the frames ``img`` [B, H, W, C] (float32 or
+    uint8), H and W divisible by ``2**(n_levels-1)``.
 
     Levels below ``start_level`` only feed the downsample chain: they get
     no gradients and no padding (``image`` is the raw level).
@@ -87,25 +93,32 @@ def build_pyramid(img: torch.Tensor, n_levels: int, padding: int,
 
     ``backend`` selects the pool like a config backend field.
     """
-    H, W, C = img.shape
+    if img.dim() != 4:
+        raise ValueError(f"build_pyramid takes frames [B, H, W, C], got "
+                         f"{tuple(img.shape)}")
+    B, H, W, C = img.shape
     if ingest_bias is not None and start_level < 1:
         raise ValueError("ingest_bias requires start_level >= 1 (the "
                          "full-resolution level would miss the bias)")
     if img.dtype == torch.uint8 and start_level < 1:
         img = img.float()
     levels = []
-    cur = img.reshape(H, W * C)
+    cur = img.reshape(B * H, W * C)
     for lvl in range(n_levels):
         if lvl > 0:
+            # rows 2k, 2k+1 of the stacked [B*h, W*C] view lie in one frame
+            if (H >> (lvl - 1)) % 2:
+                raise ValueError(f"level {lvl - 1} height {H >> (lvl - 1)} "
+                                 "is odd: a 2x2 window would span frames")
             cur = _downsample_half_flat(
                 cur, C, bias=ingest_bias if lvl == 1 else None,
                 backend=backend)
         h, w = H >> lvl, W >> lvl
         if lvl < start_level:
-            levels.append(PyramidLevel(image=cur.reshape(h, w, C),
+            levels.append(PyramidLevel(image=cur.reshape(B, h, w, C),
                                        grad_x=None, grad_y=None))
             continue
-        current = cur.reshape(h, w, C)
+        current = cur.reshape(B, h, w, C)
         gx, gy = central_diff(current)
         levels.append(PyramidLevel(
             image=pad_replicate(current, padding),

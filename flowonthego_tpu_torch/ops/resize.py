@@ -33,20 +33,22 @@ def _interp_matrix(out_len: int, in_len: int) -> np.ndarray:
 
 
 def resize_matmul(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """Bilinear resize [H, W, C] -> [out_h, out_w, C] as two matmuls
-    (float32; TF32 is off at the port's entry points)."""
-    h, w, c = img.shape
+    """Bilinear resize [..., H, W, C] -> [..., out_h, out_w, C] as two
+    matmuls, batched over the leading dims (float32: the port's entry
+    points keep TF32 off, batched products included)."""
+    h, w = img.shape[-3], img.shape[-2]
     Rv = torch.as_tensor(_interp_matrix(out_h, h), device=img.device)
     Rh = torch.as_tensor(_interp_matrix(out_w, w), device=img.device)
-    tmp = torch.einsum("oh,hwc->owc", Rv, img)
-    return torch.einsum("pw,owc->opc", Rh, tmp)
+    tmp = torch.einsum("oh,...hwc->...owc", Rv, img)
+    return torch.einsum("pw,...owc->...opc", Rh, tmp)
 
 
 def resize_linear_antialias(img: torch.Tensor, out_h: int,
                             out_w: int) -> torch.Tensor:
-    """``jax.image.resize(img, (out_h, out_w, C), "linear")`` for [H, W, C]
-    (antialiased when downsampling)."""
-    x = img.permute(2, 0, 1)[None]
+    """``jax.image.resize(img, (out_h, out_w, C), "linear")`` for [..., H,
+    W, C] (antialiased when downsampling), batched over the leading dims."""
+    *lead, H, W, C = img.shape
+    x = img.reshape(-1, H, W, C).permute(0, 3, 1, 2)
     y = F.interpolate(x, size=(out_h, out_w), mode="bilinear",
                       align_corners=False, antialias=True)
-    return y[0].permute(1, 2, 0).contiguous()
+    return y.permute(0, 2, 3, 1).reshape(*lead, out_h, out_w, C).contiguous()

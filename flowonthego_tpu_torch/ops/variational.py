@@ -3,8 +3,9 @@
 
 Warp + image derivatives once, then ``level + 1`` fixed-point rounds of
 {smoothness, robust data term, sub-Laplacian, red-black SOR, flow
-update}.  Every stencil is slicing and shifted adds on [H, W(, C)]
-tensors, never a convolution (a cuDNN convolution could run in TF32).
+update}.  Every stencil is slicing and shifted adds on a batch of fields
+[B, H, W(, C)], never a convolution (a cuDNN convolution could run in
+TF32).
 
 Energy constants: datanorm = 0.1^2, eps_color = eps_grad = eps_smooth =
 0.001^2; weights quarter_alpha = alpha/4, half_delta_over3 = delta/6,
@@ -14,6 +15,8 @@ half_gamma_over3 = gamma/6.
 :func:`varref_backend_for`: the plain stencils here, the K3 kernel
 (:mod:`.cuda.varref_fused`, one CTA) up to :data:`FUSED_MAX_PIXELS`, or
 the K4 kernel (:mod:`.cuda.varref_tiled`, the whole card) above it.
+The choice is by the size of one field, whatever the batch: K3 runs one
+CTA per frame, K4 one launch over the batch.
 """
 
 from __future__ import annotations
@@ -50,8 +53,9 @@ def varref_backend_for(cfg: DISConfig, h: int, w: int,
 
 
 def variational_refine_auto(flow, im1, im2, cfg: DISConfig, level: int):
-    """Refine on the backend of :func:`varref_backend_for`."""
-    backend = varref_backend_for(cfg, flow.shape[0], flow.shape[1],
+    """Refine the fields ``flow`` [B, h, w, 2] on the backend of
+    :func:`varref_backend_for` (chosen by the size h x w of one field)."""
+    backend = varref_backend_for(cfg, flow.shape[1], flow.shape[2],
                                  flow.device.type)
     if backend == "fused":
         from .cuda.varref_fused import variational_refine_fused
@@ -86,12 +90,13 @@ def deriv3(x: torch.Tensor, axis: int) -> torch.Tensor:
 # ------------------------------------------------------------------- warping
 
 def warp_image(src: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor):
-    """Backward-warp ``src`` [H, W, C] by flow (wx, wy) [H, W]: bilinear
-    with a clamp on each tap plus an in-bounds mask.  Returns (warped
-    [H, W, C], mask [H, W])."""
-    h, w = src.shape[:2]
+    """Backward-warp the frames ``src`` [B, H, W, C] by flows (wx, wy)
+    [B, H, W]: bilinear with a clamp on each tap (within each frame) plus
+    an in-bounds mask.  Returns (warped [B, H, W, C], mask [B, H, W])."""
+    B, h, w = src.shape[:3]
     jj = torch.arange(h, dtype=src.dtype, device=src.device)[:, None]
     ii = torch.arange(w, dtype=src.dtype, device=src.device)[None, :]
+    fr = torch.arange(B, device=src.device)[:, None, None]
     xx = ii + wx
     yy = jj + wy
     x0 = torch.floor(xx)
@@ -105,10 +110,10 @@ def warp_image(src: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor):
     y2 = (y0 + 1).clamp(0, h - 1).long()
     dxe = dx[..., None]
     dye = dy[..., None]
-    warped = (src[y1, x1] * (1 - dxe) * (1 - dye)
-              + src[y1, x2] * dxe * (1 - dye)
-              + src[y2, x1] * (1 - dxe) * dye
-              + src[y2, x2] * dxe * dye)
+    warped = (src[fr, y1, x1] * (1 - dxe) * (1 - dye)
+              + src[fr, y1, x2] * dxe * (1 - dye)
+              + src[fr, y2, x1] * (1 - dxe) * dye
+              + src[fr, y2, x2] * dxe * dye)
     return warped, mask
 
 
@@ -124,18 +129,19 @@ class Derivatives(NamedTuple):
 
 
 def get_derivatives(im1: torch.Tensor, w_im2: torch.Tensor) -> Derivatives:
-    """Spatial/temporal derivatives on the mean of im1 and warped im2."""
+    """Spatial/temporal derivatives on the mean of im1 and warped im2
+    ([..., H, W, C]: x is dim -2, y dim -3)."""
     mean = 0.5 * (im1 + w_im2)
     Iz = w_im2 - im1
-    Ix = deriv5(mean, axis=1)
-    Iy = deriv5(mean, axis=0)
+    Ix = deriv5(mean, axis=-2)
+    Iy = deriv5(mean, axis=-3)
     return Derivatives(
         Ix=Ix, Iy=Iy, Iz=Iz,
-        Ixx=deriv5(Ix, axis=1),
-        Ixy=deriv5(Ix, axis=0),
-        Iyy=deriv5(Iy, axis=0),
-        Ixz=deriv5(Iz, axis=1),
-        Iyz=deriv5(Iz, axis=0),
+        Ixx=deriv5(Ix, axis=-2),
+        Ixy=deriv5(Ix, axis=-3),
+        Iyy=deriv5(Iy, axis=-3),
+        Ixz=deriv5(Iz, axis=-2),
+        Iyz=deriv5(Iz, axis=-3),
     )
 
 
@@ -145,17 +151,17 @@ def compute_smoothness(uu: torch.Tensor, vv: torch.Tensor,
                        quarter_alpha: float):
     """s = alpha/4 / sqrt(|grad u|^2 + |grad v|^2 + eps);
     s_horiz[j,i] = s[j,i] + s[j,i+1] (last column zero),
-    s_vert[j,i] = s[j,i] + s[j+1,i] (last row zero)."""
-    ux = deriv3(uu, axis=1)
-    uy = deriv3(uu, axis=0)
-    vx = deriv3(vv, axis=1)
-    vy = deriv3(vv, axis=0)
+    s_vert[j,i] = s[j,i] + s[j+1,i] (last row zero); planes [..., H, W]."""
+    ux = deriv3(uu, axis=-1)
+    uy = deriv3(uu, axis=-2)
+    vx = deriv3(vv, axis=-1)
+    vy = deriv3(vv, axis=-2)
     s = quarter_alpha / torch.sqrt(ux * ux + uy * uy + vx * vx + vy * vy
                                    + EPS_SMOOTH)
-    zc = torch.zeros_like(s[:, :1])
-    zr = torch.zeros_like(s[:1, :])
-    s_horiz = torch.cat([s[:, :-1] + s[:, 1:], zc], dim=1)
-    s_vert = torch.cat([s[:-1, :] + s[1:, :], zr], dim=0)
+    zc = torch.zeros_like(s[..., :1])
+    zr = torch.zeros_like(s[..., :1, :])
+    s_horiz = torch.cat([s[..., :-1] + s[..., 1:], zc], dim=-1)
+    s_vert = torch.cat([s[..., :-1, :] + s[..., 1:, :], zr], dim=-2)
     return s_horiz, s_vert
 
 
@@ -209,34 +215,35 @@ def sub_laplacian(dst: torch.Tensor, src: torch.Tensor, s_horiz: torch.Tensor,
                   s_vert: torch.Tensor) -> torch.Tensor:
     """dst += weighted 5-point Laplacian of src (s_horiz's last column and
     s_vert's last row are zero, so no out-of-range tap contributes)."""
-    src_r = torch.cat([src[:, 1:], src[:, -1:]], dim=1)
+    src_r = torch.cat([src[..., 1:], src[..., -1:]], dim=-1)
     coeff_h = s_horiz * (src_r - src)
-    zc = torch.zeros_like(coeff_h[:, :1])
-    dst = dst + coeff_h - torch.cat([zc, coeff_h[:, :-1]], dim=1)
+    zc = torch.zeros_like(coeff_h[..., :1])
+    dst = dst + coeff_h - torch.cat([zc, coeff_h[..., :-1]], dim=-1)
 
-    src_d = torch.cat([src[1:, :], src[-1:, :]], dim=0)
+    src_d = torch.cat([src[..., 1:, :], src[..., -1:, :]], dim=-2)
     coeff_v = s_vert * (src_d - src)
-    zr = torch.zeros_like(coeff_v[:1, :])
-    dst = dst + coeff_v - torch.cat([zr, coeff_v[:-1, :]], dim=0)
+    zr = torch.zeros_like(coeff_v[..., :1, :])
+    dst = dst + coeff_v - torch.cat([zr, coeff_v[..., :-1, :]], dim=-2)
     return dst
 
 
 # ------------------------------------------------------------------ SOR
 
 def _shift(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
-    """result[j, i] = x[j+dy, i+dx], zero-filled."""
-    h, w = x.shape
+    """result[..., j, i] = x[..., j+dy, i+dx], zero-filled."""
+    h, w = x.shape[-2:]
     xp = torch.nn.functional.pad(x, (max(-dx, 0), max(dx, 0),
                                      max(-dy, 0), max(dy, 0)))
-    return xp[max(dy, 0):max(dy, 0) + h, max(dx, 0):max(dx, 0) + w]
+    return xp[..., max(dy, 0):max(dy, 0) + h, max(dx, 0):max(dx, 0) + w]
 
 
 def sor_solve(du, dv, a11, a12, a22, b1, b2, s_horiz, s_vert,
               iterations: int, omega: float):
     """Red-black coupled SOR for the per-pixel 2x2 systems: each iteration
     sweeps the odd then the even checkerboard; within a cell the dv update
-    uses the freshly written du."""
-    h, w = du.shape
+    uses the freshly written du.  Planes [..., H, W]; the checkerboard is
+    each field's own."""
+    h, w = du.shape[-2:]
     jj = torch.arange(h, device=du.device)[:, None]
     ii = torch.arange(w, device=du.device)[None, :]
     parity = (ii + jj) % 2
@@ -296,8 +303,9 @@ def refine_loop(wx, wy, mask, d: Derivatives, cfg: DISConfig,
 def variational_refine(flow: torch.Tensor, im1: torch.Tensor,
                        im2: torch.Tensor, cfg: DISConfig,
                        level: int) -> torch.Tensor:
-    """Refine a dense [H, W, 2] flow against the unpadded scale images:
-    warp + derivatives once, then ``level + 1`` fixed-point rounds."""
+    """Refine dense flows [B, H, W, 2] against the unpadded scale images
+    [B, H, W, C]: warp + derivatives once, then ``level + 1`` fixed-point
+    rounds."""
     wx = flow[..., 0]
     wy = flow[..., 1]
     w_im2, mask = warp_image(im2, wx, wy)

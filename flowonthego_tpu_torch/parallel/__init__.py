@@ -1,3 +1,5 @@
-from .frame_parallel import stream_flow
+from .frame_parallel import batched_flow, stream_flow
+from .multistream import MultiStream, stream_video_chunks
 
-__all__ = ["stream_flow"]
+__all__ = ["batched_flow", "stream_flow", "MultiStream",
+           "stream_video_chunks"]

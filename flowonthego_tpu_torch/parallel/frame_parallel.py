@@ -1,7 +1,12 @@
-"""Video streaming (port of ``stream_flow`` from
-``flowonthego_tpu/parallel/frame_parallel.py``).
+"""Batched frame pairs and video streaming (port of ``batched_flow`` and
+``stream_flow`` from ``flowonthego_tpu/parallel/frame_parallel.py``).
 
-Carries two things from frame to frame:
+``batched_flow`` runs B pre-padded pairs as one batch through the
+pipeline: each kernel launches once per scale for the whole batch, where
+JAX ``vmap``s the pipeline.  Its multi-device form
+(``make_data_parallel_flow``) is not ported yet.
+
+``stream_flow`` carries two things from frame to frame:
   * the previous pair's flow, downsampled to the coarsest-scale warm-start
     resolution, as ``init_flow``;
   * the previous frame's pyramid: frame t is I1 of pair t-1 and I0 of
@@ -15,10 +20,40 @@ from typing import Iterable
 import torch
 
 from ..config import DISConfig, pool_backend
-from ..models.dis_flow import (as_image, dis_flow_from_pyramids, pin_fp32,
+from ..models.dis_flow import (as_image, dis_flow_from_pyramids,
+                               dis_flow_padded, pin_fp32,
                                upsample_flow_to_full)
 from ..ops.pyramid import build_pyramid
 from ..ops.resize import resize_linear_antialias
+
+
+def batched_flow(I0, I1, cfg: DISConfig, full_res: bool = True
+                 ) -> torch.Tensor:
+    """Flow for a batch of padded frame pairs.
+
+    I0, I1: [B, H, W, C] (numpy or tensors) with H, W divisible by
+    2**coarsest_scale; they run where I0 lies (numpy on the CPU).
+    Returns [B, H, W, 2] (``full_res``) or [B, H/2^fs, W/2^fs, 2].
+    """
+    I0 = as_image(I0)
+    I1 = as_image(I1, I0.device)
+    if I0.dim() != 4 or I0.shape != I1.shape:
+        raise ValueError(f"batched_flow takes two [B, H, W, C] batches of "
+                         f"one shape, got {tuple(I0.shape)} and "
+                         f"{tuple(I1.shape)}")
+    flow = dis_flow_padded(I0, I1, cfg)
+    if full_res:
+        flow = upsample_flow_to_full(flow, cfg, I0.shape[1], I0.shape[2])
+    return flow
+
+
+def warm_start(flow: torch.Tensor, cfg: DISConfig, init_h: int,
+               init_w: int) -> torch.Tensor:
+    """The next pair's warm start from finest flows [B, h, w, 2]: the flow
+    at 1/2^(cs+1) (init is read at floor(mid/2) x2)."""
+    return resize_linear_antialias(
+        flow / (2.0 ** (cfg.coarsest_scale + 1 - cfg.finest_scale)),
+        init_h, init_w)
 
 
 def stream_flow(frames: Iterable, cfg: DISConfig, full_res: bool = True,
@@ -56,18 +91,15 @@ def stream_flow(frames: Iterable, cfg: DISConfig, full_res: bool = True,
         init_h = cur.shape[0] >> (cfg.coarsest_scale + 1)
         init_w = cur.shape[1] >> (cfg.coarsest_scale + 1)
         if pyr is None:
-            pyr = build_pyramid(cur, n_levels, cfg.padding, **kw)
-            init = torch.zeros((init_h, init_w, 2), dtype=torch.float32,
+            pyr = build_pyramid(cur[None], n_levels, cfg.padding, **kw)
+            init = torch.zeros((1, init_h, init_w, 2), dtype=torch.float32,
                                device=cur.device)
             continue
-        pyr1 = build_pyramid(cur, n_levels, cfg.padding, **kw)
+        pyr1 = build_pyramid(cur[None], n_levels, cfg.padding, **kw)
         flow = dis_flow_from_pyramids(pyr, pyr1, cfg, init_flow=init)
-        out = (upsample_flow_to_full(flow, cfg, cur.shape[0], cur.shape[1])
-               if full_res else flow)
-        # warm start for the next pair: the finest flow at 1/2^(cs+1)
-        # (init is read at floor(mid/2) x2)
-        init = resize_linear_antialias(
-            flow / (2.0 ** (cfg.coarsest_scale + 1 - cfg.finest_scale)),
-            init_h, init_w)
+        out = (upsample_flow_to_full(flow[0], cfg, cur.shape[0],
+                                     cur.shape[1])
+               if full_res else flow[0])
+        init = warm_start(flow, cfg, init_h, init_w)
         pyr = pyr1
         yield out.cpu().numpy() if fetch else out

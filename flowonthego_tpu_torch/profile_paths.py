@@ -13,7 +13,9 @@ op-3/op-4 outlier radius at every scale, a four-frame op-3 stream moving
 (12, -6) px per frame, and a horizontal (-16, 0)-px pair for depth.
 Besides op 1, 3 and 4, op 2 runs as the command line's modes run it:
 plain, with forward-backward consistency, with the pseudo-Huber cost
-(the reference-form solve), on gray input (C = 1) and as stereo depth.
+(the reference-form solve), on gray input (C = 1), as stereo depth and
+with K2's bf16 operands (op 4 too); and batched: ``batched_flow`` on four pairs (each moving its own motion)
+and a four-stream ``MultiStream`` tick, counted per frame.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import itertools
 import subprocess
 import time
 
@@ -75,9 +78,12 @@ def report(name: str, fn, reps: int, pairs_per_call: int = 1) -> dict:
     dev_ms, per = device_breakdown(fn, reps)
     n = reps * pairs_per_call
     launches = sum(k for _, k in per.values()) / n
+    per_call = (f" ({wall * pairs_per_call:.3f} ms and "
+                f"{launches * pairs_per_call:.0f} launches per call of "
+                f"{pairs_per_call} pairs)" if pairs_per_call > 1 else "")
     print(f"{name}: unprofiled wall {wall:.3f} ms/pair; device "
           f"{dev_ms / n:.3f} ms/pair ({100 * dev_ms / n / wall:.1f}% busy); "
-          f"device launches/pair {launches:.0f}", flush=True)
+          f"device launches/pair {launches:.0f}{per_call}", flush=True)
     for cat, (ms, k) in sorted(per.items(), key=lambda kv: -kv[1][0]):
         print(f"   {cat:<22} {ms / n:8.3f} ms/pair  n/pair={k / n:.0f}",
               flush=True)
@@ -131,9 +137,35 @@ def main(argv=None) -> int:
     report("op 1 pair (16, 8)", pair(1, (16, 8)), args.reps)
     report("op 4 pair (16, 8)", pair(4, (16, 8)), args.reps)
     report("op 4 pair (2, 2)", pair(4, (2, 2)), args.reps)
+    report("op 2 bf16 pair (16, 8)", lambda: port.compute_flow(
+        *pairs[(16, 8)], op2(dtype="bfloat16")), args.reps)
+    report("op 4 bf16 pair (2, 2)", lambda: port.compute_flow(
+        *pairs[(2, 2)], dataclasses.replace(cfg[4], dtype="bfloat16")),
+        args.reps)
     report("op 3 stream, 4 frames (12, -6)",
            lambda: list(port.stream_flow(frames, cfg[3], fetch=False)),
            max(1, args.reps // 2), pairs_per_call=len(frames) - 1)
+
+    # four pairs / streams, frame b moving shifts[b]
+    shifts = ((16, 8), (-8, 8), (8, -16), (-16, -8))
+    pads = pad_to_divisible(1024, 436, cfg[2].coarsest_scale)
+    videos = [torch.stack([pad_replicate(torch.as_tensor(f, device=dev), pads)
+                           for f in synthetic_frames(20 + b, 4, 436, 1024, s)])
+              for b, s in enumerate(shifts)]
+    I0, I1 = (torch.stack([v[k] for v in videos]) for k in (0, 1))
+    report("op 2 batched_flow, 4 pairs", lambda: port.batched_flow(
+        I0, I1, cfg[2]), args.reps, pairs_per_call=len(shifts))
+    streams = port.MultiStream(cfg[2], *I0.shape[1:3], n_streams=len(shifts),
+                               device=dev)
+    streams.start(I0)
+    ticks = itertools.count()
+
+    def tick():
+        t = 1 + next(ticks) % 3
+        return streams.push(torch.stack([v[t] for v in videos]))
+
+    report("op 2 MultiStream tick, 4 streams", tick, args.reps,
+           pairs_per_call=len(shifts))
     return 0
 
 

@@ -46,18 +46,21 @@ def test_pool_kernel(cuda, dtype, bias):
     torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-4)
 
 
-def _level_state(device, h, w, warm, channels=3):
-    i0, i1 = synthetic_frames(1, 2, h, w, (1, 1), channels=channels,
-                              factor=4)
+def _level_state(device, h, w, warm, channels=3, n_frames=1):
+    """A level's patch state of ``n_frames`` frames (frame b from seed
+    1 + b) and the padded target levels [B, Hp, Wp, C]."""
+    pairs = [synthetic_frames(1 + b, 2, h, w, (1, 1), channels=channels,
+                              factor=4) for b in range(n_frames)]
     cfg = port.operating_point(2)
-    lvl0 = build_pyramid(torch.as_tensor(i0, device=device), 1, 8)[0]
-    lvl1 = build_pyramid(torch.as_tensor(i1, device=device), 1, 8)[0]
+    lvl0, lvl1 = (build_pyramid(torch.as_tensor(np.stack([p[k] for p in pairs]),
+                                                device=device), 1, 8)[0]
+                  for k in (0, 1))
     grid = PatchGrid.create(cfg, w, h)
     state = dis_mod.init_state(*extract_templates_and_hessians(
         lvl0.image, lvl0.grad_x, lvl0.grad_y, grid, cfg), grid)
     if warm:
         g = torch.Generator().manual_seed(1)
-        coarse = torch.randn((h // 2, w // 2, 2), generator=g) * 2.0
+        coarse = torch.randn((n_frames, h // 2, w // 2, 2), generator=g) * 2.0
         state = dis_mod.init_from_coarser(state, coarse.to(device), grid)
     return cfg, grid, state, lvl1.image
 
@@ -79,10 +82,10 @@ def test_gn_kernel(cuda, warm):
 def test_varref_kernel(cuda, level):
     i0, i1 = synthetic_frames(2, 2, 56, 128, (1, 0), factor=4)
     g = torch.Generator().manual_seed(2)
-    flow = (torch.randn((56, 128, 2), generator=g) * 0.3
+    flow = (torch.randn((1, 56, 128, 2), generator=g) * 0.3
             + torch.tensor([1.0, 0.0])).to(cuda)
-    im1 = torch.as_tensor(i0, device=cuda)
-    im2 = torch.as_tensor(i1, device=cuda)
+    im1 = torch.as_tensor(i0, device=cuda)[None]
+    im2 = torch.as_tensor(i1, device=cuda)[None]
     cfg = port.operating_point(2)
     wx, wy, mask, dIs = varref_fused.warp_and_derivs(flow, im1, im2, cfg)
     n0 = varref_fused.launches
@@ -94,15 +97,17 @@ def test_varref_kernel(cuda, level):
     torch.testing.assert_close(vv, rv, rtol=1e-4, atol=1e-5)
 
 
-def _varref_planes(device, h, w, cfg, channels=3):
-    i0, i1 = synthetic_frames(2, 2, h, w, (1, 0), channels=channels,
-                              factor=4)
+def _varref_planes(device, h, w, cfg, channels=3, n_frames=1):
+    """The var-ref loop's planes for ``n_frames`` fields (frame b from
+    seed 2 + b) with flows near (1, 0)."""
+    pairs = [synthetic_frames(2 + b, 2, h, w, (1, 0), channels=channels,
+                              factor=4) for b in range(n_frames)]
     g = torch.Generator().manual_seed(3)
-    flow = (torch.randn((h, w, 2), generator=g) * 0.3
+    flow = (torch.randn((n_frames, h, w, 2), generator=g) * 0.3
             + torch.tensor([1.0, 0.0])).to(device)
-    return varref_fused.warp_and_derivs(
-        flow, torch.as_tensor(i0, device=device),
-        torch.as_tensor(i1, device=device), cfg)
+    im1, im2 = (torch.as_tensor(np.stack([p[k] for p in pairs]),
+                                device=device) for k in (0, 1))
+    return varref_fused.warp_and_derivs(flow, im1, im2, cfg)
 
 
 @pytest.mark.parametrize("warm", [False, True])
@@ -154,15 +159,15 @@ def test_varref_tiled_kernel(cuda):
 
 
 def test_warp_kernel(cuda):
-    """K5 is bit-exact with the plain warp, border clamps and a
-    row-strided source included."""
+    """K5 is bit-exact with the plain warp, border clamps, a batch of two
+    frames and a frame- and row-strided source included."""
     g = torch.Generator().manual_seed(4)
-    big = (torch.rand((53, 77, 3), generator=g) * 255).to(cuda)
+    big = (torch.rand((2, 53, 77, 3), generator=g) * 255).to(cuda)
     gray = big[..., :1].contiguous()
-    for src in (big[4:41, 8:69].contiguous(), big[4:41, 8:69],
-                gray[4:41, 8:69]):
-        wx, wy = ((torch.rand((37, 61), generator=g) * 16 - 8).to(cuda)
-                  for _ in range(2))
+    for src in (big[:, 4:41, 8:69].contiguous(), big[:, 4:41, 8:69],
+                gray[:, 4:41, 8:69], big[1:, 4:41, 8:69]):
+        wx, wy = ((torch.rand((src.shape[0], 37, 61), generator=g) * 16
+                   - 8).to(cuda) for _ in range(2))
         n0 = warp.launches
         got, gm = warp.warp_image(src, wx, wy)
         assert warp.launches == n0 + 1
@@ -244,3 +249,107 @@ def test_cli_on_card_matches_cpu(cuda, tmp_path, args):
     got, ref = (read(out[k]).reshape(124, 256, -1) for k in ("cuda", "cpu"))
     epe = np.sqrt(((got.astype(np.float64) - ref) ** 2).sum(-1))
     assert epe.mean() <= 1e-3 and np.quantile(epe, 0.99) <= 1e-2
+
+
+# ---------------------------------------------------------------- batch, bf16
+
+B = 4
+
+
+def test_batched_gn_kernel(cuda):
+    """K2 on a batch of four frames: one launch, within tolerance of the
+    plain version, and each frame bit-identical to its own launch (a CTA
+    computes its patch alone)."""
+    cfg, grid, state, I1p = _level_state(cuda, 56, 128, True, n_frames=B)
+    args = (I1p, state.templates, state.tgrad_x, state.tgrad_y, state.H,
+            state.mid_org, state.p_cur, state.p_org, ~state.converged)
+    kw = dict(n_iters=cfg.grad_descent_iter, padding=grid.padding,
+              thresh=cfg.outlier_thresh, l_bound=grid.l_bound,
+              ub_w=grid.u_bound_w, ub_h=grid.u_bound_h, mean_on=1.0)
+    n0 = dis_gn.launches
+    p, cost = dis_gn.gn_scale_loop(*args, **kw)
+    assert dis_gn.launches == n0 + 1
+    rp, rcost = dis_gn.gn_scale_loop_plain(*args, **kw)
+    torch.testing.assert_close(p, rp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(cost, rcost, rtol=1e-3, atol=1e-3)
+    for b in range(B):
+        pb, cb = dis_gn.gn_scale_loop(*(x[b:b + 1] for x in args), **kw)
+        assert torch.equal(pb[0], p[b]) and torch.equal(cb[0], cost[b])
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_gn_kernel_bf16(cuda, warm):
+    """K2's bf16 operand kernel on a batch against the plain version on
+    the same bf16-rounded operands (float32 blends, reductions and
+    carries on both): the float32 kernel's tolerances.  It counts as a
+    bf16 launch, and it is not the float32 kernel."""
+    cfg, grid, state, I1p = _level_state(cuda, 56, 128, warm, n_frames=2)
+    bf = dataclasses.replace(cfg, dtype="bfloat16", gn_backend="pallas")
+    n0, nb0 = dis_gn.launches, dis_gn.launches_bf16
+    got = dis_mod.optimize(state, I1p, grid, bf)
+    assert (dis_gn.launches, dis_gn.launches_bf16) == (n0 + 1, nb0 + 1)
+    ref = dis_mod.optimize(state, I1p, grid,
+                           dataclasses.replace(bf, gn_backend="xla"))
+    torch.testing.assert_close(got.p_cur, ref.p_cur, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.cost_px, ref.cost_px, rtol=1e-3, atol=1e-3)
+    f32 = dis_mod.optimize(state, I1p, grid,
+                           dataclasses.replace(bf, dtype="float32"))
+    assert dis_gn.launches_bf16 == nb0 + 1
+    assert (f32.p_cur - got.p_cur).abs().max() > 1e-4
+
+
+def test_batched_varref_and_warp_kernels(cuda):
+    """K3 (one CTA per field), K4 (one launch over the batch) and K5 on
+    four frames: one launch each, within tolerance of the plain loop (K5
+    bit-exact), and every frame bit-identical to its own launch: no
+    border or red-black neighbour crosses into the next frame."""
+    cfg = port.operating_point(3)
+    for mod, run, h, w, level in (
+            (varref_fused, varref_fused.refine_inner, 14, 32, 5),
+            (varref_tiled, varref_tiled.refine_inner_tiled, 56, 128, 3)):
+        P = _varref_planes(cuda, h, w, cfg, n_frames=B)
+        n0 = mod.launches
+        uu, vv = run(*P, cfg, level + 1)
+        assert mod.launches == n0 + 1
+        ru, rv = varref_fused.refine_inner_plain(*P, cfg, level + 1)
+        torch.testing.assert_close(uu, ru, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(vv, rv, rtol=1e-4, atol=1e-5)
+        for b in range(B):
+            ub, vb = run(*(x[b:b + 1] for x in P), cfg, level + 1)
+            assert torch.equal(ub[0], uu[b]) and torch.equal(vb[0], vv[b])
+    g = torch.Generator().manual_seed(5)
+    src = (torch.rand((B, 37, 61, 3), generator=g) * 255).to(cuda)
+    wx, wy = ((torch.rand((B, 37, 61), generator=g) * 16 - 8).to(cuda)
+              for _ in range(2))
+    n0 = warp.launches
+    got, gm = warp.warp_image(src, wx, wy)
+    assert warp.launches == n0 + 1
+    ref, rm = warp.warp_image_plain(src, wx, wy)
+    assert torch.equal(got, ref) and torch.equal(gm, rm)
+
+
+def test_batched_fb_flow_deterministic(cuda):
+    """``batched_flow`` with forward-backward consistency on three pairs:
+    each kernel launches as often as for one pair (once per scale and
+    direction for the batch), two runs agree bit for bit (the merge's
+    one scatter adds in a fixed order), and each frame is within the band
+    of its single-pair flow."""
+    shifts = ((2, 1), (-2, 2), (4, -2))
+    pairs = [synthetic_frames(3 + b, 2, 128, 256, s, factor=4)
+             for b, s in enumerate(shifts)]
+    I0, I1 = (torch.as_tensor(np.stack([p[k] for p in pairs]), device=cuda)
+              for k in (0, 1))
+    cfg = dataclasses.replace(port.operating_point(2, width=256),
+                              use_fb_consistency=True)
+    mods = (pool, dis_gn, varref_fused, varref_tiled, warp)
+    counts = [m.launches for m in mods]
+    first = port.batched_flow(I0, I1, cfg)
+    batch_n = [m.launches - n for m, n in zip(mods, counts)]
+    assert batch_n[1] > 0
+    assert torch.equal(port.batched_flow(I0, I1, cfg), first)
+    for b in range(len(shifts)):
+        counts = [m.launches for m in mods]
+        single = port.batched_flow(I0[b:b + 1], I1[b:b + 1], cfg)
+        assert [m.launches - n for m, n in zip(mods, counts)] == batch_n
+        epe = torch.linalg.vector_norm(first[b] - single[0], dim=-1)
+        assert epe.mean() <= 1e-3 and torch.quantile(epe, 0.99) <= 1e-2

@@ -75,8 +75,9 @@ def _check_golden(path, op_point, shape, with_jax=True, **fields):
         assert_flow_band(_jax_flow(i0p, i1p, op_point, **fields), golden)
     cfg = dataclasses.replace(operating_point(op_point, width=WIDTH),
                               **fields)
-    got = dis_flow_padded(torch.as_tensor(i0p), torch.as_tensor(i1p), cfg)
-    assert_flow_band(got.numpy(), golden)
+    got = dis_flow_padded(torch.as_tensor(i0p)[None],
+                          torch.as_tensor(i1p)[None], cfg)
+    assert_flow_band(got[0].numpy(), golden)
     # the texture moves by a multiple of 8 px: exactly shift / 2^fs
     np.testing.assert_allclose(
         np.median(golden[4:-4, 4:-4].reshape(-1, 2), axis=0),

@@ -91,13 +91,13 @@ def test_build_pyramid_matches_jax(rng, dtype, start, bias):
     ref = jpyramid.build_pyramid(jnp.asarray(img), 4, 4, start_level=start,
                                  ingest_bias=None if bias is None
                                  else jnp.float32(bias))
-    got = ppyramid.build_pyramid(torch.as_tensor(img), 4, 4,
+    got = ppyramid.build_pyramid(torch.as_tensor(img)[None], 4, 4,
                                  start_level=start, ingest_bias=bias)
     for lr, lg in zip(ref, got):
         for a, b in zip(lr, lg):
             assert (a is None) == (b is None)
             if a is not None:
-                np.testing.assert_allclose(b.numpy(), np.asarray(a,
+                np.testing.assert_allclose(b[0].numpy(), np.asarray(a,
                                            np.float32), rtol=0, atol=1e-5)
     f32 = img.astype(np.float32)
     np.testing.assert_allclose(
@@ -130,8 +130,9 @@ def test_extract_matches_jax(rng, op_point):
     ref = jpatches.extract_templates_and_hessians(*jpyr, jg, jc)
     got = ppatches.extract_templates_and_hessians(*ppyr, pg, pc)
     np.testing.assert_array_equal(
-        ppatches.extract_windows(ppyr.image, pg).numpy(),
+        ppatches.extract_windows(ppyr.image, pg)[0].numpy(),
         np.asarray(jpatches.extract_windows(jpyr.image, jg)))
+    got = [x[0] for x in got]
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(ref[2]))
     np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]),
@@ -173,23 +174,23 @@ def test_gn_solve_matches_pallas_oracle(rng, warm, gd_iter):
     pstate = patch_state_from_numpy(
         {k: np.asarray(v) for k, v in jstate._asdict().items()})
     pgrid = ppatches.PatchGrid.create(pc, 64, 48)
-    got = pdis.optimize(pstate, _t(I1p), pgrid,
+    got = pdis.optimize(pstate, _t(I1p)[None], pgrid,
                         dataclasses.replace(pc, gn_backend="auto"))
-    np.testing.assert_allclose(got.p_cur.numpy(), np.asarray(ref.p_cur),
+    np.testing.assert_allclose(got.p_cur[0].numpy(), np.asarray(ref.p_cur),
                                rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(got.cost_px.numpy(), np.asarray(ref.cost_px),
-                               rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(got.cost_px[0].numpy(),
+                               np.asarray(ref.cost_px), rtol=1e-3, atol=1e-3)
     if warm:
         frozen = np.asarray(jstate.converged)
         assert frozen.any()
-        assert not got.cost_px.numpy()[frozen].any()
+        assert not got.cost_px[0].numpy()[frozen].any()
 
     # densify of the same state: <= 1e-5 abs (weights are 1/max(2, cost),
     # the flow a weighted mean of patch flows; reorder-only differences)
     jd = np.asarray(jdensify.densify(ref, grid, jc))
     pd = pdensify.densify(patch_state_from_numpy(
         {k: np.asarray(v) for k, v in ref._asdict().items()}), pgrid, pc)
-    np.testing.assert_allclose(pd.numpy(), jd, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(pd[0].numpy(), jd, rtol=0, atol=1e-5)
 
 
 def test_init_from_coarser_matches_jax(rng):
@@ -206,10 +207,10 @@ def test_init_from_coarser_matches_jax(rng):
     assert int(grid.midpoints()[1].max()) // 2 == 8
     pstate = patch_state_from_numpy(
         {k: np.asarray(v) for k, v in jstate._asdict().items()})
-    got = pdis.init_from_coarser(pstate, _t(coarse),
+    got = pdis.init_from_coarser(pstate, _t(coarse)[None],
                                  ppatches.PatchGrid.create(pc, w, h))
     for name in ("p_cur", "p_org", "converged"):
-        np.testing.assert_array_equal(getattr(got, name).numpy(),
+        np.testing.assert_array_equal(getattr(got, name)[0].numpy(),
                                       np.asarray(getattr(ref, name)))
 
 
@@ -228,9 +229,9 @@ def test_varref_matches_pallas_oracle(rng, level, C):
     ref = np.asarray(jax_varref_fused(jnp.asarray(flow), jnp.asarray(im1),
                                       jnp.asarray(im2), jc, level,
                                       interpret=True))
-    got = port_varref_fused(_t(flow), _t(im1), _t(im2),
+    got = port_varref_fused(_t(flow)[None], _t(im1)[None], _t(im2)[None],
                             config_from_jax(dataclasses.asdict(jc)), level)
-    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got[0].numpy(), ref, rtol=1e-4, atol=1e-5)
 
 
 # ---------------------------------------------------------------- resize

@@ -74,13 +74,13 @@ def test_optimize_reference_matches_jax(rng, mode, warm):
     ref = jdis.optimize(jstate, I1p, grid, jc)
 
     pc = config_from_jax(dataclasses.asdict(jc))
-    got = pdis.optimize(_numpy_state(jstate), _t(I1p),
+    got = pdis.optimize(_numpy_state(jstate), _t(I1p)[None],
                         ppatches.PatchGrid.create(pc, 64, 48), pc)
     robust = jc.cost_fn != "l2"
-    np.testing.assert_allclose(got.p_cur.numpy(), np.asarray(ref.p_cur),
+    np.testing.assert_allclose(got.p_cur[0].numpy(), np.asarray(ref.p_cur),
                                rtol=1e-4, atol=1e-3 if robust else 1e-4)
     for name in ("cost_px", "diff"):
-        a = getattr(got, name).numpy().astype(np.float64)
+        a = getattr(got, name)[0].numpy().astype(np.float64)
         b = np.asarray(getattr(ref, name), np.float64)
         if robust:
             a, b = a * np.abs(a), b * np.abs(b)
@@ -89,7 +89,7 @@ def test_optimize_reference_matches_jax(rng, mode, warm):
                                    err_msg=name)
     assert got.converged.all()
     # the mode changed the solve: the fixed-trip L2 solve lands elsewhere
-    fixed = pdis.optimize(_numpy_state(jstate), _t(I1p),
+    fixed = pdis.optimize(_numpy_state(jstate), _t(I1p)[None],
                           ppatches.PatchGrid.create(pc, 64, 48),
                           config_from_jax(dataclasses.asdict(
                               JaxConfig(coarsest_scale=1, finest_scale=1))))
@@ -116,9 +116,9 @@ def test_densify_fb_merge_matches_jax(rng, channels):
     pf, pb = _numpy_state(jf), _numpy_state(jb)
     for a, b, sa, sb in ((jf, jb, pf, pb), (jb, jf, pb, pf)):
         ref = np.asarray(jdensify.densify(a, grid, jc, compl_state=b))
-        got = pdensify.densify(sa, pgrid, pc, compl_state=sb).numpy()
+        got = pdensify.densify(sa, pgrid, pc, compl_state=sb)[0].numpy()
         np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
-        plain = pdensify.densify(sa, pgrid, pc).numpy()
+        plain = pdensify.densify(sa, pgrid, pc)[0].numpy()
         assert np.abs(got - plain).max() > 1e-4     # the merge did merge
 
 

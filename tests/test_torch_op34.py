@@ -52,7 +52,8 @@ def test_warp_matches_banded_and_gather(rng, h, w, bound):
     src = (rng.random((h, w, 3)) * 255).astype(np.float32)
     wx = ((rng.random((h, w)) * 2 - 1) * bound).astype(np.float32)
     wy = ((rng.random((h, w)) * 2 - 1) * bound).astype(np.float32)
-    got_w, got_m = warp.warp_image(*map(torch.as_tensor, (src, wx, wy)))
+    got_w, got_m = (x[0] for x in warp.warp_image(
+        *(torch.as_tensor(x)[None] for x in (src, wx, wy))))
     band_w, band_m = warp_image_banded(jnp.asarray(src), jnp.asarray(wx),
                                        jnp.asarray(wy), bound, tile_rows=32,
                                        interpret=True)
@@ -65,7 +66,8 @@ def test_warp_matches_banded_and_gather(rng, h, w, bound):
     np.testing.assert_array_equal(got_w.numpy(), np.asarray(gat_w))
 
     wxi, wyi = np.round(wx), np.round(wy)
-    got_i, _ = warp.warp_image(*map(torch.as_tensor, (src, wxi, wyi)))
+    got_i = warp.warp_image(
+        *(torch.as_tensor(x)[None] for x in (src, wxi, wyi)))[0][0]
     band_i, _ = warp_image_banded(jnp.asarray(src), jnp.asarray(wxi),
                                   jnp.asarray(wyi), bound, tile_rows=32,
                                   interpret=True)
@@ -92,9 +94,9 @@ def test_varref_tiled_matches_pallas_oracle(rng, level, channels):
         jnp.asarray(flow), jnp.asarray(im1), jnp.asarray(im2), jc, level,
         interpret=True, tile_rows=24, tile_cols=32))
     got = varref_tiled.variational_refine_tiled(
-        *map(torch.as_tensor, (flow, im1, im2)),
+        *(torch.as_tensor(x)[None] for x in (flow, im1, im2)),
         config_from_jax(dataclasses.asdict(jc)), level)
-    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got[0].numpy(), ref, rtol=1e-4, atol=1e-5)
 
 
 # ---------------------------------------------------------------- resolver

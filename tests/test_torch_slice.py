@@ -78,9 +78,10 @@ def test_warm_start_level_offset_and_disflow(rng):
     ref = np.asarray(jax.jit(dis_flow_padded,
                              static_argnames=("cfg", "level_offset"))(
         i0, i1, jcfg, init_flow=init, level_offset=2))
-    got = port.dis_flow_padded(torch.as_tensor(i0), torch.as_tensor(i1),
-                               pcfg, init_flow=torch.as_tensor(init),
+    got = port.dis_flow_padded(torch.as_tensor(i0)[None],
+                               torch.as_tensor(i1)[None], pcfg,
+                               init_flow=torch.as_tensor(init)[None],
                                level_offset=2)
-    assert_flow_band(got.numpy(), ref)
+    assert_flow_band(got[0].numpy(), ref)
     assert_flow_band(port.DISFlow(pcfg).calc(i0, i1),
                      fot.DISFlow(jcfg).calc(i0, i1))
