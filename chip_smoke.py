@@ -7,13 +7,22 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi);
-  2. build the five CUDA kernels from ``flowonthego_tpu_torch/csrc``;
-  3. each kernel against its plain PyTorch version on the card, at the
-     shapes the op-2, op-3 and op-4 paths give it, with CUDA-event times
-     for both; K3 against K4 on fields both can take, and both timed on
-     the field sizes of the op-3 path (the var-ref resolver's threshold);
+  2. build the CUDA kernels (K1-K5) from ``flowonthego_tpu_torch/csrc``;
+  3. the time of a kernel that does nothing (the floor under every
+     launch); each kernel against its plain PyTorch version on the card,
+     at the shapes the op-2, op-3 and op-4 paths give it, with CUDA-event
+     times for both, its bound (``ops/cuda/bounds.py``: the least time
+     the card could take for the call's bytes and operations) and, for
+     K1 and K5, the time of the one PyTorch call that computes the same
+     function (``avg_pool2d``, ``grid_sample``; yardsticks, used nowhere
+     in the port); K2 in every compiled form and its generic form; K3
+     against both routes of K4 (cluster and grid) bit for bit on the
+     fields all can take, and all timed on the field sizes of the paths
+     (the var-ref resolver's two thresholds); a cluster launch that
+     cannot fit must raise;
   4. the main paths at real size, each with the launch counters reset
-     just before it and read just after: op 2 (``compute_flow`` on a
+     just before it and read just after (numpy frames with no ``device``
+     must come back on the card): op 2 (``compute_flow`` on a
      seeded 1024x436 pair moving (16, 8) px, ``stream_flow`` over four
      3840x2160 frames), op 4 (``compute_flow`` on that pair, and on one
      moving (2, 2) px, which stays inside the outlier radius at every
@@ -38,9 +47,9 @@ Phases (any failure raises and the script exits non-zero):
      twice and compared bit for bit;
   7. K1-K5 on batches of four frames (op 2 and op 4 shapes at 1024x448)
      against their plain versions and against one launch per frame (bit
-     for bit), K3 against K4 at B = 4 on the sweep's fields, and K2's
-     bf16 operand kernel against its plain version and the float32
-     kernel, timed;
+     for bit), K3 against K4's two routes at B = 4 on the sweep's fields,
+     and K2's bf16 operand kernel against its plain version and the
+     float32 kernel, timed, each with its bound;
   8. the batched paths at 1024x436, each with the counters from zero:
      ``batched_flow`` on four pairs, each moving its own motion, at op 2
      and op 4 (each kernel must launch as often as for one pair: once per
@@ -49,8 +58,12 @@ Phases (any failure raises and the script exits non-zero):
      2 against ``stream_flow`` on each stream, ``stream_video_chunks`` on a
      9-frame video in four chunks, and the bf16 solve's flow against the
      float32 flow, with ms per batch, frame and tick.
-It prints one JSON line of per-kernel results (the batched and bf16 rows
-with the launches of phase 8) and, last, the device line
+A kernel's ``ms`` is the device's time for back-to-back launches of its
+wrapper (:func:`device_ms`); a plain version's is the time between two
+events with the host's enqueue time in it.  It prints one JSON line of
+per-kernel results (``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``,
+``library_ms``; the batched and bf16 rows with the launches of phase 8;
+K4 as two rows, one for each route) and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
 prints no result.
 """
@@ -100,16 +113,16 @@ STREAM_OP3 = (436, 1024, 16, (12, -6), 4)
 # A second op-4 pair whose motion stays inside the 6-px outlier radius at
 # scales 1 and 0, so K2 runs all 128 iterations on the two largest grids.
 SMALL_SHIFT = (2, 2)
-# K3 vs K4 on the op-3 fields at 1024x448 (h, w, level) and two sizes
-# between the first two, where the two kernels cross.
-SWEEP = ((14, 32, 5), (28, 32, 4), (28, 48, 4), (28, 64, 4), (56, 128, 3),
-         (112, 256, 2), (224, 512, 1))
+# K3 and K4's two routes on the op-3 fields at 1024x448 (h, w, level) and
+# three sizes between them, where the forms cross.
+SWEEP = ((14, 32, 5), (28, 32, 4), (28, 48, 4), (28, 64, 4), (40, 96, 4),
+         (56, 128, 3), (112, 256, 2), (224, 512, 1))
 # The command line's runs: (name, arguments after the three paths,
 # kernels that must launch, kernels that must not).  The robust costs and
 # min_iter take the reference-form solve (no K2), as in the JAX package;
 # depth runs the pyramid (K1) and a 1-D solve with no refinement.
-ALL = ("pool", "gn", "varref", "varref_tiled", "warp")
-NO_GN = ("pool", "varref", "varref_tiled", "warp")
+ALL = ("pool", "gn", "varref", "varref_cluster", "varref_tiled", "warp")
+NO_GN = ALL[:1] + ALL[2:]
 CLI_RUNS = (
     ("fb", ["2", "--fb"], ALL, ()),
     ("cost huber", ["2", "--cost", "huber"], NO_GN, ("gn",)),
@@ -130,7 +143,9 @@ def log(*args):
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls (CUDA events)."""
+    """Mean time of ``fn`` over ``reps`` calls between two CUDA events:
+    the device's time where it is the slower side, the host's enqueue
+    time where that is (the plain versions, chains of small ops)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -142,6 +157,92 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+SM_HZ = 2e9   # cycles per second assumed for the spin below (an upper bound)
+
+
+def device_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls (CUDA
+    events).  A wrapper call costs the host tens of microseconds, more
+    than most kernels here take, so the calls are enqueued behind a spin
+    kernel that keeps the device busy for twice their enqueue time: the
+    events then bracket the device's work alone, launch gaps included."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2.0 * enqueue * reps + 5e-4) * SM_HZ))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_row(ms, plain_ms, bound, max_abs_err=None, library_ms=None):
+    """One kernel's numbers for the ``kernels`` line; no time may be under
+    its bound."""
+    assert bound.bound_ms <= ms, (ms, bound)
+    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound.bound_ms,
+               bound_by=bound.bound_by, library_ms=library_ms)
+    if max_abs_err is not None:
+        row["max_abs_err"] = max_abs_err
+    return row
+
+
+def timing_text(row) -> str:
+    text = (f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.3g} ms by {row['bound_by']} "
+            f"({100 * row['bound_ms'] / row['ms']:.3g}% of the kernel's time)")
+    if row["library_ms"] is not None:
+        text += f", library call {row['library_ms']:.4f} ms"
+    return text
+
+
+def pool_library(x, C):
+    """K1's yardstick: ``avg_pool2d`` on the [H, W, C] view of a flat
+    level (channels last), which gives the kernel's [H/2, W/2 * C] layout."""
+    import torch.nn.functional as F
+    H, WC = x.shape
+    nchw = x.view(1, H, WC // C, C).permute(0, 3, 1, 2)
+    return lambda: F.avg_pool2d(nchw, 2).permute(0, 2, 3, 1).reshape(
+        H // 2, WC // 2)
+
+
+def warp_library(src, wx, wy):
+    """K5's yardstick: ``grid_sample`` (bilinear, border padding,
+    align_corners) on [B, h, w, C] frames.  It clamps coordinates, not
+    taps, and returns no mask: the same function only where the flow stays
+    inside the image."""
+    import torch.nn.functional as F
+    B, h, w, _ = src.shape
+    jj = torch.arange(h, dtype=src.dtype, device=src.device)[:, None]
+    ii = torch.arange(w, dtype=src.dtype, device=src.device)[None, :]
+    grid = torch.stack([(ii + wx) / (w - 1) * 2 - 1,
+                        (jj + wy) / (h - 1) * 2 - 1], dim=-1)
+    nchw = src.permute(0, 3, 1, 2)
+    return lambda: F.grid_sample(
+        nchw, grid, mode="bilinear", padding_mode="border",
+        align_corners=True).permute(0, 2, 3, 1)
+
+
+def inside_flow(h, w, B, bound, gen, dev):
+    """Flows of up to ``bound`` px that keep every sample inside the
+    image (for K5's yardstick)."""
+    jj = torch.arange(h, dtype=torch.float32)[:, None]
+    ii = torch.arange(w, dtype=torch.float32)[None, :]
+    wx = (torch.rand((B, h, w), generator=gen) * 2 - 1) * bound
+    wy = (torch.rand((B, h, w), generator=gen) * 2 - 1) * bound
+    wx = (ii + wx).clamp(0, w - 1) - ii
+    wy = (jj + wy).clamp(0, h - 1) - jj
+    return wx.to(dev), wy.to(dev)
 
 
 def host_ms(fn, reps: int) -> float:
@@ -208,16 +309,21 @@ def kernel_modules():
 def counted(name, fn, expect, absent=()):
     """Run one path with the launch counters from zero; check that every
     kernel in ``expect`` launched and none in ``absent``; return (result,
-    counts).  "gn_bf16" counts K2's bf16 launches: with it in ``expect``
-    every K2 launch must be one (bf16 was asked for), else none."""
+    counts).  "varref_tiled" counts K4's launches on its grid route and
+    "varref_cluster" those on its cluster route.  "gn_bf16" counts K2's
+    bf16 launches: with it in ``expect`` every K2 launch must be one (bf16
+    was asked for), else none."""
     wrappers = kernel_modules()
     for m in wrappers.values():
         m.launches = 0
     wrappers["gn"].launches_bf16 = 0
+    wrappers["varref_tiled"].launches_cluster = 0
     out = fn()
     torch.cuda.synchronize()
     counts = {k: m.launches for k, m in wrappers.items()}
     counts["gn_bf16"] = wrappers["gn"].launches_bf16
+    counts["varref_cluster"] = wrappers["varref_tiled"].launches_cluster
+    counts["varref_tiled"] -= counts["varref_cluster"]
     log(f"{name} launches: {counts}")
     assert all(counts[k] > 0 for k in expect), (name, counts)
     assert not any(counts[k] for k in absent), (name, counts)
@@ -240,12 +346,16 @@ def check_shift(flow, shift, border, what):
 # iterations, 12,825 patches), warm
 GN_SHAPES = ((2, 56, 128, ("cold", "warm")), (2, 68, 120, ("cold", "warm")),
              (4, 224, 512, ("warm",)))
+# K2's forms: the patch sizes compiled with the per-value state in
+# registers (8 and 12) and two that take the generic form (6 and 10), each
+# at C = 1 and 3 with float32 and bf16 operands, on a 56x128 level
+GN_FORM_SIZES = (8, 12, 6, 10)
 
 
-def gn_inputs(dev, op, h, w, g, channels=3, n_frames=1):
-    """K2's arguments at one scale of operating point ``op`` for
-    ``n_frames`` frames (frame b from seed 1 + b): (cfg, grid,
-    {"cold"/"warm": positional args}, keyword args)."""
+def gn_inputs(dev, op, h, w, g, channels=3, n_frames=1, patch_size=None):
+    """K2's arguments at one scale of operating point ``op`` (with another
+    ``patch_size`` if given) for ``n_frames`` frames (frame b from seed
+    1 + b): (cfg, grid, {"cold"/"warm": positional args}, keyword args)."""
     from flowonthego_tpu_torch import operating_point
     from flowonthego_tpu_torch.ops import dis as dis_mod
     from flowonthego_tpu_torch.ops.patches import (
@@ -253,6 +363,8 @@ def gn_inputs(dev, op, h, w, g, channels=3, n_frames=1):
     from flowonthego_tpu_torch.ops.pyramid import build_pyramid
     from flowonthego_tpu_torch.utils.synth import synthetic_frames
     cfg = operating_point(op)
+    if patch_size is not None:
+        cfg = dataclasses.replace(cfg, patch_size=patch_size)
     pairs = [synthetic_frames(1 + b, 2, h, w, (1, 1), channels=channels,
                               factor=4) for b in range(n_frames)]
     lvl0, lvl1 = (build_pyramid(torch.as_tensor(
@@ -274,6 +386,21 @@ def gn_inputs(dev, op, h, w, g, channels=3, n_frames=1):
     return cfg, grid, args, kw
 
 
+def gn_bound_of(args, kw, bf16=False):
+    """K2's bound on these inputs: the iterations its patches really run
+    (counted by the plain version) and the patches that were started."""
+    from flowonthego_tpu_torch.ops.cuda import bounds, dis_gn
+    I1, templates = args[0], args[1]
+    B, n_h, n_w, ps, _, C = templates.shape
+    iters = dis_gn.gn_scale_loop_plain(*args, **kw, bf16=bf16,
+                                       count_iters=True)[2]
+    live = int(iters.sum())
+    b = bounds.gn_bound(B, n_h * n_w, ps, C, I1.shape[1], I1.shape[2],
+                        kw["n_iters"], patch_iters=live,
+                        n_started=int(args[8].sum()), bf16=bf16)
+    return b, live / (iters.numel() * kw["n_iters"])
+
+
 def varref_inputs(dev, cfg, h, w, g, seed=2, channels=3, n_frames=1):
     """The var-ref loop's planes for flows near (1, 0) on ``n_frames``
     seeded pairs (frame b from seed + b)."""
@@ -288,13 +415,75 @@ def varref_inputs(dev, cfg, h, w, g, seed=2, channels=3, n_frames=1):
     return varref_fused.warp_and_derivs(flow, im1, im2, cfg)
 
 
+def varref_forms(h, w):
+    """The three forms of the var-ref loop that can take an h x w field:
+    {name: fn(planes, cfg, inner_iter)}."""
+    from flowonthego_tpu_torch.ops.cuda import varref_fused, varref_tiled
+    forms = {"K3": lambda P, cfg, n: varref_fused.refine_inner(*P, cfg, n)}
+    if varref_tiled.cluster_plan(h, w).fits:
+        forms["K4 cluster"] = lambda P, cfg, n: \
+            varref_tiled.refine_inner_tiled(*P, cfg, n, route="cluster")
+    forms["K4 grid"] = lambda P, cfg, n: varref_tiled.refine_inner_tiled(
+        *P, cfg, n, route="grid")
+    return forms
+
+
+def crossover(sizes, a, b):
+    """The field size where form a stops being the faster of a and b, by
+    linear interpolation between the two sweep points around it (None if
+    a is never, or always, the faster)."""
+    for k in range(len(sizes) - 1):
+        d0, d1 = b[k] - a[k], b[k + 1] - a[k + 1]
+        if d0 >= 0 > d1:
+            return sizes[k] + (sizes[k + 1] - sizes[k]) * d0 / (d0 - d1)
+    return None
+
+
+def varref_sweep(dev, cfg, g, n_frames, reps):
+    """K3 and both routes of K4 on the sweep's fields: bit-identical where
+    more than one can take the field, each timed; the crossovers that the
+    resolver's two thresholds stand for."""
+    from flowonthego_tpu_torch.ops import variational
+    sizes, times = [], {"K3": [], "K4 cluster": [], "K4 grid": []}
+    for h, w, level in SWEEP:
+        P = varref_inputs(dev, cfg, h, w, g, seed=3, n_frames=n_frames)
+        forms = varref_forms(h, w)
+        outs = {name: fn(P, cfg, level + 1) for name, fn in forms.items()}
+        torch.cuda.synchronize()
+        for name, out in outs.items():
+            assert all(torch.equal(a, b) for a, b in zip(out, outs["K3"])), \
+                f"{name} differs from K3 at {h}x{w}"
+        ms = {name: device_ms(lambda: fn(P, cfg, level + 1), reps)
+              for name, fn in forms.items()}
+        sizes.append(h * w)
+        for name in times:
+            times[name].append(ms.get(name, float("inf")))
+        log(f"  {n_frames} x {h}x{w} ({h * w} px a field) level {level}: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+            + f"; bit-identical; resolver -> "
+            f"{variational.varref_backend_for(cfg, h, w, 'cuda')}")
+    c1 = crossover(sizes, times["K3"], times["K4 cluster"])
+    c2 = crossover(sizes, times["K4 cluster"], times["K4 grid"])
+    log(f"  crossovers at B={n_frames}: K3 | cluster at "
+        f"{'none' if c1 is None else round(c1)} px (FUSED_MAX_PIXELS "
+        f"{variational.FUSED_MAX_PIXELS}), cluster | grid at "
+        f"{'none' if c2 is None else round(c2)} px (CLUSTER_MAX_PIXELS "
+        f"{variational.CLUSTER_MAX_PIXELS})")
+
+
 def kernel_phase(dev):
     from flowonthego_tpu_torch import operating_point
-    from flowonthego_tpu_torch.ops.cuda import (dis_gn, pool, varref_fused,
-                                                varref_tiled, warp)
+    from flowonthego_tpu_torch.ops.cuda import (_build, bounds, dis_gn, pool,
+                                                varref_fused, varref_tiled,
+                                                warp)
 
     g = torch.Generator().manual_seed(0)
     results = {}
+
+    log(f"a kernel that does nothing: "
+        f"{device_ms(lambda: _build.empty_launch(dev), 200) * 1e3:.2f} us a "
+        "launch back to back (CUDA events): the floor under every kernel's "
+        "time below")
 
     # K1 at the 4K level-0 flat shape (f32; uint8 + bias) and a small one
     errs = []
@@ -311,16 +500,19 @@ def kernel_phase(dev):
         errs.append(max_err(got, ref))
         line = f"K1 pool {shape} {dtype} bias={bias}: max_abs_err {errs[-1]:.3g}"
         if timed:
-            ms = cuda_ms(lambda: pool.pool2x2_flat(x, C, bias), 50)
-            plain_ms = cuda_ms(lambda: pool.pool2x2_flat_plain(x, C, bias), 20)
-            results["pool"] = dict(ms=ms, plain_ms=plain_ms)
-            line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            lib = pool_library(x, C)
+            torch.testing.assert_close(lib(), got, **TOL_POOL)
+            results["pool"] = kernel_row(
+                device_ms(lambda: pool.pool2x2_flat(x, C, bias), 50),
+                cuda_ms(lambda: pool.pool2x2_flat_plain(x, C, bias), 20),
+                bounds.pool_bound(*shape), library_ms=device_ms(lib, 50))
+            line += ", " + timing_text(results["pool"]) + " (avg_pool2d)"
         log(line)
     results["pool"]["max_abs_err"] = max(errs)
 
-    # K2 at GN_SHAPES, at C = 3 and at C = 1 (the gray and gradmag modes;
-    # 64 threads = 2 warps per patch at ps 8); C = 1 draws from g1, so the
-    # C = 3 inputs stay as they were
+    # K2 at GN_SHAPES, at C = 3 and at C = 1 (the gray and gradmag modes);
+    # C = 1 draws from g1, so the C = 3 inputs stay as they were.  The
+    # bound counts the iterations these inputs' patches really run.
     g1 = torch.Generator().manual_seed(1)
     errs = []
     for C, gen in ((3, g), (1, g1)):
@@ -332,102 +524,152 @@ def kernel_phase(dev):
                 rp, rcost = dis_gn.gn_scale_loop_plain(*args, **kw)
                 torch.cuda.synchronize()
                 err, text = check_gn(op, (p, cost), (rp, rcost))
+                again = dis_gn.gn_scale_loop(*args, **kw)
+                assert (torch.equal(again[0], p)
+                        and torch.equal(again[1], cost)), \
+                    "K2 differs between two runs"
                 line = (f"K2 gn C={C} op {op} {h}x{w} ({grid.n_patches} "
                         f"patches, {cfg.grad_descent_iter} iterations, "
-                        f"{name}): {text}")
+                        f"{name}): {text}; two runs bit-identical")
                 if op == 2:
                     errs.append(err)
-                if (op, h, name) == (2, 68, "cold"):
-                    ms = cuda_ms(
-                        lambda: dis_gn.gn_scale_loop(*args, **kw), 50)
-                    plain_ms = cuda_ms(
-                        lambda: dis_gn.gn_scale_loop_plain(*args, **kw), 10)
-                    if C == 3:
-                        results["gn"] = dict(ms=ms, plain_ms=plain_ms)
-                    line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-                if op == 4:
-                    ms = cuda_ms(
-                        lambda: dis_gn.gn_scale_loop(*args, **kw), 10)
-                    plain_ms = cuda_ms(
-                        lambda: dis_gn.gn_scale_loop_plain(*args, **kw), 1, 1)
-                    line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                if (op, h, name) == (2, 68, "cold") or op == 4:
+                    b, live = gn_bound_of(args, kw)
+                    row = kernel_row(
+                        device_ms(lambda: dis_gn.gn_scale_loop(*args, **kw),
+                                  50 if op == 2 else 10),
+                        cuda_ms(lambda: dis_gn.gn_scale_loop_plain(
+                            *args, **kw), *((10,) if op == 2 else (1, 1))),
+                        b)
+                    if (op, C) == (2, 3):
+                        results["gn"] = row
+                    line += (f", {timing_text(row)}; {100 * live:.3g}% of "
+                             "the patch-iterations live")
                 log(line)
     results["gn"]["max_abs_err"] = max(errs)
+
+    # K2's compiled and generic forms, float32 and bf16 operands
+    for ps in GN_FORM_SIZES:
+        for C, gen in ((3, g), (1, g1)):
+            cfg, grid, gn_args, kw = gn_inputs(dev, 2, 56, 128, gen, C,
+                                               patch_size=ps)
+            for bf16 in (False, True):
+                kb = dict(kw, bf16=bf16)
+                got = dis_gn.gn_scale_loop(*gn_args["warm"], **kb)
+                ref = dis_gn.gn_scale_loop_plain(*gn_args["warm"], **kb)
+                torch.cuda.synchronize()
+                _, text = check_gn(2, got, ref)
+                log(f"K2 gn form ps {ps} C={C} "
+                    f"{'bf16' if bf16 else 'float32'} ({grid.n_patches} "
+                    f"patches, warm): {text}")
 
     def varref_planes(cfg, h, w, seed=2, C=3):
         return varref_inputs(dev, cfg, h, w, g if C == 3 else g1, seed, C)
 
-    # K3 on the fields it gets on the main paths: the coarsest of 1024x448
-    # (14x32, level 5; ops 2-4) and of the 4K stream (17x30, level 7); at
+    def check_varref(what, run, P, cfg, level):
+        uu, vv = run(*P, cfg, level + 1)
+        ru, rv = varref_fused.refine_inner_plain(*P, cfg, level + 1)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(uu, ru, **TOL_VARREF)
+        torch.testing.assert_close(vv, rv, **TOL_VARREF)
+        err = max(max_err(uu, ru), max_err(vv, rv))
+        return err, f"{what}: max_abs_err {err:.3g}"
+
+    def time_varref(run, P, cfg, level, bound, plain_reps):
+        return kernel_row(
+            device_ms(lambda: run(*P, cfg, level + 1), 20),
+            cuda_ms(lambda: varref_fused.refine_inner_plain(
+                *P, cfg, level + 1), plain_reps), bound)
+
+    # K3 on the field it gets on the main paths, the coarsest of 1024x448
+    # (14x32, level 5; ops 2-4), and on the coarsest of the 4K stream
+    # (17x30, level 7; the resolver's threshold lies between the two); at
     # C = 3 and C = 1
     cfg = operating_point(2)
     errs = []
     for C in (3, 1):
         for h, w, level in ((14, 32, 5), (17, 30, 7)):
             P = varref_planes(cfg, h, w, C=C)
-            uu, vv = varref_fused.refine_inner(*P, cfg, level + 1)
-            ru, rv = varref_fused.refine_inner_plain(*P, cfg, level + 1)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(uu, ru, **TOL_VARREF)
-            torch.testing.assert_close(vv, rv, **TOL_VARREF)
-            errs.append(max(max_err(uu, ru), max_err(vv, rv)))
-            line = (f"K3 varref C={C} {h}x{w} level {level}: max_abs_err "
-                    f"{errs[-1]:.3g}")
+            err, line = check_varref(f"K3 varref C={C} {h}x{w} level {level}",
+                                     varref_fused.refine_inner, P, cfg, level)
+            errs.append(err)
             if level == 5:
-                ms = cuda_ms(lambda: varref_fused.refine_inner(
-                    *P, cfg, level + 1), 20)
-                plain_ms = cuda_ms(lambda: varref_fused.refine_inner_plain(
-                    *P, cfg, level + 1), 5)
+                row = time_varref(
+                    varref_fused.refine_inner, P, cfg, level,
+                    bounds.varref_fused_bound(1, h, w, C, level + 1,
+                                              cfg.var_ref_iter), 5)
                 if C == 3:
-                    results["varref"] = dict(ms=ms, plain_ms=plain_ms)
-                line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                    results["varref"] = row
+                line += ", " + timing_text(row)
             log(line)
     results["varref"]["max_abs_err"] = max(errs)
 
-    # K4 at op-3/op-4 scale 1 and op-4 scale 0 of 1024x448 against the
-    # plain loop, and against K3 (the same loop) on the op-2 4K level-5
-    # field and the op-3 scale-2 field
+    # K4's grid route at op-3/op-4 scale 1 and op-4 scale 0 of 1024x448,
+    # and its cluster route at scale 4 (28x64; timed) and scale 3 (56x128)
+    # of 1024x448 and scale 6 of the 4K stream (34x60), against the plain
+    # loop; each timed field on the other route too
     cfg = operating_point(3)
-    errs = []
-    for C in (3, 1):
-        for h, w, level in ((224, 512, 1), (448, 1024, 0)):
-            P = varref_planes(cfg, h, w, C=C)
-            uu, vv = varref_tiled.refine_inner_tiled(*P, cfg, level + 1)
-            ru, rv = varref_tiled.refine_inner_plain(*P, cfg, level + 1)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(uu, ru, **TOL_VARREF)
-            torch.testing.assert_close(vv, rv, **TOL_VARREF)
-            errs.append(max(max_err(uu, ru), max_err(vv, rv)))
-            line = (f"K4 varref C={C} {h}x{w} level {level}: max_abs_err "
-                    f"{errs[-1]:.3g}")
-            if level == 0:
-                ms = cuda_ms(lambda: varref_tiled.refine_inner_tiled(
-                    *P, cfg, level + 1), 20)
-                plain_ms = cuda_ms(lambda: varref_tiled.refine_inner_plain(
-                    *P, cfg, level + 1), 3)
-                if C == 3:
-                    results["varref_tiled"] = dict(ms=ms, plain_ms=plain_ms)
-                line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-            log(line)
-    results["varref_tiled"]["max_abs_err"] = max(errs)
+
+    def tiled(route):
+        return lambda *a: varref_tiled.refine_inner_tiled(*a, route=route)
+
+    for key, route, fields, timed in (
+            ("varref_tiled", "grid", ((224, 512, 1), (448, 1024, 0)),
+             {(448, 1024): 3}),
+            ("varref_cluster", "cluster",
+             ((28, 64, 4), (34, 60, 6), (56, 128, 3)),
+             {(28, 64): 3, (56, 128): 3})):
+        other = "cluster" if route == "grid" else "grid"
+        errs = []
+        for C in (3, 1):
+            for h, w, level in fields:
+                P = varref_planes(cfg, h, w, C=C)
+                err, line = check_varref(
+                    f"K4 varref {route} route C={C} {h}x{w} level {level}",
+                    tiled(route), P, cfg, level)
+                errs.append(err)
+                if (h, w) in timed:
+                    row = time_varref(
+                        tiled(route), P, cfg, level,
+                        bounds.varref_tiled_bound(1, h, w, C, level + 1,
+                                                  cfg.var_ref_iter),
+                        timed[(h, w)])
+                    if C == 3 and key not in results:
+                        results[key] = row
+                    line += ", " + timing_text(row)
+                    if varref_tiled.cluster_plan(h, w).fits:
+                        ms = device_ms(lambda: tiled(other)(
+                            *P, cfg, level + 1), 20)
+                        line += f"; {other} route {ms:.4f} ms"
+                log(line)
+        results[key]["max_abs_err"] = max(errs)
+    # the three forms of one loop, bit for bit, on two more fields
     for h, w, level in ((68, 120, 5), (112, 256, 2)):
         P = varref_planes(cfg, h, w)
-        u4, v4 = varref_tiled.refine_inner_tiled(*P, cfg, level + 1)
-        u3, v3 = varref_fused.refine_inner(*P, cfg, level + 1)
+        outs = {name: fn(P, cfg, level + 1)
+                for name, fn in varref_forms(h, w).items()}
         torch.cuda.synchronize()
-        torch.testing.assert_close(u4, u3, **TOL_VARREF)
-        torch.testing.assert_close(v4, v3, **TOL_VARREF)
-        log(f"K4 vs K3 {h}x{w} level {level}: max_abs_err "
-            f"{max(max_err(u4, u3), max_err(v4, v3)):.3g}")
+        assert len(outs) == 3
+        for name, out in outs.items():
+            assert all(torch.equal(a, b) for a, b in zip(out, outs["K3"])), \
+                f"{name} differs from K3 at {h}x{w}"
+        log(f"K3, K4 cluster, K4 grid {h}x{w} level {level}: bit-identical")
+    # a field whose rows do not fit a cluster's shared memory: the launch
+    # is refused and the wrapper raises (it is never sent to the grid)
+    P = varref_planes(cfg, 224, 512)
+    n0 = varref_tiled.launches
+    try:
+        varref_tiled.refine_inner_tiled(*P, cfg, 2, route="cluster")
+    except RuntimeError as e:
+        log(f"K4 cluster route on 224x512 (does not fit): raises ({e})")
+    else:
+        raise AssertionError("a cluster launch that cannot fit did not raise")
+    assert varref_tiled.launches == n0, "a refused launch was counted"
+    torch.cuda.synchronize()
 
-    log("K3 vs K4 on the op-3 path's field sizes (the resolver's threshold):")
-    for h, w, level in SWEEP:
-        P = varref_planes(cfg, h, w, seed=3)
-        k3 = cuda_ms(lambda: varref_fused.refine_inner(*P, cfg, level + 1), 20)
-        k4 = cuda_ms(lambda: varref_tiled.refine_inner_tiled(
-            *P, cfg, level + 1), 20)
-        log(f"  {h}x{w} ({h * w} px) level {level}: K3 {k3:.4f} ms, "
-            f"K4 {k4:.4f} ms")
+    log("K3, K4 cluster, K4 grid on the paths' field sizes (the resolver's "
+        "two thresholds):")
+    varref_sweep(dev, cfg, g, 1, 20)
 
     # K5 at op-4 scale 0 of 1024x448 (timed) and a ragged field; flows of
     # +-(outlier_thresh + 2) px, so border clamps fire
@@ -444,13 +686,23 @@ def kernel_phase(dev):
                 "K5 not exact"
             line = f"K5 warp {h}x{w}x{C} |flow| <= {bound:g}: bit-exact"
             if timed:
-                ms = cuda_ms(lambda: warp.warp_image(src, wx, wy), 50)
-                plain_ms = cuda_ms(
-                    lambda: warp.warp_image_plain(src, wx, wy), 20)
+                # the yardstick on flows that stay inside the image, where
+                # it is the same function (its coordinates are normalised,
+                # so it agrees to a fraction of a grey level, not bit for bit)
+                ix, iy = inside_flow(h, w, 1, bound, gen, dev)
+                lib = warp_library(src, ix, iy)
+                lib_err = max_err(lib(), warp.warp_image(src, ix, iy)[0])
+                assert lib_err <= 0.25, lib_err
+                row = kernel_row(
+                    device_ms(lambda: warp.warp_image(src, wx, wy), 50),
+                    cuda_ms(lambda: warp.warp_image_plain(src, wx, wy), 20),
+                    bounds.warp_bound(1, h, w, C), 0.0,
+                    library_ms=device_ms(lib, 50))
                 if C == 3:
-                    results["warp"] = dict(ms=ms, plain_ms=plain_ms,
-                                           max_abs_err=0.0)
-                line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                    results["warp"] = row
+                line += (f", {timing_text(row)} (grid_sample, the same "
+                         f"function only inside the image: max |diff| "
+                         f"{lib_err:.3g} there)")
             log(line)
     return results
 
@@ -474,8 +726,8 @@ def frames_equal(batch_out, single_fn, inputs, what):
         one = single_fn(*(x[b:b + 1] for x in inputs))
         for x, y in zip(batch_out, one):
             assert torch.equal(x[b], y[0]), f"{what}: frame {b} differs"
-    return cuda_ms(lambda: [single_fn(*(x[b:b + 1] for x in inputs))
-                            for b in range(B)], 10)
+    return device_ms(lambda: [single_fn(*(x[b:b + 1] for x in inputs))
+                              for b in range(B)], 10)
 
 
 def batch_kernel_phase(dev):
@@ -483,8 +735,9 @@ def batch_kernel_phase(dev):
     against one launch per frame, and K2's bf16 kernel against its plain
     version and against the float32 kernel; returns the rows' numbers."""
     from flowonthego_tpu_torch import operating_point
-    from flowonthego_tpu_torch.ops.cuda import (dis_gn, pool, varref_fused,
-                                                varref_tiled, warp)
+    from flowonthego_tpu_torch.ops.cuda import (bounds, dis_gn, pool,
+                                                varref_fused, varref_tiled,
+                                                warp)
     g = torch.Generator().manual_seed(10)
     results = {}
 
@@ -499,14 +752,17 @@ def batch_kernel_phase(dev):
     single = frames_equal((got.reshape(B, H0 // 2, W0 * 3 // 2),),
                           lambda f: (pool.pool2x2_flat(f[0], 3)[None],),
                           (frames,), "K1 batch")
-    ms = cuda_ms(lambda: pool.pool2x2_flat(x, 3), 50)
-    plain_ms = cuda_ms(lambda: pool.pool2x2_flat_plain(x, 3), 20)
-    results["pool_b4"] = dict(ms=ms, plain_ms=plain_ms,
-                              max_abs_err=max_err(got, ref))
+    lib = pool_library(x, 3)
+    torch.testing.assert_close(lib(), got, **TOL_POOL)
+    results["pool_b4"] = kernel_row(
+        device_ms(lambda: pool.pool2x2_flat(x, 3), 50),
+        cuda_ms(lambda: pool.pool2x2_flat_plain(x, 3), 20),
+        bounds.pool_bound(*x.shape), max_err(got, ref),
+        library_ms=device_ms(lib, 50))
     log(f"K1 pool B={B} {tuple(x.shape)}: max_abs_err "
         f"{results['pool_b4']['max_abs_err']:.3g}, frames bit-identical to "
-        f"single launches; kernel {ms:.4f} ms, {B} single launches "
-        f"{single:.4f} ms, plain {plain_ms:.4f} ms")
+        f"single launches; {timing_text(results['pool_b4'])} (avg_pool2d), "
+        f"{B} single launches {single:.4f} ms")
 
     # K2 on the batch
     errs = []
@@ -527,15 +783,17 @@ def batch_kernel_phase(dev):
             if op == 2:
                 errs.append(err)
             if name == ("cold" if op == 2 else "warm"):
-                reps = 20 if op == 2 else 3
-                ms = cuda_ms(lambda: dis_gn.gn_scale_loop(*args, **kw), reps)
-                plain_ms = cuda_ms(
-                    lambda: dis_gn.gn_scale_loop_plain(*args, **kw),
-                    5 if op == 2 else 1, 1)
+                b, live = gn_bound_of(args, kw)
+                row = kernel_row(
+                    device_ms(lambda: dis_gn.gn_scale_loop(*args, **kw),
+                              20 if op == 2 else 3),
+                    cuda_ms(lambda: dis_gn.gn_scale_loop_plain(*args, **kw),
+                            5 if op == 2 else 1, 1), b)
                 if op == 2:
-                    results["gn_b4"] = dict(ms=ms, plain_ms=plain_ms)
-                line += (f"; kernel {ms:.4f} ms, {B} single launches "
-                         f"{single:.4f} ms, plain {plain_ms:.4f} ms")
+                    results["gn_b4"] = row
+                line += (f"; {timing_text(row)}, {B} single launches "
+                         f"{single:.4f} ms; {100 * live:.3g}% of the "
+                         "patch-iterations live")
             log(line)
     results["gn_b4"]["max_abs_err"] = max(errs)
 
@@ -561,42 +819,51 @@ def batch_kernel_phase(dev):
                 errs.append(err)
             if name == ("cold" if op == 2 else "warm"):
                 reps = 50 if op == 2 else 10
-                ms = cuda_ms(lambda: dis_gn.gn_scale_loop(*args, **kb), reps)
-                ms32 = cuda_ms(lambda: dis_gn.gn_scale_loop(*args, **kw), reps)
-                plain_ms = cuda_ms(
-                    lambda: dis_gn.gn_scale_loop_plain(*args, **kb),
-                    10 if op == 2 else 1, 1)
+                b, live = gn_bound_of(args, kw, bf16=True)
+                row = kernel_row(
+                    device_ms(lambda: dis_gn.gn_scale_loop(*args, **kb), reps),
+                    cuda_ms(lambda: dis_gn.gn_scale_loop_plain(*args, **kb),
+                            10 if op == 2 else 1, 1), b)
+                ms32 = device_ms(lambda: dis_gn.gn_scale_loop(*args, **kw),
+                                 reps)
                 if op == 2:
-                    results["gn_bf16"] = dict(ms=ms, plain_ms=plain_ms)
-                line += (f"; bf16 kernel {ms:.4f} ms, float32 kernel "
-                         f"{ms32:.4f} ms, plain bf16 {plain_ms:.4f} ms")
+                    results["gn_bf16"] = row
+                line += (f"; bf16 (its wrapper's rounding launches included)"
+                         f" {timing_text(row)}; float32 kernel {ms32:.4f} ms")
             log(line)
     results["gn_bf16"]["max_abs_err"] = max(errs)
 
-    # K3 (one CTA per field) and K4 (one launch over the batch) on the
-    # batch's coarsest field and op 4's level 0 at 1024x448
-    for key, mod, run, cfg, h, w, level in (
-            ("varref_b4", varref_fused, varref_fused.refine_inner,
-             operating_point(2), 14, 32, 5),
-            ("varref_tiled_b4", varref_tiled, varref_tiled.refine_inner_tiled,
-             operating_point(4), H0, W0, 0)):
+    # K3 (one CTA per field), K4's cluster route (one cluster per field)
+    # and its grid route (one launch over the batch) on the batch's
+    # coarsest field, its scale-4 field and op 4's level 0 at 1024x448
+    def tiled(route):
+        return lambda *a: varref_tiled.refine_inner_tiled(*a, route=route)
+
+    for key, what, run, bound_fn, cfg, h, w, level in (
+            ("varref_b4", "K3", varref_fused.refine_inner,
+             bounds.varref_fused_bound, operating_point(2), 14, 32, 5),
+            ("varref_cluster_b4", "K4 cluster route", tiled("cluster"),
+             bounds.varref_tiled_bound, operating_point(2), 28, 64, 4),
+            ("varref_tiled_b4", "K4 grid route", tiled("grid"),
+             bounds.varref_tiled_bound, operating_point(4), H0, W0, 0)):
         P = varref_inputs(dev, cfg, h, w, g, n_frames=B)
         uu, vv = run(*P, cfg, level + 1)
         ru, rv = varref_fused.refine_inner_plain(*P, cfg, level + 1)
         torch.cuda.synchronize()
         torch.testing.assert_close(uu, ru, **TOL_VARREF)
         torch.testing.assert_close(vv, rv, **TOL_VARREF)
-        err = max(max_err(uu, ru), max_err(vv, rv))
         single = frames_equal((uu, vv), lambda *a: run(*a, cfg, level + 1),
                               P, f"{key} batch")
-        ms = cuda_ms(lambda: run(*P, cfg, level + 1), 20)
-        plain_ms = cuda_ms(lambda: varref_fused.refine_inner_plain(
-            *P, cfg, level + 1), 2, 1)
-        results[key] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
-        log(f"{'K3' if mod is varref_fused else 'K4'} varref B={B} {h}x{w} "
-            f"level {level}: max_abs_err {err:.3g}, frames bit-identical to "
-            f"single launches; kernel {ms:.4f} ms, {B} single launches "
-            f"{single:.4f} ms, plain {plain_ms:.4f} ms")
+        results[key] = kernel_row(
+            device_ms(lambda: run(*P, cfg, level + 1), 20),
+            cuda_ms(lambda: varref_fused.refine_inner_plain(
+                *P, cfg, level + 1), 2, 1),
+            bound_fn(B, h, w, 3, level + 1, cfg.var_ref_iter),
+            max(max_err(uu, ru), max_err(vv, rv)))
+        log(f"{what} varref B={B} {h}x{w} level {level}: max_abs_err "
+            f"{results[key]['max_abs_err']:.3g}, frames bit-identical to "
+            f"single launches; {timing_text(results[key])}, {B} single "
+            f"launches {single:.4f} ms")
 
     # K5 at level 0 of the batch, flows of +-(outlier_thresh + 2) px
     bound = operating_point(3).outlier_thresh + 2.0
@@ -608,22 +875,20 @@ def batch_kernel_phase(dev):
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, ref)), "K5 not exact"
     single = frames_equal(got, warp.warp_image, (src, wx, wy), "K5 batch")
-    ms = cuda_ms(lambda: warp.warp_image(src, wx, wy), 50)
-    plain_ms = cuda_ms(lambda: warp.warp_image_plain(src, wx, wy), 20)
-    results["warp_b4"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0)
+    ix, iy = inside_flow(H0, W0, B, bound, g, dev)
+    lib = warp_library(src, ix, iy)
+    lib_err = max_err(lib(), warp.warp_image(src, ix, iy)[0])
+    assert lib_err <= 0.25, lib_err
+    results["warp_b4"] = kernel_row(
+        device_ms(lambda: warp.warp_image(src, wx, wy), 50),
+        cuda_ms(lambda: warp.warp_image_plain(src, wx, wy), 20),
+        bounds.warp_bound(B, H0, W0, 3), 0.0, library_ms=device_ms(lib, 50))
     log(f"K5 warp B={B} {H0}x{W0}x3: bit-exact, frames bit-identical to "
-        f"single launches; kernel {ms:.4f} ms, {B} single launches "
-        f"{single:.4f} ms, plain {plain_ms:.4f} ms")
+        f"single launches; {timing_text(results['warp_b4'])} (grid_sample, "
+        f"inside the image), {B} single launches {single:.4f} ms")
 
-    cfg = operating_point(3)
-    log(f"K3 vs K4 at B={B} on the op-3 path's field sizes:")
-    for h, w, level in SWEEP:
-        P = varref_inputs(dev, cfg, h, w, g, seed=3, n_frames=B)
-        k3 = cuda_ms(lambda: varref_fused.refine_inner(*P, cfg, level + 1), 10)
-        k4 = cuda_ms(lambda: varref_tiled.refine_inner_tiled(
-            *P, cfg, level + 1), 10)
-        log(f"  {B} x {h}x{w} ({h * w} px a field) level {level}: K3 "
-            f"{k3:.4f} ms, K4 {k4:.4f} ms")
+    log(f"K3, K4 cluster, K4 grid at B={B} on the paths' field sizes:")
+    varref_sweep(dev, operating_point(3), g, B, 10)
     return results
 
 
@@ -684,29 +949,38 @@ def slice_phase(dev):
         f"of op 2 at 4K: ({cfg_4k.coarsest_scale}, {cfg_4k.finest_scale})")
 
     # ---- the main paths through the kernels, counters from zero each ----
+    # numpy frames and no device: the entry points run on the card
+    host_pair = synthetic_pair(seed, 436, 1024, shift)
+    for what, out in (
+            ("compute_flow", port.compute_flow(*host_pair, cfg[2])),
+            ("stream_flow", next(iter(port.stream_flow(
+                [f.cpu().numpy() for f in frames_op3[:2]], cfg[3],
+                fetch=False))))):
+        assert out.device.type == "cuda", (what, out.device)
+        log(f"{what} on numpy frames with no device: ran on {out.device}")
+    assert torch.equal(port.compute_flow(*host_pair, cfg[2]),
+                       port.compute_flow(i0, i1, cfg[2]))
+
     (pair2, ms2), n_pair2 = counted(
         "op 2 compute_flow 1024x436 x21",
-        lambda: timed_pair(cfg[2], 20, (i0, i1)),
-        ("pool", "gn", "varref", "warp"))
+        lambda: timed_pair(cfg[2], 20, (i0, i1)), ALL)
+    # (the 4K stream's coarsest field, 17x30, is above K3's threshold)
     (flows_4k, ms_4k), n_4k = counted(
         "op 2 stream_flow 4K, twice", lambda: timed_stream(frames_4k, cfg_4k),
-        ("pool", "gn", "varref_tiled", "warp"))
+        tuple(k for k in ALL if k != "varref"), ("varref",))
     (pair4, ms4), n_pair4 = counted(
         "op 4 compute_flow 1024x436 x6",
-        lambda: timed_pair(cfg[4], 5, (i0, i1)),
-        ("pool", "gn", "varref", "varref_tiled", "warp"))
+        lambda: timed_pair(cfg[4], 5, (i0, i1)), ALL)
     (pair4s, ms4s), n_pair4s = counted(
         f"op 4 compute_flow 1024x436 shift {SMALL_SHIFT} x6",
-        lambda: timed_pair(cfg[4], 5, small),
-        ("pool", "gn", "varref", "varref_tiled", "warp"))
+        lambda: timed_pair(cfg[4], 5, small), ALL)
     (flows_op3, ms_op3), n_op3 = counted(
         "op 3 stream_flow 1024x448, twice",
-        lambda: timed_stream(frames_op3, cfg[3]),
-        ("pool", "gn", "varref_tiled", "warp"))
+        lambda: timed_stream(frames_op3, cfg[3]), ALL)
     (pair1, ms1), n_pair1 = counted(
         "op 1 compute_flow 1024x436 x11",
         lambda: timed_pair(cfg[1], 10, (i0, i1)),
-        ("pool", "gn"), ("varref", "varref_tiled", "warp"))
+        ("pool", "gn"), ALL[2:])
     launches = {k: sum(n[k] for n in (n_pair2, n_4k, n_pair4, n_pair4s,
                                       n_op3, n_pair1))
                 for k in n_pair1}
@@ -791,7 +1065,7 @@ def batch_phase(dev):
     from flowonthego_tpu_torch.utils.synth import (synthetic_frames,
                                                    synthetic_pair)
     h, w = BATCH_HW
-    launches = dict.fromkeys(kernel_modules(), 0)
+    launches = dict.fromkeys(ALL, 0)
 
     def add(counts):
         for k in launches:
@@ -961,7 +1235,7 @@ def cli_phase(dev):
 
     g = np.load(GOLDEN[2])
     seed, shift = int(g["seed"]), tuple(int(s) for s in g["shift"])
-    launches = dict.fromkeys(kernel_modules(), 0)
+    launches = dict.fromkeys(ALL, 0)
     with tempfile.TemporaryDirectory() as d:
         pairs = {}
         for tag, motion in (("flow", shift), ("depth", DEPTH_SHIFT)):
@@ -1091,13 +1365,15 @@ def main() -> int:
         "gn": ("gn_scale_loop", "dis_gn.cu", "dis_gn.py:310"),
         "varref": ("variational_refine_fused", "varref_fused.cu",
                    "varref_fused.py:250"),
-        "varref_tiled": ("variational_refine_tiled", "varref_tiled.cu",
-                         "varref_fused.py:327"),
+        "varref_cluster": ("variational_refine_tiled (cluster route)",
+                           "varref_tiled.cu", "varref_fused.py:327"),
+        "varref_tiled": ("variational_refine_tiled (grid route)",
+                         "varref_tiled.cu", "varref_fused.py:327"),
         "warp": ("warp_image_banded", "warp.cu", "warp.py:121"),
     }
     # the batched rows (a batch of B frames, one launch per scale) and
     # K2's bf16 operand kernel
-    for key in ("pool", "gn", "varref", "varref_tiled", "warp"):
+    for key in ALL:
         name, source, replaces = meta[key]
         meta[key + "_b4"] = (f"{name} (batch of {B})", source, replaces)
     meta["gn_bf16"] = ("gn_scale_loop (bf16 operands)", "dis_gn.cu",
@@ -1105,11 +1381,14 @@ def main() -> int:
     rows = []
     for key, (name, source, replaces) in meta.items():
         r = kernels[key]
+        assert launches[key] > 0, f"{name} was not launched on its paths"
         rows.append({"name": name, "route": "cuda", "source": src + source,
                      "replaces": pallas + replaces,
                      "launches": launches[key],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"]})
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

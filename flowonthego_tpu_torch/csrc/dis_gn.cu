@@ -2,24 +2,57 @@
 // Replaces the Pallas kernel flowonthego_tpu/ops/pallas/dis_gn.py
 // (gn_scale_loop / _kernel).
 //
-// One CTA per patch, one thread per template value (ps*ps*C = 192 at op 2;
-// the block is rounded up to whole warps).  Each thread keeps its template
-// value T and gradients gx, gy in registers.  Per iteration it reads its
-// four bilinear taps straight from the padded level image in device
-// memory (a (ps+1)^2*C window, L1/L2-resident), blends them, and the block
-// reduces sum S, sum gx*S, sum gy*S with warp shuffles and one shared-
-// memory pass.  Every thread then computes the same 2x2 Gauss-Newton step
-// and the same outlier/bounds test from the same totals, so the patch's
-// state stays uniform across the block without a broadcast.
+// Bound: operations, far below the card's rate.  Op 4's scale 1 (12,825
+// patches of 12x12x3 values, 128 iterations) needs ~8.7 GFLOP and ~91 MB,
+// 0.13 ms at the card's float32 peak; an op-2 scale (32-510 patches, 12
+// iterations) needs microseconds and is a chain of dependent iterations.
+// What a kernel pays for beyond that is the SMs' dispatch rate, barriers
+// and the L1 wavefronts of its tap loads, so the design spends as little
+// of each per patch-iteration as it can.
 //
-// Bound: latency.  An op-2 scale has 32-510 patches and 12 dependent
-// iterations of a few hundred loads and one block reduction each; the
-// TPU's envelopes, band pairs and radix shift selects existed because the
-// TPU has no gather, and are not carried over.
+// Design: one warp per patch.
+//   * Lane l owns values l, l + 32, l + 64, ... of the patch's ps*ps*C
+//     values (flat, row-major).  Their template value T, gradients gx, gy
+//     and window offset stay in registers for the whole solve: the kernel
+//     is instantiated for (ps, C) in {8, 12} x {1, 3}, where the count per
+//     lane (2, 6, 5, 14) is a compile-time constant; the last is ragged
+//     (432 = 13*32 + 16), and a lane without a value holds zeros.
+//   * The stride-32 ownership makes each tap load of a warp 32 neighbouring
+//     addresses of one window row (two rows where a patch row ends inside
+//     it): 2-3 L1 wavefronts a load.  A contiguous run per lane would let
+//     a lane reuse taps along its run, but its loads would touch ~20 lines
+//     each (one per patch row), and the L1 wavefronts, not the count of
+//     operations, would then bound the kernel (~56 loads x 20 lines x
+//     1.6M patch-iterations is ~8 ms of L1 time over 132 SMs), so taps are
+//     loaded four a value and not reused.
+//   * The window origin (wrap once, clamp), the fractional offsets and the
+//     four bilinear weights are uniform over the patch and are computed
+//     once per warp-iteration.
+//   * The three sums of an iteration (S, gx.S, gy.S) are a per-lane
+//     partial in value order, then one xor butterfly of shuffles each,
+//     after which every lane holds the same bits.  So the 2x2 step, the
+//     outlier test and the early break are uniform per warp with no
+//     broadcast, no shared memory and no __syncthreads() in the loop; a
+//     patch that resets and stops frees its own warp only.
+//   * One patch a CTA, so a CTA is one warp: an op-2 scale's 32-510
+//     patches spread over all SMs, and on op 4's grids up to 32 patches
+//     are resident an SM, as many as the registers allow at ps 12, C = 3
+//     (the launch bounds cap them at 128 a thread: 16 warps).  Two, four
+//     or eight patches a CTA, and fewer registers for more resident
+//     warps, were tried on an H100 and made nothing faster, so the
+//     simplest form stays.  A patch's arithmetic does not depend on where
+//     in the launch it runs, so a frame of a batch equals its own launch
+//     bit for bit.
+//   * Any other (ps, C) with up to 1024 values takes the generic form of
+//     the same kernel body: run-time loops, the per-value state in shared
+//     memory (a [4][values] slab, index k*32 + lane, free of bank
+//     conflicts) instead of registers.
+// Staging the window in shared memory (cp.async, reload when floor(mid)
+// moves) was not tried: the window's taps already hit L1, and staging
+// would add operations to a kernel that is bound by their dispatch.
 //
-// Batch: B frames are one launch of B*P CTAs; CTA blk solves patch blk % P
-// of frame blk / P and reads that frame's padded level image.  Every
-// per-patch array is indexed by blk, so nothing else changes.
+// Batch: B frames are one launch over B*P patches; patch k solves patch
+// k % P of frame k / P and reads that frame's padded level image.
 //
 // bf16 operands (the Pallas kernel's form, dis_gn.py:90-94): with
 // Load = __nv_bfloat16 the level image, template and gradients are read as
@@ -44,34 +77,30 @@
 
 namespace {
 
-constexpr int kMaxWarps = 32;
+constexpr int kMaxSharedBytes = 48 * 1024;
 
+struct GnArgs {
+  const void* I1;
+  const void* tmpl;
+  const void* tgx;
+  const void* tgy;
+  const float* sums;
+  const float* H;
+  const float* mid;
+  const float* pcur;
+  const float* porg;
+  const uint8_t* started;
+  float* p_out;
+  float* cost_out;
+  int n_patches, P, Hp, Wp, C, ps, padding, n_iters;
+  float thresh, l_bound, ub_w, ub_h, mean_on;
+};
+
+// Every lane receives the same bits: partners add the same two values.
 __device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// Block-wide sums of NV values; every thread receives the same totals
-// (lane 0's warp partials, summed in warp order by every thread).
-template <int NV>
-__device__ __forceinline__ void block_sum(float (&v)[NV],
-                                          float (*smem)[kMaxWarps]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-#pragma unroll
-  for (int k = 0; k < NV; ++k) v[k] = warp_sum(v[k]);
-  __syncthreads();  // the previous call's readers are done with smem
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < NV; ++k) smem[k][warp] = v[k];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    float s = 0.0f;
-    for (int q = 0; q < n_warps; ++q) s += smem[k][q];
-    v[k] = s;
-  }
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -79,105 +108,154 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// One CTA per patch of the batch; Load is float or __nv_bfloat16.
-template <typename Load>
-__global__ void dis_gn_kernel(
-    const Load* __restrict__ I1, int Hp, int Wp, int C,
-    const Load* __restrict__ tmpl, const Load* __restrict__ tgx,
-    const Load* __restrict__ tgy, const float* __restrict__ sums_in,
-    const float* __restrict__ H, const float* __restrict__ mid,
-    const float* __restrict__ pcur, const float* __restrict__ porg,
-    const uint8_t* __restrict__ started, int P, int ps, int padding,
-    int n_iters, float thresh, float l_bound, float ub_w, float ub_h,
-    float mean_on, float* __restrict__ p_out, float* __restrict__ cost_out) {
-  __shared__ float red[4][kMaxWarps];
-  const int p = blockIdx.x;  // patch of the batch: frame p / P
-  const int t = threadIdx.x;
+// One warp, one patch: CTA p solves patch p of the batch.  PS > 0: ps = PS
+// and C = CH at compile time, the per-value state in registers; PS == 0:
+// the generic form, ps and C from the arguments, the state in dynamic
+// shared memory.
+template <typename Load, int PS, int CH>
+__global__ void __launch_bounds__(32, 16) dis_gn_kernel(const GnArgs a) {
+  constexpr bool kFixed = PS > 0;
+  constexpr int kV = kFixed ? (PS * PS * CH + 31) / 32 : 1;
+  extern __shared__ float slab[];
+  const int lane = threadIdx.x;
+  const int p = blockIdx.x;  // patch of the batch
+
+  const int ps = kFixed ? PS : a.ps;
+  const int C = kFixed ? CH : a.C;
   const int psC = ps * C;
   const int N = ps * psC;
-  const bool live = t < N;
+  const int nv = kFixed ? kV : (N + 31) / 32;  // values per lane
   const int64_t base = (int64_t)p * N;
-  I1 += (int64_t)(p / P) * Hp * Wp * C;
+  const int rs = a.Wp * C;  // image row stride in values
+  const Load* I1 = (const Load*)a.I1 + (int64_t)(p / a.P) * a.Hp * rs;
+  const Load* tmpl = (const Load*)a.tmpl + base;
+  const Load* tgx = (const Load*)a.tgx + base;
+  const Load* tgy = (const Load*)a.tgy + base;
+  float* cost_out = a.cost_out + base;
 
-  if (!started[p]) {  // uniform across the block
-    if (t == 0) {
-      p_out[2 * p] = pcur[2 * p];
-      p_out[2 * p + 1] = pcur[2 * p + 1];
+  if (!a.started[p]) {  // uniform across the warp
+    if (lane == 0) {
+      a.p_out[2 * p] = a.pcur[2 * p];
+      a.p_out[2 * p + 1] = a.pcur[2 * p + 1];
     }
-    if (live) cost_out[base + t] = 0.0f;
+    for (int t = lane; t < N; t += 32) cost_out[t] = 0.0f;
     return;
   }
 
-  int r = 0, c = 0, ch = 0;
-  if (live) {
-    r = t / psC;
-    const int rem = t - r * psC;
-    c = rem / C;
-    ch = rem - c * C;
-  }
-  const float T = live ? to_f32(tmpl[base + t]) : 0.0f;
-  const float GX = live ? to_f32(tgx[base + t]) : 0.0f;
-  const float GY = live ? to_f32(tgy[base + t]) : 0.0f;
+  // Per-value state: T, gx, gy and the value's offset in the window.
+  float rT[kV], rGX[kV], rGY[kV];
+  int rOff[kV];
+  float* const sT = slab;
+  float* const sGX = sT + nv * 32;
+  float* const sGY = sGX + nv * 32;
+  int* const sOff = (int*)(sGY + nv * 32);
+  auto T = [&](int k) -> float& {
+    if constexpr (kFixed) return rT[k]; else return sT[k * 32 + lane];
+  };
+  auto GX = [&](int k) -> float& {
+    if constexpr (kFixed) return rGX[k]; else return sGX[k * 32 + lane];
+  };
+  auto GY = [&](int k) -> float& {
+    if constexpr (kFixed) return rGY[k]; else return sGY[k * 32 + lane];
+  };
+  auto OFF = [&](int k) -> int& {
+    if constexpr (kFixed) return rOff[k]; else return sOff[k * 32 + lane];
+  };
 
-  float sums[4];
-  if (sums_in != nullptr) {  // uniform: the bf16 mode's float32 sums
 #pragma unroll
-    for (int k = 0; k < 4; ++k) sums[k] = sums_in[4 * p + k];
-  } else {
-    sums[0] = GX;
-    sums[1] = GY;
-    sums[2] = GX * T;
-    sums[3] = GY * T;
-    block_sum<4>(sums, red);
+  for (int k = 0; k < nv; ++k) {
+    const int t = k * 32 + lane;
+    const bool live = t < N;
+    const int r = live ? t / psC : 0;
+    OFF(k) = live ? r * rs + (t - r * psC) : 0;
+    T(k) = live ? to_f32(tmpl[t]) : 0.0f;
+    GX(k) = live ? to_f32(tgx[t]) : 0.0f;
+    GY(k) = live ? to_f32(tgy[t]) : 0.0f;
   }
-  const float gx_sum = sums[0], gy_sum = sums[1], gxT = sums[2], gyT = sums[3];
-  const float h00 = H[3 * p], h01 = H[3 * p + 1], h11 = H[3 * p + 2];
+
+  float gx_sum, gy_sum, gxT, gyT;
+  if (a.sums != nullptr) {  // uniform: the bf16 mode's float32 sums
+    gx_sum = a.sums[4 * p];
+    gy_sum = a.sums[4 * p + 1];
+    gxT = a.sums[4 * p + 2];
+    gyT = a.sums[4 * p + 3];
+  } else {
+    float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, c3 = 0.0f;
+#pragma unroll
+    for (int k = 0; k < nv; ++k) {
+      c0 += GX(k);
+      c1 += GY(k);
+      c2 += GX(k) * T(k);
+      c3 += GY(k) * T(k);
+    }
+    gx_sum = warp_sum(c0);
+    gy_sum = warp_sum(c1);
+    gxT = warp_sum(c2);
+    gyT = warp_sum(c3);
+  }
+  const float h00 = a.H[3 * p], h01 = a.H[3 * p + 1], h11 = a.H[3 * p + 2];
   const float det = h00 * h11 - h01 * h01;
-  const float mx0 = mid[2 * p], my0 = mid[2 * p + 1];
-  const float p0x = porg[2 * p], p0y = porg[2 * p + 1];
+  const float mx0 = a.mid[2 * p], my0 = a.mid[2 * p + 1];
+  const float p0x = a.porg[2 * p], p0y = a.porg[2 * p + 1];
   const float n_vals = (float)N;
   const int K = ps + 1;
-  const int off = padding - ps / 2;
-  const int64_t row_stride = (int64_t)Wp * C;
+  const int off = a.padding - ps / 2;
+  const int last_live = N - (nv - 1) * 32;  // lanes with a value at k = nv-1
 
-  // This thread's bilinear sample of the patch at displacement (px, py).
-  auto sample = [&](float px, float py) -> float {
+  // The window of the patch at displacement (px, py): its origin in the
+  // level image and the four bilinear weights, once for the whole warp.
+  const Load* win;
+  float w_tl, w_tr, w_bl, w_br;
+  auto window = [&](float px, float py) {
     const float mx = mx0 + px, my = my0 + py;
     const float fx = floorf(mx), fy = floorf(my);
     const float rx = mx - fx, ry = my - fy;
     int sy = (int)fy + off, sx = (int)fx + off;
-    if (sy < 0) sy += Hp;
-    if (sx < 0) sx += Wp;
-    sy = min(max(sy, 0), Hp - K);
-    sx = min(max(sx, 0), Wp - K);
-    if (!live) return 0.0f;
-    const Load* q = I1 + (int64_t)(sy + r) * row_stride + (int64_t)(sx + c) * C + ch;
-    const float w_tl = (1.0f - rx) * (1.0f - ry);
-    const float w_tr = rx * (1.0f - ry);
-    const float w_bl = (1.0f - rx) * ry;
-    const float w_br = rx * ry;
-    return ((w_tl * to_f32(q[0]) + w_tr * to_f32(q[C])) +
-            w_bl * to_f32(q[row_stride])) +
-           w_br * to_f32(q[row_stride + C]);
+    if (sy < 0) sy += a.Hp;
+    if (sx < 0) sx += a.Wp;
+    sy = min(max(sy, 0), a.Hp - K);
+    sx = min(max(sx, 0), a.Wp - K);
+    win = I1 + (int64_t)sy * rs + sx * C;
+    w_tl = (1.0f - rx) * (1.0f - ry);
+    w_tr = rx * (1.0f - ry);
+    w_bl = (1.0f - rx) * ry;
+    w_br = rx * ry;
+  };
+  // This lane's k-th bilinear sample (0 where it has no k-th value).
+  auto sample = [&](int k) -> float {
+    const Load* q = win + OFF(k);
+    const float S = ((w_tl * to_f32(q[0]) + w_tr * to_f32(q[C])) +
+                     w_bl * to_f32(q[rs])) +
+                    w_br * to_f32(q[rs + C]);
+    return (k < nv - 1 || lane < last_live) ? S : 0.0f;
   };
 
-  float px = pcur[2 * p], py = pcur[2 * p + 1];
-  for (int it = 0; it < n_iters; ++it) {
-    const float S = sample(px, py);
-    float red3[3] = {S, S * GX, S * GY};
-    block_sum<3>(red3, red);
-    const float m = red3[0] / n_vals * mean_on;
-    const float dpx = red3[1] - m * gx_sum - gxT;
-    const float dpy = red3[2] - m * gy_sum - gyT;
+  float px = a.pcur[2 * p], py = a.pcur[2 * p + 1];
+  for (int it = 0; it < a.n_iters; ++it) {
+    window(px, py);
+    float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int k = 0; k < nv; ++k) {
+      const float S = sample(k);
+      s0 += S;
+      s1 += S * GX(k);
+      s2 += S * GY(k);
+    }
+    s0 = warp_sum(s0);
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    const float m = s0 / n_vals * a.mean_on;
+    const float dpx = s1 - m * gx_sum - gxT;
+    const float dpy = s2 - m * gy_sum - gyT;
     const float delta_px = (h11 * dpx - h01 * dpy) / det;
     const float delta_py = (h00 * dpy - h01 * dpx) / det;
     const float nx = px - delta_px, ny = py - delta_py;
     const float mxn = mx0 + nx, myn = my0 + ny;
     const float ddx = mxn - mx0, ddy = myn - my0;
     const float norm = sqrtf(ddx * ddx + ddy * ddy);
-    const bool outlier = norm > thresh || mxn < l_bound || myn < l_bound ||
-                         mxn > ub_w || myn > ub_h;
-    if (outlier) {  // uniform: every thread saw the same totals
+    const bool outlier = norm > a.thresh || mxn < a.l_bound ||
+                         myn < a.l_bound || mxn > a.ub_w || myn > a.ub_h;
+    if (outlier) {  // uniform: every lane holds the same totals
       px = p0x;
       py = p0y;
       break;
@@ -186,34 +264,47 @@ __global__ void dis_gn_kernel(
     py = ny;
   }
 
-  const float S = sample(px, py);
-  float tot[1] = {S};
-  block_sum<1>(tot, red);
-  const float m = tot[0] / n_vals * mean_on;
-  if (live) {
-    const float d = (S - m) - T;
-    cost_out[base + t] = d * d;
+  // The per-pixel cost at the final p; the samples take gx's place.
+  window(px, py);
+  float tot = 0.0f;
+#pragma unroll
+  for (int k = 0; k < nv; ++k) {
+    const float S = sample(k);
+    GX(k) = S;
+    tot += S;
   }
-  if (t == 0) {
-    p_out[2 * p] = px;
-    p_out[2 * p + 1] = py;
+  const float m = warp_sum(tot) / n_vals * a.mean_on;
+#pragma unroll
+  for (int k = 0; k < nv; ++k) {
+    const int t = k * 32 + lane;
+    const float d = (GX(k) - m) - T(k);
+    if (t < N) cost_out[t] = d * d;
+  }
+  if (lane == 0) {
+    a.p_out[2 * p] = px;
+    a.p_out[2 * p + 1] = py;
   }
 }
 
+template <typename Load, int PS, int CH>
+int launch(const GnArgs& a, cudaStream_t stream) {
+  size_t shared = 0;
+  if (PS == 0) {  // the generic form's slab: [4][values per lane * 32]
+    shared = (size_t)4 * ((a.ps * a.ps * a.C + 31) / 32) * 32 * sizeof(float);
+    if (shared > (size_t)kMaxSharedBytes)
+      return (int)cudaErrorInvalidConfiguration;
+  }
+  dis_gn_kernel<Load, PS, CH><<<a.n_patches, 32, shared, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <typename Load>
-void launch(const void* I1, int Hp, int Wp, int C, const void* tmpl,
-            const void* tgx, const void* tgy, const void* sums,
-            const void* H, const void* mid, const void* pcur,
-            const void* porg, const void* started, int n_blocks, int P,
-            int ps, int padding, int n_iters, float thresh, float l_bound,
-            float ub_w, float ub_h, float mean_on, void* p_out,
-            void* cost_out, int threads, cudaStream_t stream) {
-  dis_gn_kernel<Load><<<n_blocks, threads, 0, stream>>>(
-      (const Load*)I1, Hp, Wp, C, (const Load*)tmpl, (const Load*)tgx,
-      (const Load*)tgy, (const float*)sums, (const float*)H,
-      (const float*)mid, (const float*)pcur, (const float*)porg,
-      (const uint8_t*)started, P, ps, padding, n_iters, thresh, l_bound,
-      ub_w, ub_h, mean_on, (float*)p_out, (float*)cost_out);
+int dispatch(const GnArgs& a, cudaStream_t stream) {
+  if (a.ps == 8 && a.C == 1) return launch<Load, 8, 1>(a, stream);
+  if (a.ps == 8 && a.C == 3) return launch<Load, 8, 3>(a, stream);
+  if (a.ps == 12 && a.C == 1) return launch<Load, 12, 1>(a, stream);
+  if (a.ps == 12 && a.C == 3) return launch<Load, 12, 3>(a, stream);
+  return launch<Load, 0, 0>(a, stream);
 }
 
 }  // namespace
@@ -228,22 +319,37 @@ extern "C" int fot_dis_gn(const void* I1, int bf16, int B, int Hp, int Wp,
                           int n_iters, float thresh, float l_bound,
                           float ub_w, float ub_h, float mean_on, void* p_out,
                           void* cost_out, void* stream) {
-  const int N = ps * ps * C;
-  const int threads = ((N + 31) / 32) * 32;
-  const long long n_blocks = (long long)B * P;
-  if (n_blocks == 0) return 0;
-  if (threads > 1024 || n_blocks > 0x7fffffffLL)
+  const long long n_patches = (long long)B * P;
+  if (n_patches == 0) return 0;
+  if (n_patches > 0x7fffffffLL || ps < 1 || C < 1)
     return (int)cudaErrorInvalidConfiguration;
   if (bf16 && sums == nullptr) return (int)cudaErrorInvalidValue;
-  if (bf16)
-    launch<__nv_bfloat16>(I1, Hp, Wp, C, tmpl, tgx, tgy, sums, H, mid, pcur,
-                          porg, started, (int)n_blocks, P, ps, padding,
-                          n_iters, thresh, l_bound, ub_w, ub_h, mean_on,
-                          p_out, cost_out, threads, (cudaStream_t)stream);
-  else
-    launch<float>(I1, Hp, Wp, C, tmpl, tgx, tgy, nullptr, H, mid, pcur, porg,
-                  started, (int)n_blocks, P, ps, padding, n_iters, thresh,
-                  l_bound, ub_w, ub_h, mean_on, p_out, cost_out, threads,
-                  (cudaStream_t)stream);
-  return (int)cudaGetLastError();
+  GnArgs a;
+  a.I1 = I1;
+  a.tmpl = tmpl;
+  a.tgx = tgx;
+  a.tgy = tgy;
+  a.sums = bf16 ? (const float*)sums : nullptr;
+  a.H = (const float*)H;
+  a.mid = (const float*)mid;
+  a.pcur = (const float*)pcur;
+  a.porg = (const float*)porg;
+  a.started = (const uint8_t*)started;
+  a.p_out = (float*)p_out;
+  a.cost_out = (float*)cost_out;
+  a.n_patches = (int)n_patches;
+  a.P = P;
+  a.Hp = Hp;
+  a.Wp = Wp;
+  a.C = C;
+  a.ps = ps;
+  a.padding = padding;
+  a.n_iters = n_iters;
+  a.thresh = thresh;
+  a.l_bound = l_bound;
+  a.ub_w = ub_w;
+  a.ub_h = ub_h;
+  a.mean_on = mean_on;
+  return bf16 ? dispatch<__nv_bfloat16>(a, (cudaStream_t)stream)
+              : dispatch<float>(a, (cudaStream_t)stream);
 }

@@ -1,31 +1,51 @@
 // The variational-refinement inner loop, shared by K3 (varref_fused.cu,
-// one CTA) and K4 (varref_tiled.cu, the whole card).  Both kernels run
-// refine_loop below; they differ only in how the threads stride over the
-// field and in the barrier between phases, so every pixel is computed
-// with the same arithmetic in both.
+// one CTA) and both routes of K4 (varref_tiled.cu: one thread-block
+// cluster per field, or the whole card).  All three run refine_loop
+// below; they differ in where the work planes live, in how the threads
+// stride over the field and in the barrier between phases, so every pixel
+// is computed with the same arithmetic, in the same order, in all of them.
 //
 // Per round (inner_iter = level + 1 rounds):
-//   A  smoothness s = qa * rsqrt(|grad uu|^2 + |grad vv|^2 + eps)
-//      (3-tap flow derivative, replicate border)
-//   B  pair sums s_h = s + s[i+1] (last column 0), s_v = s + s[j+1] (last row 0)
+//   AB smoothness s = qa * rsqrt(|grad uu|^2 + |grad vv|^2 + eps)
+//      (3-tap flow derivative, replicate border) at the pixel, at its
+//      right neighbour and at the one below, for the pair sums
+//      s_h = s + s[i+1] (last column 0), s_v = s + s[j+1] (last row 0).
+//      A pixel recomputes its neighbours' s (the same expression, so the
+//      same bits) instead of reading a plane of s across a barrier.
 //   C  robust colour + gradient data term -> per-pixel 2x2 system; the
 //      sub-Laplacian of the base flow (wx, wy) into b1, b2; A11/A22 with
-//      the diffusivity sum
+//      the diffusivity sum, kept as omega / A11 and omega / A22
 //   D  solve_iter red-black SOR sweeps (odd cells first; dv uses the new du)
 // then uu = wx + du, vv = wy + dv.
 //
-// A batch of B frames: every plane is [B][h][w] and dIs is [B][8][C][h][w].
-// The loop walks idx over B*h*w; frame f = idx / (h*w), and the pixel's
-// row and column within its frame set every border rule, so row h-1 of
-// frame f never reads frame f+1 and the red-black parity is (i + j) of
-// the frame.  K3 runs it with B = 1 per CTA, K4 once over the batch.
+// Barriers: one after AB (C reads the neighbours' pair sums) and one after
+// every half-sweep (the next reads the neighbours' du, dv): 1 + inner_iter
+// * (1 + 2 * solve_iter).  None stands between C and the first half-sweep:
+// C reads and writes only its own pixel's planes (and s_h, s_v, which AB
+// wrote before the last barrier), a pixel belongs to the same thread in
+// every phase, and the first half-sweep writes only odd cells and reads
+// only their even neighbours' du, dv, which nothing has touched since the
+// barrier.
 //
-// The 10 work planes live in device memory.  They are written and read
-// by other threads (other CTAs, for K4) within the launch, so they are
-// plain pointers: a const __restrict__ one could be read through the
-// non-coherent cache.  The barrier orders those writes before the reads
-// that follow.  Red-black cells of one colour read only neighbours of the
-// other colour, so each half-sweep updates in place.
+// A batch of B frames: every input plane is [B][h][w] and dIs is
+// [B][8][C][h][w].  The loop walks idx over [first, last) with a stride;
+// frame f = idx / (h*w), and the pixel's row and column within its frame
+// set every border rule, so row h-1 of frame f never reads frame f+1 and
+// the red-black parity is (i + j) of the frame.  K3 and the cluster route
+// run it with one frame per CTA or cluster, the grid route once over the
+// batch.
+//
+// The 9 work planes are reached through a Planes policy: at(k, idx) is
+// plane k at this thread's pixel or at a neighbour one row up or up to
+// two rows down, which another CTA may hold, and put(k, idx, v) writes a
+// plane that other CTAs read across a row border (du, dv, s_v).
+// GlobalPlanes keeps them in device memory (K3, the grid route): written
+// and read by other threads within the launch, so plain pointers, never
+// const __restrict__ (which could be read through the non-coherent cache);
+// the barrier orders the writes before the reads that follow.  The cluster
+// route keeps them in the CTAs' shared memory (varref_tiled.cu).
+// Red-black cells of one colour read only neighbours of the other colour,
+// so each half-sweep updates in place.
 
 #pragma once
 
@@ -38,86 +58,126 @@ constexpr float kDataNorm = (float)(0.1 * 0.1);
 constexpr float kEpsColor = (float)(0.001 * 0.001);
 constexpr float kEpsGrad = (float)(0.001 * 0.001);
 constexpr float kEpsSmooth = (float)(0.001 * 0.001);
-constexpr int kScratchPlanes = 10;  // s, s_h, s_v, A11, A22, a12, b1, b2, du, dv
+// The work planes.
+// kW11, kW22: the SOR weight over the diagonal, omega / A11 and omega / A22.
+enum Plane { kSh, kSv, kW11, kW22, kA12, kB1, kB2, kDu, kDv, kScratchPlanes };
 
-// Each pixel idx in [0, B*h*w) is visited by exactly one thread: idx =
-// first, first + stride, ...; sync() separates phases and half-sweeps.
-template <class Sync>
+// The work planes in device memory: plane k of N pixels at base + k * N.
+struct GlobalPlanes {
+  float* base;
+  int N;
+  __device__ __forceinline__ float& at(int k, int idx) const {
+    return base[k * N + idx];
+  }
+  __device__ __forceinline__ void put(int k, int idx, float v) const {
+    base[k * N + idx] = v;
+  }
+};
+
+// A pixel on a thread's walk over the field: idx into the planes, its
+// frame f, and its row j and column i within the frame.
+struct Pixel {
+  int idx, f, j, i;
+};
+
+// Each pixel idx = first, first + stride, ... < last is visited by exactly
+// one thread, the same in every phase; sync() separates the phases that
+// read what other threads wrote.  A thread finds its first pixel's frame,
+// row and column by division once and walks on by additions: a phase is
+// short enough for integer divisions per pixel to show in its time.
+//
+// CH > 0 fixes the channel count at compile time (the data term's loops
+// over the channels unroll, so a pixel's 8 * C derivative loads are in
+// flight together and its divisions overlap); CH == 0 takes it from
+// n_channels.  The sums run over the channels in the same order either way.
+template <int CH, class Planes, class Sync>
 __device__ __forceinline__ void refine_loop(
     const float* __restrict__ wx, const float* __restrict__ wy,
     const float* __restrict__ mask, const float* __restrict__ dIs,
-    int n_frames, int h, int w, int C, int inner_iter, int solve_iter,
-    float omega, float qa, float hd3, float hg3, float* scratch,
-    float* __restrict__ uu_out, float* __restrict__ vv_out, int first,
-    int stride, Sync sync) {
+    int h, int w, int n_channels, int inner_iter, int solve_iter, float omega,
+    float qa, float hd3, float hg3, Planes pl, float* __restrict__ uu_out,
+    float* __restrict__ vv_out, int first, int last, int stride, Sync sync) {
   const int n = h * w;       // pixels of one frame
-  const int N = n_frames * n;
-  float* s = scratch;
-  float* sh = s + N;
-  float* sv = sh + N;
-  float* A11 = sv + N;
-  float* A22 = A11 + N;
-  float* a12 = A22 + N;
-  float* b1 = a12 + N;
-  float* b2 = b1 + N;
-  float* du = b2 + N;
-  float* dv = du + N;
-  // dIs planes: [B][8][C][n] = Ix, Iy, Iz, Ixx, Ixy, Iyy, Ixz, Iyz
-  auto dI = [&](int k, int c, int idx) {
-    const int f = idx / n;
-    return dIs[((f * 8 + k) * C + c) * n + (idx - f * n)];
+  const int C = CH > 0 ? CH : n_channels;
+  Pixel p0;
+  {
+    const int r = first / w;  // row of the batch
+    p0.idx = first;
+    p0.i = first - r * w;
+    p0.f = r / h;
+    p0.j = r - p0.f * h;
+  }
+  const int step_i = stride % w, step_r = stride / w;
+  const int step_j = step_r % h, step_f = step_r / h;
+  auto next = [&](Pixel& p) {
+    p.idx += stride;
+    p.i += step_i;
+    p.j += step_j;
+    p.f += step_f;
+    if (p.i >= w) {
+      p.i -= w;
+      p.j += 1;
+    }
+    if (p.j >= h) {
+      p.j -= h;
+      p.f += 1;
+    }
   };
-  // (row, column) of idx within its frame
-  auto rc = [&](int idx, int& j, int& i) {
-    const int q = idx % n;
-    j = q / w;
-    i = q - j * w;
+  // smoothness at pixel idx (row j, column i of its frame), which may be
+  // this thread's pixel, its right neighbour or the one below
+  auto smooth = [&](int idx, int j, int i) {
+    const int iL = idx - (i > 0), iR = idx + (i < w - 1);
+    const int jU = idx - (j > 0 ? w : 0), jD = idx + (j < h - 1 ? w : 0);
+    const float ux = 0.5f * ((wx[iR] + pl.at(kDu, iR)) -
+                             (wx[iL] + pl.at(kDu, iL)));
+    const float uy = 0.5f * ((wx[jD] + pl.at(kDu, jD)) -
+                             (wx[jU] + pl.at(kDu, jU)));
+    const float vx = 0.5f * ((wy[iR] + pl.at(kDv, iR)) -
+                             (wy[iL] + pl.at(kDv, iL)));
+    const float vy = 0.5f * ((wy[jD] + pl.at(kDv, jD)) -
+                             (wy[jU] + pl.at(kDv, jU)));
+    return qa * rsqrtf(ux * ux + uy * uy + vx * vx + vy * vy + kEpsSmooth);
   };
 
-  for (int idx = first; idx < N; idx += stride) {
-    du[idx] = 0.0f;
-    dv[idx] = 0.0f;
+  for (Pixel p = p0; p.idx < last; next(p)) {
+    pl.put(kDu, p.idx, 0.0f);
+    pl.put(kDv, p.idx, 0.0f);
   }
   sync();
 
   for (int it = 0; it < inner_iter; ++it) {
-    // ---- A: smoothness ----
-    for (int idx = first; idx < N; idx += stride) {
-      int j, i;
-      rc(idx, j, i);
-      const int iL = idx - (i > 0), iR = idx + (i < w - 1);
-      const int jU = idx - (j > 0 ? w : 0), jD = idx + (j < h - 1 ? w : 0);
-      const float ux = 0.5f * ((wx[iR] + du[iR]) - (wx[iL] + du[iL]));
-      const float uy = 0.5f * ((wx[jD] + du[jD]) - (wx[jU] + du[jU]));
-      const float vx = 0.5f * ((wy[iR] + dv[iR]) - (wy[iL] + dv[iL]));
-      const float vy = 0.5f * ((wy[jD] + dv[jD]) - (wy[jU] + dv[jU]));
-      s[idx] = qa * rsqrtf(ux * ux + uy * uy + vx * vx + vy * vy + kEpsSmooth);
-    }
-    sync();
-    // ---- B: pair sums ----
-    for (int idx = first; idx < N; idx += stride) {
-      int j, i;
-      rc(idx, j, i);
-      sh[idx] = (i == w - 1) ? 0.0f : s[idx] + s[idx + 1];
-      sv[idx] = (j == h - 1) ? 0.0f : s[idx] + s[idx + w];
+    // ---- AB: smoothness and its pair sums ----
+    for (Pixel p = p0; p.idx < last; next(p)) {
+      const int idx = p.idx, j = p.j, i = p.i;
+      const float s0 = smooth(idx, j, i);
+      pl.at(kSh, idx) =
+          (i == w - 1) ? 0.0f : s0 + smooth(idx + 1, j, i + 1);
+      pl.put(kSv, idx,
+             (j == h - 1) ? 0.0f : s0 + smooth(idx + w, j + 1, i));
     }
     sync();
     // ---- C: data term, sub-Laplacian, diagonal ----
-    for (int idx = first; idx < N; idx += stride) {
-      int j, i;
-      rc(idx, j, i);
-      const float u0 = du[idx], v0 = dv[idx], m = mask[idx];
+    for (Pixel p = p0; p.idx < last; next(p)) {
+      const int idx = p.idx, j = p.j, i = p.i;
+      // this pixel's derivative planes: [B][8][C][n] = Ix, Iy, Iz, Ixx,
+      // Ixy, Iyy, Ixz, Iyz
+      const float* __restrict__ d0 =
+          dIs + (p.f * 8 * C) * n + (idx - p.f * n);
+      auto dI = [&](int k, int c) { return d0[(k * C + c) * n]; };
+      const float u0 = pl.at(kDu, idx), v0 = pl.at(kDv, idx), m = mask[idx];
       // colour constancy
       float acc = 0.0f;
+#pragma unroll
       for (int c = 0; c < C; ++c) {
-        const float Ix = dI(0, c, idx), Iy = dI(1, c, idx), Iz = dI(2, c, idx);
+        const float Ix = dI(0, c), Iy = dI(1, c), Iz = dI(2, c);
         const float r = Iz + Ix * u0 + Iy * v0;
         acc += r * r / (Ix * Ix + Iy * Iy + kDataNorm);
       }
       float t = m * hd3 * rsqrtf(acc + kEpsColor);
       float x11 = 0.0f, x12 = 0.0f, x22 = 0.0f, y1 = 0.0f, y2 = 0.0f;
+#pragma unroll
       for (int c = 0; c < C; ++c) {
-        const float Ix = dI(0, c, idx), Iy = dI(1, c, idx), Iz = dI(2, c, idx);
+        const float Ix = dI(0, c), Iy = dI(1, c), Iz = dI(2, c);
         const float tc = t / (Ix * Ix + Iy * Iy + kDataNorm);
         x11 += tc * Ix * Ix;
         x12 += tc * Ix * Iy;
@@ -127,9 +187,10 @@ __device__ __forceinline__ void refine_loop(
       }
       // gradient constancy
       acc = 0.0f;
+#pragma unroll
       for (int c = 0; c < C; ++c) {
-        const float Ixx = dI(3, c, idx), Ixy = dI(4, c, idx), Iyy = dI(5, c, idx);
-        const float Ixz = dI(6, c, idx), Iyz = dI(7, c, idx);
+        const float Ixx = dI(3, c), Ixy = dI(4, c), Iyy = dI(5, c);
+        const float Ixz = dI(6, c), Iyz = dI(7, c);
         const float n1 = Ixx * Ixx + Ixy * Ixy + kDataNorm;
         const float n2 = Iyy * Iyy + Ixy * Ixy + kDataNorm;
         const float r1 = Ixz + Ixx * u0 + Ixy * v0;
@@ -138,9 +199,10 @@ __device__ __forceinline__ void refine_loop(
       }
       t = m * hg3 * rsqrtf(acc + kEpsGrad);
       float g11 = 0.0f, g12 = 0.0f, g22 = 0.0f, z1 = 0.0f, z2 = 0.0f;
+#pragma unroll
       for (int c = 0; c < C; ++c) {
-        const float Ixx = dI(3, c, idx), Ixy = dI(4, c, idx), Iyy = dI(5, c, idx);
-        const float Ixz = dI(6, c, idx), Iyz = dI(7, c, idx);
+        const float Ixx = dI(3, c), Ixy = dI(4, c), Iyy = dI(5, c);
+        const float Ixz = dI(6, c), Iyz = dI(7, c);
         const float t1 = t / (Ixx * Ixx + Ixy * Ixy + kDataNorm);
         const float t2 = t / (Iyy * Iyy + Ixy * Ixy + kDataNorm);
         g11 += t1 * Ixx * Ixx + t2 * Ixy * Ixy;
@@ -150,9 +212,9 @@ __device__ __forceinline__ void refine_loop(
         z2 += t2 * Iyy * Iyz + t1 * Ixy * Ixz;
       }
       const float a11 = x11 + g11, a22 = x22 + g22;
-      const float sh0 = sh[idx], sv0 = sv[idx];
-      const float shl = i > 0 ? sh[idx - 1] : 0.0f;
-      const float svu = j > 0 ? sv[idx - w] : 0.0f;
+      const float sh0 = pl.at(kSh, idx), sv0 = pl.at(kSv, idx);
+      const float shl = i > 0 ? pl.at(kSh, idx - 1) : 0.0f;
+      const float svu = j > 0 ? pl.at(kSv, idx - w) : 0.0f;
       // sub-Laplacian of the base flow; coefficients vanish past the
       // last column / row (s_h, s_v are zero there)
       float lap[2];
@@ -166,47 +228,52 @@ __device__ __forceinline__ void refine_loop(
         lap[k] = ((ch - chl) + cv) - cvu;
       }
       const float sdp = svu + shl + sv0 + sh0;
-      A11[idx] = a11 + sdp;
-      A22[idx] = a22 + sdp;
-      a12[idx] = x12 + g12;
-      b1[idx] = (-y1 - z1) + lap[0];
-      b2[idx] = (-y2 - z2) + lap[1];
+      // the sweeps need only omega / A11 and omega / A22: divide once here
+      pl.at(kW11, idx) = omega / (a11 + sdp);
+      pl.at(kW22, idx) = omega / (a22 + sdp);
+      pl.at(kA12, idx) = x12 + g12;
+      pl.at(kB1, idx) = (-y1 - z1) + lap[0];
+      pl.at(kB2, idx) = (-y2 - z2) + lap[1];
     }
-    sync();
-    // ---- D: red-black SOR ----
+    // with no sweep to end in a barrier, the next round's AB would
+    // overwrite pair sums that a neighbour's C still reads
+    if (solve_iter <= 0) sync();
+    // ---- D: red-black SOR (no barrier after C, see the top) ----
     for (int sweep = 0; sweep < 2 * solve_iter; ++sweep) {
       const int want = (sweep & 1) ? 0 : 1;  // odd cells first
-      for (int idx = first; idx < N; idx += stride) {
-        int j, i;
-        rc(idx, j, i);
+      for (Pixel p = p0; p.idx < last; next(p)) {
+        const int idx = p.idx, j = p.j, i = p.i;
         if (((i + j) & 1) != want) continue;
-        const float sh0 = sh[idx], sv0 = sv[idx];
-        const float shl = i > 0 ? sh[idx - 1] : 0.0f;
-        const float svu = j > 0 ? sv[idx - w] : 0.0f;
-        const float uU = j > 0 ? du[idx - w] : 0.0f;
-        const float uL = i > 0 ? du[idx - 1] : 0.0f;
-        const float uD = j < h - 1 ? du[idx + w] : 0.0f;
-        const float uR = i < w - 1 ? du[idx + 1] : 0.0f;
-        const float vU = j > 0 ? dv[idx - w] : 0.0f;
-        const float vL = i > 0 ? dv[idx - 1] : 0.0f;
-        const float vD = j < h - 1 ? dv[idx + w] : 0.0f;
-        const float vR = i < w - 1 ? dv[idx + 1] : 0.0f;
+        const float sh0 = pl.at(kSh, idx), sv0 = pl.at(kSv, idx);
+        const float shl = i > 0 ? pl.at(kSh, idx - 1) : 0.0f;
+        const float svu = j > 0 ? pl.at(kSv, idx - w) : 0.0f;
+        const float uU = j > 0 ? pl.at(kDu, idx - w) : 0.0f;
+        const float uL = i > 0 ? pl.at(kDu, idx - 1) : 0.0f;
+        const float uD = j < h - 1 ? pl.at(kDu, idx + w) : 0.0f;
+        const float uR = i < w - 1 ? pl.at(kDu, idx + 1) : 0.0f;
+        const float vU = j > 0 ? pl.at(kDv, idx - w) : 0.0f;
+        const float vL = i > 0 ? pl.at(kDv, idx - 1) : 0.0f;
+        const float vD = j < h - 1 ? pl.at(kDv, idx + w) : 0.0f;
+        const float vR = i < w - 1 ? pl.at(kDv, idx + 1) : 0.0f;
         const float sig_u = -(svu * uU + shl * uL + sv0 * uD + sh0 * uR);
         const float sig_v = -(svu * vU + shl * vL + sv0 * vD + sh0 * vR);
-        const float B1 = b1[idx] - sig_u;
-        const float B2 = b2[idx] - sig_v;
-        const float u = du[idx], v = dv[idx], c12 = a12[idx];
-        const float un = (1.0f - omega) * u + omega / A11[idx] * (B1 - c12 * v);
-        const float vn = (1.0f - omega) * v + omega / A22[idx] * (B2 - c12 * un);
-        du[idx] = un;
-        dv[idx] = vn;
+        const float B1 = pl.at(kB1, idx) - sig_u;
+        const float B2 = pl.at(kB2, idx) - sig_v;
+        const float u = pl.at(kDu, idx), v = pl.at(kDv, idx);
+        const float c12 = pl.at(kA12, idx);
+        const float un =
+            (1.0f - omega) * u + pl.at(kW11, idx) * (B1 - c12 * v);
+        const float vn =
+            (1.0f - omega) * v + pl.at(kW22, idx) * (B2 - c12 * un);
+        pl.put(kDu, idx, un);
+        pl.put(kDv, idx, vn);
       }
       sync();
     }
   }
-  for (int idx = first; idx < N; idx += stride) {
-    uu_out[idx] = wx[idx] + du[idx];
-    vv_out[idx] = wy[idx] + dv[idx];
+  for (Pixel p = p0; p.idx < last; next(p)) {
+    uu_out[p.idx] = wx[p.idx] + pl.at(kDu, p.idx);
+    vv_out[p.idx] = wy[p.idx] + pl.at(kDv, p.idx);
   }
 }
 

@@ -17,8 +17,10 @@ JAX pipeline adds one grid axis to each Pallas call.  The single-pair
 entry points (``compute_flow``, ``compute_flow_timed``, ``DISFlow``) run
 it with B = 1.
 
-PyTorch runs eagerly, so there is no jitted variant: every function here
-runs on the device its input tensors lie on.
+PyTorch runs eagerly, so there is no jitted variant: the pipeline
+functions run on the device their input tensors lie on, and the entry
+points put host (numpy) inputs on the GPU unless the caller names a
+device (``utils/device.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from ..ops import variational as var_mod
 from ..ops.patches import PatchGrid, extract_templates_and_hessians
 from ..ops.pyramid import build_pyramid, pad_replicate
 from ..ops.resize import resize_matmul
+from ..utils.device import resolve_device
 from ..utils.timing import PhaseTimer
 
 
@@ -182,11 +185,11 @@ def validate_image_pair(I0, I1, what: str = "image") -> None:
         raise ValueError(f"{what} too small: {s0[0]}x{s0[1]}")
 
 
-def as_image(x, device=None) -> torch.Tensor:
-    """A numpy array or tensor as a float32 tensor on ``device`` (default:
-    the tensor's own device, or the CPU for a numpy array)."""
+def as_image(x, device) -> torch.Tensor:
+    """A numpy array or tensor as a float32 tensor on ``device`` (the
+    entry points choose it with :func:`..utils.device.resolve_device`)."""
     if isinstance(x, torch.Tensor):
-        t = x if device is None else x.to(device)
+        t = x.to(device)
     else:
         t = torch.as_tensor(np.asarray(x), device=device)
     return t.float()
@@ -197,13 +200,16 @@ def compute_flow(I0, I1, cfg: Optional[DISConfig] = None, op_point: int = 2,
     """End-to-end dense flow [H, W, 2] at input resolution.
 
     I0, I1: [H, W, C] images (numpy or tensors).  Pads to 2^coarsest
-    divisibility by edge replication, runs the pipeline on ``device``
-    (default: where the inputs lie; numpy inputs run on the CPU),
-    upsamples and crops back to [H, W, 2].
+    divisibility by edge replication, runs the pipeline on ``device``,
+    upsamples and crops back to [H, W, 2].  With ``device=None`` tensors
+    run where I0 lies and numpy inputs run on the GPU; without a GPU
+    that raises (:func:`..utils.device.resolve_device`), so pass
+    ``device="cpu"`` to run on the CPU.
     """
     validate_image_pair(I0, I1)
+    device = resolve_device(device, I0, I1)
     I0 = as_image(I0, device)
-    I1 = as_image(I1, I0.device)
+    I1 = as_image(I1, device)
     h, w = I0.shape[0], I0.shape[1]
     if cfg is None:
         cfg = operating_point(op_point, width=w)
@@ -226,11 +232,13 @@ def compute_flow_timed(I0, I1, cfg: Optional[DISConfig] = None,
     :func:`dis_flow_from_pyramids`), the pyramid and run-time lines and
     the phase totals of :meth:`..utils.timing.PhaseTimer.report`.  Each
     phase ends with a device sync, so phase costs are honest and the
-    run-time line carries the syncs.  Returns :func:`compute_flow`'s flow.
+    run-time line carries the syncs.  Returns :func:`compute_flow`'s flow,
+    on the device :func:`compute_flow` would choose.
     """
     validate_image_pair(I0, I1)
+    device = resolve_device(device, I0, I1)
     I0 = as_image(I0, device)
-    I1 = as_image(I1, I0.device)
+    I1 = as_image(I1, device)
     h, w = I0.shape[0], I0.shape[1]
     if cfg is None:
         cfg = operating_point(op_point, width=w)
@@ -262,7 +270,8 @@ def compute_flow_timed(I0, I1, cfg: Optional[DISConfig] = None,
 
 class DISFlow:
     """Object-style API: configure once, ``calc`` many pairs.  Holds only
-    the config and the device; every call is stateless."""
+    the config and the device (``None``: :func:`compute_flow`'s default,
+    the GPU for numpy inputs); every call is stateless."""
 
     def __init__(self, cfg: Optional[DISConfig] = None, op_point: int = 2,
                  device=None):

@@ -23,6 +23,7 @@ from ..ops import dis as dis_mod
 from ..ops.densify import densify
 from ..ops.patches import PatchGrid, extract_templates_and_hessians
 from ..ops.pyramid import build_pyramid, pad_replicate
+from ..utils.device import resolve_device
 from .dis_flow import as_image, pin_fp32, upsample_flow_to_full, \
     validate_image_pair
 
@@ -106,12 +107,14 @@ def compute_disparity(I_left, I_right, cfg: Optional[DISConfig] = None,
                       op_point: int = 2, cam_lr: int = 0,
                       device=None) -> torch.Tensor:
     """End-to-end dense disparity [H, W] at input resolution, on
-    ``device`` (default: where the inputs lie; numpy on the CPU).  Without
-    a ``cfg``, operating point ``op_point`` without variational
+    ``device`` (``None``: where tensor inputs lie, the GPU for numpy
+    inputs; without a GPU that raises, so pass ``device="cpu"``).
+    Without a ``cfg``, operating point ``op_point`` without variational
     refinement."""
     validate_image_pair(I_left, I_right, what="stereo image")
+    device = resolve_device(device, I_left, I_right)
     I_left = as_image(I_left, device)
-    I_right = as_image(I_right, I_left.device)
+    I_right = as_image(I_right, device)
     h, w = I_left.shape[0], I_left.shape[1]
     if cfg is None:
         cfg = dataclasses.replace(operating_point(op_point, width=w),

@@ -46,6 +46,9 @@ SIGNATURES = {
                          _F, _F, _P, _P, _P, _P],
     "fot_varref_tiled": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
                          _F, _F, _P, _P, _P, _P],
+    "fot_varref_cluster": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                           _F, _F, _I, _I, _I, _P, _P, _P],
+    "fot_empty_launch": [_P],
     "fot_warp": [_P, _L, _L, _P, _P, _I, _I, _I, _I, _P, _P, _P],
 }
 
@@ -154,3 +157,12 @@ def check(err: int, name: str) -> None:
 def stream_handle(x) -> int:
     import torch
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def empty_launch(device) -> None:
+    """Launch the kernel that does nothing on ``device``'s current stream
+    (the floor under every launch's time)."""
+    import torch
+    with torch.cuda.device(device):
+        check(load_library().fot_empty_launch(
+            torch.cuda.current_stream(device).cuda_stream), "empty_launch")

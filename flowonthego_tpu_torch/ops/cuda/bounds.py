@@ -1,0 +1,139 @@
+"""The least time the card could take for each kernel's work.
+
+For a kernel's call this module counts, from the shapes of its inputs and
+outputs alone, the bytes it must move (each input read once, each output
+written once, whatever the kernel reads again or keeps in scratch) and
+the float32 operations its function does on them, and returns the larger
+of bytes / memory rate and operations / peak rate, with which of the two
+binds.  It never looks at a kernel's implementation, so a redesigned
+kernel keeps its bound.  Rates: one NVIDIA H100 SXM at its full power
+limit, 3.35 TB/s of device memory and 67 TFLOP/s of float32 outside the
+tensor cores (NVIDIA's data sheet).
+
+Operation counts are per value of the plain PyTorch versions' arithmetic
+(an add, multiply, divide, compare, floor, square root or reciprocal
+square root each count one):
+
+* K1, a 2x2 mean: 3 adds and 1 multiply an output, 1 more add with a
+  bias.
+* K2, per template value and iteration: a 4-tap blend (4 multiplies, 3
+  adds) and the three sums S, gx.S, gy.S (2 multiplies, 3 adds) = 12; per
+  patch and iteration the window origin, blend weights, 2x2 step and
+  outlier test = 40.  After the loop, per value of a started patch, the
+  blend, the mean's sum and ((S - mean) - T)^2 = 11, and in float32 mode
+  the projection's constant sums (gx, gy, gx.T, gy.T) = 6 (in bf16 mode
+  they are inputs).  Iterations are those the patches really run: a patch
+  never started runs none, one that resets at iteration k runs k.
+* K3 and K4, per pixel and round: smoothness 26, pair sums 2, data term
+  with sub-Laplacian and diagonal 93 C + 44, and 32 per SOR iteration (two
+  half-sweeps of 32 on half the cells each); 2 more for the final flow.
+  The planes of inputs and outputs count once, however many passes the
+  rounds make over them: wx, wy, mask, 8 C derivative planes, uu, vv.
+* K5, per pixel: coordinates, floor, weights and the in-bounds mask 12,
+  and 11 a channel for the 4-tap blend.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+
+K2_VALUE_ITER_FLOPS = 12
+K2_PATCH_ITER_FLOPS = 40
+K2_VALUE_COST_FLOPS = 11
+K2_VALUE_SUMS_FLOPS = 6
+VARREF_SMOOTH_FLOPS = 26
+VARREF_PAIR_FLOPS = 2
+VARREF_DATA_FLOPS_PER_CHANNEL = 93
+VARREF_DATA_FLOPS = 44
+VARREF_SOR_FLOPS = 32
+VARREF_FINAL_FLOPS = 2
+WARP_PIXEL_FLOPS = 12
+WARP_CHANNEL_FLOPS = 11
+
+
+class Bound(NamedTuple):
+    bytes: int          # inputs read once + outputs written once
+    flops: int          # float32 operations of the function
+    bound_ms: float     # max(bytes / memory rate, flops / peak rate)
+    bound_by: str       # "bytes" or "operations"
+
+
+def bound(n_bytes: int, n_flops: int) -> Bound:
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = n_flops / FP32_FLOPS_PER_S * 1e3
+    return Bound(int(n_bytes), int(n_flops), max(bytes_ms, flops_ms),
+                 "bytes" if bytes_ms >= flops_ms else "operations")
+
+
+def pool_bound(H: int, WC: int, in_bytes: int = 4,
+               bias: bool = False) -> Bound:
+    """K1 on a flat level [H, WC] of ``in_bytes``-wide values (4: float32,
+    1: uint8) -> [H/2, WC/2] float32.  A batch is its frames stacked as
+    rows: H counts them all."""
+    n_out = (H // 2) * (WC // 2)
+    return bound(H * WC * in_bytes + n_out * 4, n_out * (5 if bias else 4))
+
+
+def gn_bound(B: int, P: int, ps: int, C: int, Hp: int, Wp: int,
+             n_iters: int, patch_iters: Optional[int] = None,
+             n_started: Optional[int] = None, bf16: bool = False) -> Bound:
+    """K2 on B frames of P patches of ps x ps x C values against padded
+    level images [B, Hp, Wp, C].
+
+    ``patch_iters``: the iterations summed over all B*P patches that these
+    inputs really run (default: every patch runs all ``n_iters``);
+    ``n_started``: patches that were started (default: all).  ``bf16``:
+    the image, templates and gradients are 2 bytes wide and the
+    projection's four constant sums come in as float32 inputs."""
+    n_patches = B * P
+    N = ps * ps * C
+    if n_started is None:
+        n_started = n_patches
+    if patch_iters is None:
+        patch_iters = n_started * n_iters
+    wide = 2 if bf16 else 4
+    n_bytes = (B * Hp * Wp * C * wide            # level images
+               + n_patches * 3 * N * wide        # templates, gx, gy
+               + n_patches * (3 + 2 + 2 + 2) * 4  # H, mid, p_cur, p_org
+               + n_patches * 1                   # started
+               + (n_patches * 4 * 4 if bf16 else 0)   # sums
+               + n_patches * 2 * 4               # p out
+               + n_patches * N * 4)              # per-pixel cost out
+    n_flops = (patch_iters * (K2_VALUE_ITER_FLOPS * N + K2_PATCH_ITER_FLOPS)
+               + n_started * N * (K2_VALUE_COST_FLOPS
+                                  + (0 if bf16 else K2_VALUE_SUMS_FLOPS)))
+    return bound(n_bytes, n_flops)
+
+
+def _varref_bound(B, h, w, C, inner_iter, solve_iter) -> Bound:
+    n = B * h * w
+    planes = 3 + 8 * C + 2          # wx, wy, mask; dIs; uu, vv
+    per_round = (VARREF_SMOOTH_FLOPS + VARREF_PAIR_FLOPS
+                 + VARREF_DATA_FLOPS_PER_CHANNEL * C + VARREF_DATA_FLOPS
+                 + VARREF_SOR_FLOPS * solve_iter)
+    return bound(n * planes * 4,
+                 n * (inner_iter * per_round + VARREF_FINAL_FLOPS))
+
+
+def varref_fused_bound(B: int, h: int, w: int, C: int, inner_iter: int,
+                       solve_iter: int) -> Bound:
+    """K3 on B fields of h x w pixels and C channels: ``inner_iter`` rounds
+    of ``solve_iter`` SOR iterations."""
+    return _varref_bound(B, h, w, C, inner_iter, solve_iter)
+
+
+def varref_tiled_bound(B: int, h: int, w: int, C: int, inner_iter: int,
+                       solve_iter: int) -> Bound:
+    """K4 (either route): K3's function, so K3's count."""
+    return _varref_bound(B, h, w, C, inner_iter, solve_iter)
+
+
+def warp_bound(B: int, h: int, w: int, C: int) -> Bound:
+    """K5 on frames [B, h, w, C] with flows wx, wy [B, h, w] -> warped
+    [B, h, w, C] and mask [B, h, w]."""
+    n = B * h * w
+    return bound(n * (2 * C + 3) * 4,
+                 n * (WARP_PIXEL_FLOPS + WARP_CHANNEL_FLOPS * C))

@@ -2,19 +2,27 @@
 batch of frames.
 
 Replaces ``flowonthego_tpu/ops/pallas/dis_gn.py`` (``gn_scale_loop``,
-kernel ``_kernel``) with ``csrc/dis_gn.cu``.  On the card the solve is
-bound by latency, not bytes or flops: an op-2 scale has 32-510 patches of
-ps*ps*C = 192 values and runs 12 dependent iterations, each a window
-load, three reductions and a 2x2 solve.  So the kernel runs one CTA per
-patch with one thread per template value, keeps the template and its
-gradients in registers, reads each iteration's (ps+1)^2*C window straight
-from the padded level image (L1/L2-resident), and reduces with warp
-shuffles.  The TPU kernel's envelopes, band pairs and radix shift selects
-worked around the lack of a gather on the TPU and are not carried over.
+kernel ``_kernel``) with ``csrc/dis_gn.cu``.  The solve needs little of
+the card (op 4's largest call ~8.7 GFLOP and ~91 MB, ``bounds.gn_bound``);
+what it pays for is the SMs' dispatch rate, barriers and the L1 wavefronts
+of its tap loads.  So the kernel runs one warp per patch (a CTA is one
+warp): lane l owns values l, l + 32, ... of the patch and keeps their
+template value, gradients and window offset in registers (the kernel is
+instantiated for ps 8 and 12 at C = 1 and 3; any other patch of up to
+1024 values takes a generic form with that state in shared memory); the
+window origin and the four bilinear weights are computed once per warp
+and iteration; the three sums of an iteration are per-lane partials and
+one shuffle butterfly each, after which every lane holds the same
+totals, so the 2x2 step, the outlier test and the early stop are uniform
+per warp with no shared memory and no block barrier in the loop.  The
+TPU kernel's envelopes, band pairs and radix shift selects worked around
+the lack of a gather on the TPU and are not carried over.
 
-A batch of B frames is one launch of B*P CTAs (P patches a frame); CTA
-k solves patch k % P of frame k / P against that frame's level image,
-as a ``vmap`` of the Pallas call adds one grid axis.
+A batch of B frames is one launch over B*P patches (P a frame); patch k
+solves patch k % P of frame k / P against that frame's level image, as a
+``vmap`` of the Pallas call adds one grid axis.  A patch's arithmetic
+does not depend on where in the launch it runs, so a frame of a batch
+equals its own launch bit for bit.
 
 bf16 operand mode (``bf16=True``, ``cfg.dtype="bfloat16"``), the Pallas
 kernel's form (``dis_gn.py:90-94``): the wrapper rounds the level image,
@@ -65,7 +73,8 @@ def patch_sums(templates, tgrad_x, tgrad_y) -> torch.Tensor:
 def gn_scale_loop_plain(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org,
                         p_cur, p_org, started, *, n_iters: int, padding: int,
                         thresh: float, l_bound: float, ub_w: float,
-                        ub_h: float, mean_on: float, bf16: bool = False):
+                        ub_h: float, mean_on: float, bf16: bool = False,
+                        count_iters: bool = False):
     """Plain PyTorch version of the scale solve.
 
     I1_pad [B, Hp, Wp, C]; templates, tgrad_x, tgrad_y [B, n_h, n_w, ps,
@@ -76,7 +85,9 @@ def gn_scale_loop_plain(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org,
     residual at the final position.  With ``bf16`` the image, templates
     and gradients are rounded to bf16 (the sums of the projection's
     constant terms are not).  Returns (p [B, n_h, n_w, 2], cost_px like
-    templates).
+    templates), and with ``count_iters`` a third value: the iterations
+    each patch ran [B, n_h, n_w] (0 if never started, k if it reset at
+    iteration k), the work a bound on these inputs counts.
     """
     ps = templates.shape[-3]
     N = templates[0, 0, 0].numel()
@@ -113,7 +124,11 @@ def gn_scale_loop_plain(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org,
         return p, active & ~outlier
 
     p, active = p_cur, started
+    iters = torch.zeros(started.shape, dtype=torch.int64,
+                        device=started.device)
     for _ in range(n_iters):
+        if count_iters:
+            iters += active
         p, active = gn_step(p, active)
 
     mid = mid_org + p
@@ -123,7 +138,7 @@ def gn_scale_loop_plain(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org,
         raw = raw - raw.mean(dim=_PATCH, keepdim=True)
     diff = raw - templates
     cost_px = torch.where(started[..., None, None, None], diff * diff, 0.0)
-    return p, cost_px
+    return (p, cost_px, iters) if count_iters else (p, cost_px)
 
 
 def _check(name, x, shape, dtype=torch.float32):
@@ -160,8 +175,8 @@ def gn_scale_loop(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org, p_cur,
         _check(name, x, (B, n_h, n_w, 2))
     _check("started", started, (B, n_h, n_w), torch.bool)
     if N > 1024:
-        raise ValueError(f"gn_scale_loop: {N} values per patch exceed one "
-                         "CTA of 1024 threads")
+        raise ValueError(f"gn_scale_loop: {N} values per patch exceed the "
+                         "kernel's 1024 (32 a lane)")
     if Hp < ps + 1 or Wp < ps + 1:
         raise ValueError("gn_scale_loop: level image smaller than a window")
     dev = I1_pad.device

@@ -9,15 +9,15 @@ smoothness, robust colour + gradient data term, sub-Laplacian and
 :func:`warp_and_derivs`, as on the TPU.
 
 The resolver in ``ops/variational.py`` sends a field here when it is at
-or below its pixel threshold (op-2 fields, the coarse op-3/op-4 scales),
-and to K4 (:mod:`.varref_tiled`) above it.  On such a field the loop is
-bound by latency: each round is ~9 dependent stencil phases over a few
-thousand pixels.  The plain version issues ~100 small PyTorch ops per
-round; the kernel runs the whole loop in one CTA of 1024 threads walking
-the field grid-stride, with its 10 work planes in device memory, where
-they stay L2-resident, and ``__syncthreads()`` between phases.  The TPU
-design (all ~34 planes in one VMEM block) does not fit a CTA's 227 KB of
-shared memory.
+or below its pixel threshold (the coarsest scale of every path), and to
+K4 (:mod:`.varref_tiled`) above it.  On such a field the loop is bound
+by latency: each round is 2 + 2 * ``var_ref_iter`` dependent stencil
+phases over a few hundred pixels.  The plain version launches ~100 small
+PyTorch ops per round; the kernel runs the whole loop in one CTA of 1024
+threads walking the field grid-stride, with its 9 work planes in device
+memory, where they stay L2-resident, and ``__syncthreads()`` between
+phases.  The TPU design (all ~34 planes in one VMEM block) does not fit
+a CTA's 227 KB of shared memory.
 
 A batch of B fields is one launch of B CTAs, one per field, each with its
 own planes and scratch.
@@ -37,7 +37,7 @@ from ..variational import Derivatives, get_derivatives, refine_loop
 # Kernel launches since the last reset (read and reset by chip_smoke.py).
 launches = 0
 
-_N_SCRATCH = 10   # s, s_h, s_v, A11, A22, a12, b1, b2, du, dv
+_N_SCRATCH = 9   # s_h, s_v, A11, A22, a12, b1, b2, du, dv
 
 
 def warp_and_derivs(flow, im1, im2, cfg):
@@ -66,10 +66,13 @@ def refine_inner_plain(wx, wy, mask, dIs, cfg, inner_iter: int):
     return refine_loop(wx, wy, mask, d, cfg, inner_iter)
 
 
-def launch_loop(entry: str, wx, wy, mask, dIs, cfg, inner_iter: int):
-    """Check the planes and launch the C entry ``entry`` (K3's or K4's:
-    both take the same arguments) once for the batch -> (uu, vv) [B, h,
-    w]."""
+def launch_loop(entry: str, wx, wy, mask, dIs, cfg, inner_iter: int,
+                plan=None):
+    """Check the planes and launch the C entry ``entry`` once for the
+    batch -> (uu, vv) [B, h, w].  K3's and K4's grid route take 9 scratch
+    planes in device memory; K4's cluster route keeps them in shared
+    memory and takes its ``plan`` (CTAs per cluster, rows per CTA)
+    instead."""
     B, h, w = wx.shape
     C = dIs.shape[2]
     for name, x, shape in (("wx", wx, (B, h, w)), ("wy", wy, (B, h, w)),
@@ -81,8 +84,12 @@ def launch_loop(entry: str, wx, wy, mask, dIs, cfg, inner_iter: int):
         if x.device != wx.device or not x.is_contiguous():
             raise ValueError(f"{entry}: {name} must be contiguous on "
                              f"{wx.device}")
-    scratch = torch.empty((_N_SCRATCH, B, h, w), dtype=torch.float32,
-                          device=wx.device)
+    if plan is None:
+        scratch = torch.empty((_N_SCRATCH, B, h, w), dtype=torch.float32,
+                              device=wx.device)
+        extra = (scratch.data_ptr(),)
+    else:
+        extra = tuple(plan)
     uu = torch.empty_like(wx)
     vv = torch.empty_like(wx)
     fn = getattr(_build.load_library(), entry)
@@ -92,7 +99,7 @@ def launch_loop(entry: str, wx, wy, mask, dIs, cfg, inner_iter: int):
                  float(cfg.var_ref_sor_weight), float(0.25 * cfg.var_ref_alpha),
                  float(cfg.var_ref_delta * 0.5 / 3.0),
                  float(cfg.var_ref_gamma * 0.5 / 3.0),
-                 scratch.data_ptr(), uu.data_ptr(), vv.data_ptr(),
+                 *extra, uu.data_ptr(), vv.data_ptr(),
                  _build.stream_handle(wx))
     _build.check(err, entry)
     return uu, vv

@@ -13,10 +13,12 @@ half_gamma_over3 = gamma/6.
 
 :func:`variational_refine_auto` routes each field by
 :func:`varref_backend_for`: the plain stencils here, the K3 kernel
-(:mod:`.cuda.varref_fused`, one CTA) up to :data:`FUSED_MAX_PIXELS`, or
-the K4 kernel (:mod:`.cuda.varref_tiled`, the whole card) above it.
-The choice is by the size of one field, whatever the batch: K3 runs one
-CTA per frame, K4 one launch over the batch.
+(:mod:`.cuda.varref_fused`, one CTA) up to :data:`FUSED_MAX_PIXELS`, the
+K4 kernel's cluster route (:mod:`.cuda.varref_tiled`, one thread-block
+cluster a field) up to :data:`CLUSTER_MAX_PIXELS`, or its grid route (the
+whole card) above that.  The choice is by the size of one field,
+whatever the batch: K3 runs one CTA per frame, the cluster route one
+cluster per frame, the grid route one launch over the batch.
 """
 
 from __future__ import annotations
@@ -33,23 +35,38 @@ EPS_GRAD = 0.001 * 0.001
 EPS_SMOOTH = 0.001 * 0.001
 
 
-# Largest field (pixels) that goes to K3 on the card; larger ones go to K4.
-# The crossover of the two kernels' times on an H100 80GB HBM3 at 700 W:
-# K3 is faster at 896 px (0.069 vs 0.097 ms), K4 at 1,344 px (0.096 vs
-# 0.111 ms) and beyond (PERF.md); linear between the two.
-FUSED_MAX_PIXELS = 1_180
+# Both thresholds are crossovers of the kernels' times on an H100 80GB HBM3
+# at 700 W, by the sweep that chip_smoke.py prints (device time of
+# back-to-back launches, at B = 1 and B = 4; PERF.md), linear between the
+# two sweep points around each and averaged over six sweeps.
+# Largest field (pixels) that goes to K3; larger ones go to K4.  K3 is the
+# faster at 448 px (0.053 vs 0.055 ms for the cluster route), the cluster
+# route at 896 px (0.046 vs 0.065 ms) and beyond: 466-498 px in the sweeps.
+FUSED_MAX_PIXELS = 490
+# Largest field (pixels) on K4's cluster route; larger ones, and any field
+# whose rows do not fit the cluster's shared memory, take the grid route.
+# The cluster route is the faster at 3,840 px (0.063 vs 0.073 ms), the grid
+# route at 7,168 px (0.059 vs 0.066 ms) and beyond, where 8 CTAs cannot
+# get through a phase as fast as 28 can: 5,847-6,103 px in the sweeps.
+CLUSTER_MAX_PIXELS = 6_000
 
 
 def varref_backend_for(cfg: DISConfig, h: int, w: int,
                        device_type: str) -> str:
     """Resolve ``cfg.varref_backend`` for an h x w field on a device of
     ``device_type`` ("cpu", "cuda"): "xla" (the plain stencils), "fused"
-    (K3) or "tiled" (K4).  The TPU package's Mosaic compile probe, its
-    seeded verdicts and its 128-lane width rule guard a TPU compiler and
-    have no counterpart here."""
+    (K3), "cluster" or "tiled" (K4's cluster and grid routes).  The TPU
+    package's Mosaic compile probe, its seeded verdicts and its 128-lane
+    width rule guard a TPU compiler and have no counterpart here."""
     if not use_kernel_on(cfg.varref_backend, device_type):
         return "xla"
-    return "fused" if h * w <= FUSED_MAX_PIXELS else "tiled"
+    if h * w <= FUSED_MAX_PIXELS:
+        return "fused"
+    if h * w <= CLUSTER_MAX_PIXELS:
+        from .cuda.varref_tiled import cluster_plan
+        if cluster_plan(h, w).fits:
+            return "cluster"
+    return "tiled"
 
 
 def variational_refine_auto(flow, im1, im2, cfg: DISConfig, level: int):
@@ -60,9 +77,11 @@ def variational_refine_auto(flow, im1, im2, cfg: DISConfig, level: int):
     if backend == "fused":
         from .cuda.varref_fused import variational_refine_fused
         return variational_refine_fused(flow, im1, im2, cfg, level)
-    if backend == "tiled":
+    if backend in ("cluster", "tiled"):
         from .cuda.varref_tiled import variational_refine_tiled
-        return variational_refine_tiled(flow, im1, im2, cfg, level)
+        return variational_refine_tiled(
+            flow, im1, im2, cfg, level,
+            route="cluster" if backend == "cluster" else "grid")
     return variational_refine(flow, im1, im2, cfg, level)
 
 

@@ -25,18 +25,22 @@ from ..models.dis_flow import (as_image, dis_flow_from_pyramids,
                                upsample_flow_to_full)
 from ..ops.pyramid import build_pyramid
 from ..ops.resize import resize_linear_antialias
+from ..utils.device import resolve_device
 
 
-def batched_flow(I0, I1, cfg: DISConfig, full_res: bool = True
-                 ) -> torch.Tensor:
+def batched_flow(I0, I1, cfg: DISConfig, full_res: bool = True,
+                 device=None) -> torch.Tensor:
     """Flow for a batch of padded frame pairs.
 
     I0, I1: [B, H, W, C] (numpy or tensors) with H, W divisible by
-    2**coarsest_scale; they run where I0 lies (numpy on the CPU).
+    2**coarsest_scale.  They run on ``device``; with ``device=None``
+    tensors run where I0 lies and numpy inputs on the GPU (without one
+    that raises: pass ``device="cpu"``).
     Returns [B, H, W, 2] (``full_res``) or [B, H/2^fs, W/2^fs, 2].
     """
-    I0 = as_image(I0)
-    I1 = as_image(I1, I0.device)
+    device = resolve_device(device, I0, I1)
+    I0 = as_image(I0, device)
+    I1 = as_image(I1, device)
     if I0.dim() != 4 or I0.shape != I1.shape:
         raise ValueError(f"batched_flow takes two [B, H, W, C] batches of "
                          f"one shape, got {tuple(I0.shape)} and "
@@ -62,7 +66,9 @@ def stream_flow(frames: Iterable, cfg: DISConfig, full_res: bool = True,
 
     frames: [H, W, 1|3] images (numpy or tensors), pre-padded to
     2^coarsest_scale divisibility, all of one shape.  They run on
-    ``device`` (default: where each frame lies; numpy on the CPU).
+    ``device``; with ``device=None`` the stream runs where its first
+    frame lies if that is a tensor, and on the GPU if it is a numpy array
+    (without a GPU that raises: pass ``device="cpu"``).
     Yields [H, W, 2] (``full_res``) or finest-scale flows, as numpy with
     ``fetch`` or as device tensors without.
     """
@@ -73,6 +79,8 @@ def stream_flow(frames: Iterable, cfg: DISConfig, full_res: bool = True,
     init = None
     shape0 = None
     for frame in frames:
+        if shape0 is None:
+            device = resolve_device(device, frame)
         cur = as_image(frame, device)
         if cur.dim() != 3 or cur.shape[2] not in (1, 3):
             raise ValueError(

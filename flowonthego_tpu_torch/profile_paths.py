@@ -30,7 +30,9 @@ import time
 import torch
 
 # device-kernel name fragment -> the row it is counted under, first match
-CATEGORIES = (("dis_gn_kernel", "K2 gn"), ("varref_tiled_kernel", "K4"),
+CATEGORIES = (("dis_gn_kernel", "K2 gn"),
+              ("varref_cluster_kernel", "K4 cluster"),
+              ("varref_tiled_kernel", "K4 grid"),
               ("varref_kernel", "K3"), ("warp_kernel", "K5 warp"),
               ("pool2x2_kernel", "K1 pool"), ("Memcpy", "copies"),
               ("Memset", "copies"), ("gemm", "GEMM"),

@@ -74,7 +74,7 @@ def test_batched_flow_matches_jax(mode):
     jc = dataclasses.replace(JCFG, **MODES[mode])
     I0, I1 = _pairs()
     ref = np.asarray(jfp.batched_flow(jnp.asarray(I0), jnp.asarray(I1), jc))
-    got = port.batched_flow(I0, I1, _pcfg(jc))
+    got = port.batched_flow(I0, I1, _pcfg(jc), device="cpu")
     assert got.shape == (B, H, W, 2)
     for b in range(B):
         assert_flow_band(got[b].numpy(), ref[b])
@@ -88,12 +88,12 @@ def test_batched_frame_matches_single_pair(full_res):
     differently (ulps of values < 100)."""
     cfg = _pcfg(JCFG)
     I0, I1 = _pairs()
-    got = port.batched_flow(I0, I1, cfg, full_res=full_res)
+    got = port.batched_flow(I0, I1, cfg, full_res=full_res, device="cpu")
     for b in range(B):
         single = port.dis_flow_padded(torch.as_tensor(I0[b])[None],
                                       torch.as_tensor(I1[b])[None], cfg)[0]
         if full_res:
-            single = port.compute_flow(I0[b], I1[b], cfg)
+            single = port.compute_flow(I0[b], I1[b], cfg, device="cpu")
         np.testing.assert_allclose(got[b].numpy(), single.numpy(), rtol=0,
                                    atol=1e-5)
         # and it found its own frame's motion, not a neighbour's
@@ -105,9 +105,9 @@ def test_batched_frame_matches_single_pair(full_res):
 def test_batched_flow_rejects_mismatched_batches():
     I0, I1 = _pairs()
     with pytest.raises(ValueError):
-        port.batched_flow(I0, I1[:2], _pcfg(JCFG))
+        port.batched_flow(I0, I1[:2], _pcfg(JCFG), device="cpu")
     with pytest.raises(ValueError):
-        port.batched_flow(I0[0], I1[0], _pcfg(JCFG))
+        port.batched_flow(I0[0], I1[0], _pcfg(JCFG), device="cpu")
 
 
 def test_multistream_matches_jax():
@@ -140,7 +140,8 @@ def test_multistream_matches_stream_flow():
     ms.start(np.stack([v[0] for v in videos]))
     got = [ms.push(np.stack([v[t] for v in videos])) for t in range(1, 4)]
     for k, v in enumerate(videos):
-        want = list(port.stream_flow(v, cfg, full_res=False))
+        want = list(port.stream_flow(v, cfg, full_res=False,
+                                     device="cpu"))
         for t, w in enumerate(want):
             np.testing.assert_allclose(got[t][k].numpy(), w, rtol=0,
                                        atol=1e-5)
@@ -180,7 +181,7 @@ def test_stream_video_chunks_matches_jax():
     starts = [k * 8 // 4 for k in range(5)]
     for k in range(4):
         lo, hi = starts[k], starts[k + 1]
-        want = list(port.stream_flow(video[lo:hi + 1], cfg))
+        want = list(port.stream_flow(video[lo:hi + 1], cfg, device="cpu"))
         np.testing.assert_allclose(got[lo:hi], np.stack(want), rtol=0,
                                    atol=1e-5)
 
@@ -335,8 +336,9 @@ def test_fb_merge_serial_on_cpu(rng):
         assert torch.equal(got.reshape(-1, 3), serial[:-1])
         frames = _pairs()
         cfg = _pcfg(dataclasses.replace(JCFG, use_fb_consistency=True))
-        first = port.batched_flow(*frames, cfg)
-        assert torch.equal(port.batched_flow(*frames, cfg), first)
+        first = port.batched_flow(*frames, cfg, device="cpu")
+        assert torch.equal(port.batched_flow(*frames, cfg, device="cpu"),
+                           first)
     finally:
         torch.set_num_threads(threads)
 

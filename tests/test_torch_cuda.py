@@ -46,14 +46,15 @@ def test_pool_kernel(cuda, dtype, bias):
     torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-4)
 
 
-def _level_state(device, h, w, warm, channels=3, n_frames=1):
+def _level_state(device, h, w, warm, channels=3, n_frames=1, patch_size=8):
     """A level's patch state of ``n_frames`` frames (frame b from seed
     1 + b) and the padded target levels [B, Hp, Wp, C]."""
     pairs = [synthetic_frames(1 + b, 2, h, w, (1, 1), channels=channels,
                               factor=4) for b in range(n_frames)]
-    cfg = port.operating_point(2)
+    cfg = dataclasses.replace(port.operating_point(2), patch_size=patch_size)
     lvl0, lvl1 = (build_pyramid(torch.as_tensor(np.stack([p[k] for p in pairs]),
-                                                device=device), 1, 8)[0]
+                                                device=device), 1,
+                                cfg.padding)[0]
                   for k in (0, 1))
     grid = PatchGrid.create(cfg, w, h)
     state = dis_mod.init_state(*extract_templates_and_hessians(
@@ -95,6 +96,44 @@ def test_varref_kernel(cuda, level):
                                              level + 1)
     torch.testing.assert_close(uu, ru, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(vv, rv, rtol=1e-4, atol=1e-5)
+
+
+def _gn_call(cfg, grid, state, I1p):
+    """K2's positional and keyword arguments for a level's state."""
+    args = (I1p, state.templates, state.tgrad_x, state.tgrad_y, state.H,
+            state.mid_org, state.p_cur, state.p_org, ~state.converged)
+    kw = dict(n_iters=cfg.grad_descent_iter, padding=grid.padding,
+              thresh=cfg.outlier_thresh, l_bound=grid.l_bound,
+              ub_w=grid.u_bound_w, ub_h=grid.u_bound_h, mean_on=1.0)
+    return args, kw
+
+
+# the four compiled (ps, C) with their per-value state in registers, and
+# sizes that take the generic form (18x18x3 = 972 of its 1024 values)
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("ps,channels", [(8, 1), (8, 3), (12, 1), (12, 3),
+                                         (10, 1), (6, 3), (10, 3), (18, 3)])
+def test_gn_kernel_forms(cuda, ps, channels, bf16):
+    """Every form of K2 (one warp a patch) against the plain version on a
+    warm-started batch of two frames, float32 and bf16 operands; two runs
+    give the same bits; a frame of the batch equals its own launch bit for
+    bit (a patch's arithmetic does not depend on its place in the launch)."""
+    cfg, grid, state, I1p = _level_state(cuda, 56, 128, True, channels, 2,
+                                         patch_size=ps)
+    args, kw = _gn_call(cfg, grid, state, I1p)
+    assert state.templates.shape[-3:] == (ps, ps, channels)
+    n0 = dis_gn.launches
+    p, cost = dis_gn.gn_scale_loop(*args, **kw, bf16=bf16)
+    assert dis_gn.launches == n0 + 1
+    rp, rcost = dis_gn.gn_scale_loop_plain(*args, **kw, bf16=bf16)
+    torch.testing.assert_close(p, rp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(cost, rcost, rtol=1e-3, atol=1e-3)
+    p2, cost2 = dis_gn.gn_scale_loop(*args, **kw, bf16=bf16)
+    assert torch.equal(p2, p) and torch.equal(cost2, cost)
+    for b in range(2):
+        pb, cb = dis_gn.gn_scale_loop(*(x[b:b + 1] for x in args), **kw,
+                                      bf16=bf16)
+        assert torch.equal(pb[0], p[b]) and torch.equal(cb[0], cost[b])
 
 
 def _varref_planes(device, h, w, cfg, channels=3, n_frames=1):
@@ -158,6 +197,77 @@ def test_varref_tiled_kernel(cuda):
     torch.testing.assert_close(v4, v3, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("h,w,level,channels", [
+    (28, 64, 4, 3), (34, 60, 6, 3), (56, 128, 3, 1), (112, 256, 2, 3),
+    (9, 200, 2, 3)])
+def test_varref_cluster_route(cuda, h, w, level, channels):
+    """K4's cluster route (work planes in the CTAs' shared memory, halo
+    rows through distributed shared memory), its grid route and K3 run
+    one loop: bit-identical on a field all three take, within tolerance
+    of the plain loop; a batch of four (one cluster a frame) matches each
+    frame alone.  9x200 splits into 8 CTAs: four of 2 rows, one of 1 and
+    three with none."""
+    cfg = port.operating_point(3)
+    P = _varref_planes(cuda, h, w, cfg, channels, n_frames=B)
+    assert varref_tiled.cluster_plan(h, w).fits
+    n0, c0 = varref_tiled.launches, varref_tiled.launches_cluster
+    uu, vv = varref_tiled.refine_inner_tiled(*P, cfg, level + 1,
+                                             route="cluster")
+    assert (varref_tiled.launches, varref_tiled.launches_cluster) == (
+        n0 + 1, c0 + 1)
+    ru, rv = varref_tiled.refine_inner_plain(*P, cfg, level + 1)
+    torch.testing.assert_close(uu, ru, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(vv, rv, rtol=1e-4, atol=1e-5)
+    ug, vg = varref_tiled.refine_inner_tiled(*P, cfg, level + 1,
+                                             route="grid")
+    assert varref_tiled.launches_cluster == c0 + 1
+    u3, v3 = varref_fused.refine_inner(*P, cfg, level + 1)
+    assert torch.equal(uu, ug) and torch.equal(vv, vg)
+    assert torch.equal(uu, u3) and torch.equal(vv, v3)
+    for b in range(B):
+        ub, vb = varref_tiled.refine_inner_tiled(
+            *(x[b:b + 1] for x in P), cfg, level + 1, route="cluster")
+        assert torch.equal(ub[0], uu[b]) and torch.equal(vb[0], vv[b])
+
+
+def test_varref_cluster_refused_launch_raises(cuda):
+    """A field whose rows do not fit the cluster's shared memory: the card
+    refuses the launch and the wrapper raises; nothing is counted, nothing
+    is sent to the grid route, and the next launch works."""
+    cfg = port.operating_point(3)
+    P = _varref_planes(cuda, 224, 512, cfg)
+    assert not varref_tiled.cluster_plan(224, 512).fits
+    n0 = varref_tiled.launches
+    with pytest.raises(RuntimeError, match="fot_varref_cluster"):
+        varref_tiled.refine_inner_tiled(*P, cfg, 2, route="cluster")
+    with pytest.raises(ValueError, match="route"):
+        varref_tiled.refine_inner_tiled(*P, cfg, 2, route="auto")
+    assert varref_tiled.launches == n0
+    uu, _ = varref_tiled.refine_inner_tiled(*P, cfg, 2, route="grid")
+    assert torch.isfinite(uu).all()
+
+
+def test_compute_flow_takes_both_k4_routes(cuda):
+    """Op 3 on a 1024x436 pair: scale 5 goes to K3, scale 4 to K4's cluster
+    route, the finer scales to its grid route, as the resolver says."""
+    from flowonthego_tpu_torch.ops.variational import varref_backend_for
+    cfg = port.operating_point(3, width=1024)
+    want = [varref_backend_for(cfg, 448 >> s, 1024 >> s, "cuda")
+            for s in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1)]
+    assert want[:2] == ["fused", "cluster"] and want[-1] == "tiled"
+    i0, i1 = synthetic_frames(5, 2, 436, 1024, (4, 2), factor=8)
+    n3, n4, nc = (varref_fused.launches, varref_tiled.launches,
+                  varref_tiled.launches_cluster)
+    flow = port.compute_flow(i0, i1, cfg)       # numpy, no device: the card
+    assert flow.is_cuda
+    assert varref_fused.launches - n3 == want.count("fused")
+    assert varref_tiled.launches_cluster - nc == want.count("cluster")
+    assert varref_tiled.launches - n4 == (want.count("cluster")
+                                          + want.count("tiled"))
+    med = flow[16:-16, 16:-16].reshape(-1, 2).median(dim=0).values.cpu()
+    np.testing.assert_allclose(med.numpy(), [4.0, 2.0], atol=0.1)
+
+
 def test_warp_kernel(cuda):
     """K5 is bit-exact with the plain warp, border clamps, a batch of two
     frames and a frame- and row-strided source included."""
@@ -193,28 +303,34 @@ def test_compute_flow_op4_runs_k4_k5(cuda):
 
 
 def test_compute_flow_runs_all_kernels(cuda):
+    """Op 2 on 124x256 from scale 4 (fields of 128 to 8,192 px): K1, K2,
+    K3, both routes of K4 and K5."""
     i0, i1 = synthetic_frames(3, 2, 124, 256, (2, 1), factor=4)
-    counts = [m.launches for m in (pool, dis_gn, varref_fused)]
-    got = port.compute_flow(i0, i1, device=cuda)
-    assert all(m.launches > n for m, n in
-               zip((pool, dis_gn, varref_fused), counts))
+    cfg = dataclasses.replace(port.operating_point(2, width=256),
+                              coarsest_scale=4)
+    mods = (pool, dis_gn, varref_fused, varref_tiled, warp)
+    counts = [m.launches for m in mods]
+    n_cluster = varref_tiled.launches_cluster
+    got = port.compute_flow(i0, i1, cfg, device=cuda)
+    assert all(m.launches > n for m, n in zip(mods, counts))
+    assert 0 < (varref_tiled.launches_cluster - n_cluster) < (
+        varref_tiled.launches - counts[3])
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
-    plain = dataclasses.replace(port.operating_point(2, width=256),
-                                gn_backend="xla", varref_backend="xla")
+    plain = dataclasses.replace(cfg, gn_backend="xla", varref_backend="xla")
     ref = port.compute_flow(i0, i1, plain, device=cuda)
     epe = torch.linalg.vector_norm(got - ref, dim=-1).double().cpu().numpy()
     assert epe.mean() <= 1e-3 and np.quantile(epe, 0.99) <= 1e-2
 
 
 def test_fb_flow_deterministic(cuda):
-    """Forward-backward consistency runs K1-K3 and K5 on both grids, and
+    """Forward-backward consistency runs K1-K5 on both grids, and
     its merge (a scatter at data-dependent positions) adds in a fixed
     order: two runs agree bit for bit, and the flow is within the band of
     the all-plain path."""
     i0, i1 = synthetic_frames(3, 2, 124, 256, (2, 1), factor=4)
     cfg = dataclasses.replace(port.operating_point(2, width=256),
-                              use_fb_consistency=True)
+                              coarsest_scale=4, use_fb_consistency=True)
     mods = (pool, dis_gn, varref_fused, warp)
     counts = [m.launches for m in mods]
     first = port.compute_flow(i0, i1, cfg, device=cuda)

@@ -193,6 +193,71 @@ def test_gn_solve_matches_pallas_oracle(rng, warm, gd_iter):
     np.testing.assert_allclose(pd[0].numpy(), jd, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("ps,C", [(6, 1), (6, 3), (10, 1), (10, 3)])
+def test_gn_solve_patch_sizes_match_jax(rng, ps, C, backend):
+    """The plain solve at the patch sizes that take the CUDA kernel's
+    generic form (even sizes other than 8 and 12), one and three channels,
+    warm-started, against JAX's XLA loop and its Pallas kernel in
+    interpret mode: p rtol/atol 1e-4, cost_px rtol/atol 1e-3 (the sums run
+    over the same values in another order).  The scene is smoothed less
+    than the other K2 tests' (sigma 1.5, not 4): a 36-value one-channel
+    patch of the smoother scene has a Hessian close to singular, which
+    turns an ulp of the sums into ~1e-3 px."""
+    jc = JaxConfig(coarsest_scale=1, finest_scale=1, patch_size=ps,
+                   grad_descent_iter=8, gn_backend=backend)
+    base = _smooth(rng, 48, 64, C, sigma=1.5)
+    i0, i1 = base[8:56, 8:72], base[9:57, 6:70]        # moved by (2, -1)
+    coarse = rng.standard_normal((24, 32, 2)).astype(np.float32) * 1.5
+    grid, jstate = _jax_state(jc, i0, coarse)
+    I1p = jpyramid.pad_replicate(jnp.asarray(i1), jc.padding)
+    ref = jdis.optimize(jstate, I1p, grid, jc)
+
+    pc = config_from_jax(dataclasses.asdict(jc))
+    pstate = patch_state_from_numpy(
+        {k: np.asarray(v) for k, v in jstate._asdict().items()})
+    pgrid = ppatches.PatchGrid.create(pc, 64, 48)
+    assert pstate.templates.shape[-3:] == (ps, ps, C)
+    got = pdis.optimize(pstate, _t(I1p)[None], pgrid,
+                        dataclasses.replace(pc, gn_backend="auto"))
+    np.testing.assert_allclose(got.p_cur[0].numpy(), np.asarray(ref.p_cur),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.cost_px[0].numpy(),
+                               np.asarray(ref.cost_px), rtol=1e-3, atol=1e-3)
+    # some patches moved, some were frozen at the warm start
+    assert (np.abs(got.p_cur[0].numpy() - np.asarray(jstate.p_cur)).max()
+            > 1e-2)
+
+
+def test_gn_plain_counts_iterations(rng):
+    """``count_iters`` changes nothing and counts what ran: 0 for a patch
+    frozen at the warm start, at most ``n_iters``, fewer for a patch the
+    outlier test stopped."""
+    from flowonthego_tpu_torch.ops.cuda.dis_gn import gn_scale_loop_plain
+    jc = JaxConfig(coarsest_scale=1, finest_scale=1, grad_descent_iter=12)
+    i0, i1 = _scene(rng, 48, 64, shift=(3, -2))
+    coarse = rng.standard_normal((24, 32, 2)).astype(np.float32) * 2.0
+    grid, jstate = _jax_state(jc, i0, coarse)
+    st = patch_state_from_numpy(
+        {k: np.asarray(v) for k, v in jstate._asdict().items()})
+    I1p = _t(jpyramid.pad_replicate(jnp.asarray(i1), jc.padding))[None]
+    args = (I1p, st.templates, st.tgrad_x, st.tgrad_y, st.H, st.mid_org,
+            st.p_cur, st.p_org, ~st.converged)
+    kw = dict(n_iters=12, padding=grid.padding, thresh=jc.outlier_thresh,
+              l_bound=grid.l_bound, ub_w=grid.u_bound_w, ub_h=grid.u_bound_h,
+              mean_on=1.0)
+    p, cost = gn_scale_loop_plain(*args, **kw)
+    p2, cost2, iters = gn_scale_loop_plain(*args, **kw, count_iters=True)
+    assert torch.equal(p, p2) and torch.equal(cost, cost2)
+    assert iters.shape == st.converged.shape
+    assert not iters[st.converged].any() and (iters[~st.converged] >= 1).all()
+    assert int(iters.max()) == 12 and 0 < int(iters.sum()) < 12 * iters.numel()
+    # one iteration fewer allowed: every patch that ran all 12 now runs 11
+    iters11 = gn_scale_loop_plain(*args, **dict(kw, n_iters=11),
+                                  count_iters=True)[2]
+    assert torch.equal(iters11, iters.clamp(max=11))
+
+
 def test_init_from_coarser_matches_jax(rng):
     """The warm-start lookup, exact.  A 1/2^(cs+1) warm start of a 4K
     frame padded to 2176 rows has 8 rows where the 17-row coarsest grid

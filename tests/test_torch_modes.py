@@ -130,10 +130,11 @@ def test_compute_flow_fb_matches_jax(use_var_ref):
     kw = dict(coarsest_scale=3, finest_scale=1, use_var_ref=use_var_ref,
               use_fb_consistency=True)
     ref = np.asarray(fot.compute_flow(i0, i1, JaxConfig(**kw)))
-    got = port.compute_flow(i0, i1, port.DISConfig(**kw)).numpy()
+    got = port.compute_flow(i0, i1, port.DISConfig(**kw),
+                            device="cpu").numpy()
     assert_flow_band(got, ref)
     no_fb = port.compute_flow(i0, i1, port.DISConfig(
-        **dict(kw, use_fb_consistency=False))).numpy()
+        **dict(kw, use_fb_consistency=False)), device="cpu").numpy()
     assert np.abs(got - no_fb).max() > 1e-4
 
 
@@ -147,7 +148,7 @@ def test_config_from_jax_carries_mode_fields():
     pc = config_from_jax(dataclasses.asdict(jc))
     assert dataclasses.asdict(pc) == dataclasses.asdict(jc)
     i0, i1 = synthetic_frames(7, 2, 48, 64, (1, 1), factor=4)
-    assert_flow_band(port.compute_flow(i0, i1, pc).numpy(),
+    assert_flow_band(port.compute_flow(i0, i1, pc, device="cpu").numpy(),
                      np.asarray(fot.compute_flow(i0, i1, jc)))
 
 
@@ -177,7 +178,7 @@ def test_compute_disparity_matches_jax(cam_lr, channels):
     kw = dict(coarsest_scale=3, finest_scale=1, use_var_ref=False)
     ref = np.asarray(jax_disparity(i0, i1, JaxConfig(**kw), cam_lr=cam_lr))
     got = port.compute_disparity(i0, i1, port.DISConfig(**kw),
-                                 cam_lr=cam_lr).numpy()
+                                 cam_lr=cam_lr, device="cpu").numpy()
     assert got.shape == (64, 96)
     assert_flow_band(np.stack([got, np.zeros_like(got)], -1),
                      np.stack([ref, np.zeros_like(ref)], -1))
@@ -190,7 +191,7 @@ def test_compute_disparity_default_config(rng):
     variational refinement, as JAX."""
     i0, i1 = synthetic_frames(9, 2, 48, 64, (-1, 0), factor=4)
     ref = np.asarray(jax_disparity(i0, i1))
-    got = port.compute_disparity(i0, i1).numpy()
+    got = port.compute_disparity(i0, i1, device="cpu").numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-3)
 
 

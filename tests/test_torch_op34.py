@@ -104,19 +104,67 @@ def test_varref_tiled_matches_pallas_oracle(rng, level, channels):
 def test_varref_resolver():
     cfg = port.operating_point(3)
     n = pvar.FUSED_MAX_PIXELS
-    small, large = (1, n), (1, n + 1)
-    for shape in (small, large):
+    small, large = (2, n // 2), (2, n // 2 + 1)
+    huge = (2, pvar.CLUSTER_MAX_PIXELS)
+    for shape in (small, large, huge):
         assert pvar.varref_backend_for(cfg, *shape, "cpu") == "xla"
         plain = dataclasses.replace(cfg, varref_backend="xla")
         assert pvar.varref_backend_for(plain, *shape, "cuda") == "xla"
     assert pvar.varref_backend_for(cfg, *small, "cuda") == "fused"
-    assert pvar.varref_backend_for(cfg, *large, "cuda") == "tiled"
+    assert pvar.varref_backend_for(cfg, *large, "cuda") == "cluster"
+    assert pvar.varref_backend_for(cfg, *huge, "cuda") == "tiled"
     forced = dataclasses.replace(cfg, varref_backend="pallas")
-    assert pvar.varref_backend_for(forced, *large, "cuda") == "tiled"
+    assert pvar.varref_backend_for(forced, *large, "cuda") == "cluster"
+    assert pvar.varref_backend_for(forced, *huge, "cuda") == "tiled"
     with pytest.raises(ValueError, match="CUDA kernel"):
         pvar.varref_backend_for(forced, *small, "cpu")
-    # at 1024x448 the coarsest field (scale 5) goes to K3, the others to K4
-    assert 14 * 32 <= n < 28 * 64
+    # at 1024x448 the coarsest field (scale 5) goes to K3, scale 4 to K4's
+    # cluster route, the finer ones to its grid route
+    assert 14 * 32 <= n < 28 * 64 <= pvar.CLUSTER_MAX_PIXELS < 56 * 128
+
+
+# The fields of the main paths (1024x448 scales 5-0, the 4K stream's
+# scales 7-5) and the fields on either side of both thresholds.
+@pytest.mark.parametrize("h,w,want", [
+    (14, 32, "fused"), (17, 30, "cluster"),
+    (28, 64, "cluster"), (34, 60, "cluster"), (56, 128, "tiled"),
+    (68, 120, "tiled"), (112, 256, "tiled"),
+    (224, 512, "tiled"), (448, 1024, "tiled"),
+    (20, pvar.FUSED_MAX_PIXELS // 20, "fused"),
+    (20, pvar.FUSED_MAX_PIXELS // 20 + 1, "cluster"),
+    (64, pvar.CLUSTER_MAX_PIXELS // 64, "cluster"),
+    (64, pvar.CLUSTER_MAX_PIXELS // 64 + 1, "tiled"),
+    # few, very long rows: within the pixel threshold, but two rows a CTA
+    # do not fit its shared memory
+    (2, pvar.CLUSTER_MAX_PIXELS // 2, "tiled"),
+])
+def test_varref_resolver_routes(h, w, want):
+    cfg = port.operating_point(2)
+    assert pvar.varref_backend_for(cfg, h, w, "cuda") == want
+    assert pvar.varref_backend_for(cfg, h, w, "cpu") == "xla"
+
+
+def test_cluster_plan():
+    """The cluster route's split: up to 8 CTAs, at least two rows and 64
+    pixels a CTA, every row held, a thread a pixel in whole warps (128 to
+    1024), 36 bytes of shared memory a pixel with three halo rows."""
+    from flowonthego_tpu_torch.ops.cuda.varref_tiled import (
+        CTA_SHARED_BYTES, cluster_plan)
+    assert cluster_plan(14, 32)[:4] == (4, 4, 128, 9 * 7 * 32 * 4)
+    assert cluster_plan(28, 64)[:4] == (8, 4, 256, 9 * 7 * 64 * 4)
+    assert cluster_plan(34, 60)[:4] == (8, 5, 320, 9 * 8 * 60 * 4)
+    assert cluster_plan(56, 128)[:4] == (8, 7, 896, 9 * 10 * 128 * 4)
+    assert cluster_plan(112, 256)[:4] == (8, 14, 1024, 9 * 17 * 256 * 4)
+    assert cluster_plan(5, 2000)[:2] == (4, 2)      # not 8 CTAs of 1 row
+    assert cluster_plan(3, 100)[:2] == (2, 2)
+    assert cluster_plan(2, 100)[:2] == (1, 2)
+    for h, w in ((28, 64), (68, 120), (112, 256), (7, 900), (224, 512)):
+        plan = cluster_plan(h, w)
+        assert plan.n_ctas in (1, 2, 4, 8) and plan.n_ctas * plan.rows_per >= h
+        assert plan.n_ctas == 1 or plan.rows_per >= 2
+        assert plan.threads % 32 == 0 and 128 <= plan.threads <= 1024
+        assert plan.fits == (plan.shared_bytes <= CTA_SHARED_BYTES)
+    assert not cluster_plan(224, 512).fits
 
 
 # ---------------------------------------------------------------- the slice
@@ -128,7 +176,8 @@ def test_compute_flow_op_matches_jax(op_point, h, w):
     1e-2 px), and the median within 0.1 px of the known shift."""
     i0, i1 = synthetic_frames(11, 2, h, w, (2, 1), factor=4)
     ref = np.asarray(fot.compute_flow(i0, i1, op_point=op_point))
-    got = port.compute_flow(i0, i1, op_point=op_point).numpy()
+    got = port.compute_flow(i0, i1, op_point=op_point,
+                            device="cpu").numpy()
     assert_flow_band(got, ref)
     np.testing.assert_allclose(
         np.median(got[8:-8, 8:-8].reshape(-1, 2), axis=0), [2.0, 1.0],
@@ -139,7 +188,7 @@ def test_stream_flow_op3_matches_jax():
     frames = synthetic_frames(12, 3, 96, 192, (2, -1), factor=4)
     cfg = port.operating_point(3, width=192)
     ref = list(jax_stream_flow(iter(frames), fot.operating_point(3, width=192)))
-    got = list(port.stream_flow(iter(frames), cfg))
+    got = list(port.stream_flow(iter(frames), cfg, device="cpu"))
     assert len(got) == len(ref) == 2
     for g, r in zip(got, ref):
         assert_flow_band(g, r)
@@ -162,9 +211,10 @@ def test_compute_flow_timed_lines_and_flow():
     kw = dict(coarsest_scale=2, finest_scale=1, grad_descent_iter=4)
     lines = []
     got = port.compute_flow_timed(i0, i1, cfg=port.DISConfig(**kw),
-                                  printer=lines.append)
+                                  device="cpu", printer=lines.append)
     np.testing.assert_array_equal(
-        got.numpy(), port.compute_flow(i0, i1, port.DISConfig(**kw)).numpy())
+        got.numpy(),
+        port.compute_flow(i0, i1, port.DISConfig(**kw), device="cpu").numpy())
 
     jc = JaxConfig(**kw)
     want = [(sl, JaxPatchGrid.create(jc, 64 >> sl, 48 >> sl).n_patches)
@@ -180,9 +230,10 @@ def test_compute_flow_timed_lines_and_flow():
     # the same lines per scale, and compute_flow's fb flow
     fb = port.DISConfig(**kw, use_fb_consistency=True)
     fb_lines = []
-    got = port.compute_flow_timed(i0, i1, cfg=fb, printer=fb_lines.append)
+    got = port.compute_flow_timed(i0, i1, cfg=fb, device="cpu",
+                                  printer=fb_lines.append)
     np.testing.assert_array_equal(
-        got.numpy(), port.compute_flow(i0, i1, fb).numpy())
+        got.numpy(), port.compute_flow(i0, i1, fb, device="cpu").numpy())
     assert [tuple(map(int, m.groups()[:2])) for m in
             map(_SC.match, "\n".join(fb_lines).splitlines()) if m] == want
 
@@ -191,9 +242,13 @@ def test_profile_categories():
     """profile_paths files each device kernel under its own row (K3's
     kernel, ``varref_kernel``, must not catch K4's)."""
     from flowonthego_tpu_torch.profile_paths import category
-    names = {"(anonymous namespace)::dis_gn_kernel(float const*, int)": "K2 gn",
-             "(anonymous namespace)::varref_tiled_kernel(float const*)": "K4",
-             "(anonymous namespace)::varref_kernel(float const*)": "K3",
+    names = {"void (anonymous namespace)::dis_gn_kernel<float, 8, 3>(GnArgs)":
+                 "K2 gn",
+             "void (anonymous namespace)::varref_tiled_kernel<3>(float const*)":
+                 "K4 grid",
+             "void (anonymous namespace)::varref_cluster_kernel<1>(float*)":
+                 "K4 cluster",
+             "void (anonymous namespace)::varref_kernel<3>(float const*)": "K3",
              "(anonymous namespace)::warp_kernel(float const*)": "K5 warp",
              "void (anonymous namespace)::pool2x2_kernel<float>()": "K1 pool",
              "Memcpy HtoD (Pageable -> Device)": "copies",

@@ -60,7 +60,7 @@ def test_backend_resolution():
                          finest_scale=0)
     i0 = np.zeros((16, 16, 3), np.float32)
     with pytest.raises(ValueError, match="CUDA kernel"):
-        port.compute_flow(i0, i0, cfg)
+        port.compute_flow(i0, i0, cfg, device="cpu")
 
 
 def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
@@ -112,10 +112,12 @@ def test_flo_roundtrip_and_metrics(tmp_path, rng):
 def test_input_validation():
     i0 = np.zeros((32, 32, 3), np.float32)
     with pytest.raises(ValueError, match="differ"):
-        port.compute_flow(i0, np.zeros((32, 30, 3), np.float32))
+        port.compute_flow(i0, np.zeros((32, 30, 3), np.float32),
+                          device="cpu")
     with pytest.raises(ValueError, match="channels"):
-        port.compute_flow(np.zeros((32, 32, 2)), np.zeros((32, 32, 2)))
+        port.compute_flow(np.zeros((32, 32, 2)), np.zeros((32, 32, 2)),
+                          device="cpu")
     cfg = pcfg.operating_point(2, width=64)
     frames = [np.zeros((35, 64, 3), np.float32)] * 2
     with pytest.raises(ValueError, match="pre-padded"):
-        list(port.stream_flow(frames, cfg))
+        list(port.stream_flow(frames, cfg, device="cpu"))

@@ -43,7 +43,7 @@ def test_compute_flow_matches_jax(h, w, cfg_kw):
     jcfg = None if cfg_kw is None else JaxConfig(**cfg_kw)
     pcfg = None if cfg_kw is None else port.DISConfig(**cfg_kw)
     ref = np.asarray(fot.compute_flow(i0, i1, jcfg))
-    got = port.compute_flow(i0, i1, pcfg).numpy()
+    got = port.compute_flow(i0, i1, pcfg, device="cpu").numpy()
     assert_flow_band(got, ref)
     inner = got[8:-8, 8:-8].reshape(-1, 2)
     np.testing.assert_allclose(np.median(inner, axis=0), [2.0, 1.0],
@@ -55,7 +55,7 @@ def test_stream_flow_matches_jax():
     cfg = port.operating_point(2, width=256)
     jcfg = fot.operating_point(2, width=256)
     ref = list(jax_stream_flow(iter(frames), jcfg))
-    got = list(port.stream_flow(iter(frames), cfg))
+    got = list(port.stream_flow(iter(frames), cfg, device="cpu"))
     assert len(got) == len(ref) == 2
     for g, r in zip(got, ref):
         assert_flow_band(g, r)
@@ -83,5 +83,5 @@ def test_warm_start_level_offset_and_disflow(rng):
                                init_flow=torch.as_tensor(init)[None],
                                level_offset=2)
     assert_flow_band(got[0].numpy(), ref)
-    assert_flow_band(port.DISFlow(pcfg).calc(i0, i1),
+    assert_flow_band(port.DISFlow(pcfg, device="cpu").calc(i0, i1),
                      fot.DISFlow(jcfg).calc(i0, i1))
