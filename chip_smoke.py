@@ -18,8 +18,11 @@ Phases (any failure raises and the script exits non-zero):
      in the port); K2 in every compiled form and its generic form; K3
      against both routes of K4 (cluster and grid) bit for bit on the
      fields all can take, and all timed on the field sizes of the paths
-     (the var-ref resolver's two thresholds); a cluster launch that
-     cannot fit must raise;
+     at C = 3 and C = 1 (the var-ref resolver's two thresholds), beside
+     the cluster entry with one CTA; a K3 or cluster launch that cannot
+     fit must raise; K5 on a random flow and on a smooth one (two motions
+     and a sub-pixel part, as the pipeline gives it), on a strided crop,
+     far outside the image and in its generic form;
   4. the main paths at real size, each with the launch counters reset
      just before it and read just after (numpy frames with no ``device``
      must come back on the card): op 2 (``compute_flow`` on a
@@ -27,7 +30,10 @@ Phases (any failure raises and the script exits non-zero):
      3840x2160 frames), op 4 (``compute_flow`` on that pair, and on one
      moving (2, 2) px, which stays inside the outlier radius at every
      scale so every patch iterates), op 3 (``stream_flow`` over four
-     1024x436 frames) and op 1 (``compute_flow`` on the first pair); then
+     1024x436 frames), op 1 (``compute_flow`` on the first pair) and op
+     2 and op 4 once each on a pair whose left half moves (2, 2) px and
+     whose right half (16, 8) px (against the plain path and the known
+     field, each half's median within ``SHIFT_TOL``); then
      the same inputs through the plain path on the card, the op-2 and
      op-3 1024x448 finest-scale flows against the JAX goldens in
      ``tests/data`` (the GPU run needs no JAX), the op-2 finest flows with
@@ -113,10 +119,20 @@ STREAM_OP3 = (436, 1024, 16, (12, -6), 4)
 # A second op-4 pair whose motion stays inside the 6-px outlier radius at
 # scales 1 and 0, so K2 runs all 128 iterations on the two largest grids.
 SMALL_SHIFT = (2, 2)
-# K3 and K4's two routes on the op-3 fields at 1024x448 (h, w, level) and
-# three sizes between them, where the forms cross.
-SWEEP = ((14, 32, 5), (28, 32, 4), (28, 48, 4), (28, 64, 4), (40, 96, 4),
-         (56, 128, 3), (112, 256, 2), (224, 512, 1))
+# K3 and K4's two routes on the fields of the paths at 1024x448 (h, w,
+# level) and sizes between them, where the forms cross: K3 | cluster
+# between 14x32 and 28x32, cluster | grid between 40x96 and 56x128.
+SWEEP = ((14, 32, 5), (18, 32, 5), (22, 32, 5), (28, 32, 4), (32, 32, 4),
+         (28, 48, 4), (28, 64, 4), (40, 96, 4), (56, 128, 3), (112, 256, 2),
+         (224, 512, 1))
+# Up to this size the sweep also times the cluster entry with one CTA (the
+# work planes in shared memory, the inputs in device memory, a cluster
+# barrier): what K3 gains over it is what staging the inputs and
+# __syncthreads() buy.
+ONE_CTA_MAX_PIXELS = 28 * 64
+# A second 1024x436 pair, whose halves move differently (left, right), so
+# the true flow is known per pixel and is not uniform.
+SPLIT_SHIFTS = ((2, 2), (16, 8))
 # The command line's runs: (name, arguments after the three paths,
 # kernels that must launch, kernels that must not).  The robust costs and
 # min_iter take the reference-form solve (no K2), as in the JAX package;
@@ -243,6 +259,19 @@ def inside_flow(h, w, B, bound, gen, dev):
     wx = (ii + wx).clamp(0, w - 1) - ii
     wy = (jj + wy).clamp(0, h - 1) - jj
     return wx.to(dev), wy.to(dev)
+
+
+def smooth_flow(h, w, B, dev):
+    """Flows like those the pipeline gives the warp: the split pair's known
+    field (two motions, a seam) plus a smooth sub-pixel part (std ~0.5
+    px); frame b from seed 40 + b."""
+    from flowonthego_tpu_torch.utils.synth import (smooth_texture,
+                                                   synthetic_split_pair)
+    field = synthetic_split_pair(0, h, w, *SPLIT_SHIFTS)[2]
+    flows = np.stack([field + (smooth_texture(40 + b, h, w, 2) - 128.0)
+                      / 100.0 for b in range(B)])
+    flows = torch.as_tensor(flows, dtype=torch.float32, device=dev)
+    return flows[..., 0].contiguous(), flows[..., 1].contiguous()
 
 
 def host_ms(fn, reps: int) -> float:
@@ -415,17 +444,36 @@ def varref_inputs(dev, cfg, h, w, g, seed=2, channels=3, n_frames=1):
     return varref_fused.warp_and_derivs(flow, im1, im2, cfg)
 
 
-def varref_forms(h, w):
-    """The three forms of the var-ref loop that can take an h x w field:
-    {name: fn(planes, cfg, inner_iter)}."""
+def varref_forms(h, w, C=3):
+    """The forms of the var-ref loop that can take an h x w field of C
+    channels: {name: fn(planes, cfg, inner_iter)}.  The grid route takes
+    every field and comes first."""
     from flowonthego_tpu_torch.ops.cuda import varref_fused, varref_tiled
-    forms = {"K3": lambda P, cfg, n: varref_fused.refine_inner(*P, cfg, n)}
+    forms = {"K4 grid": lambda P, cfg, n: varref_tiled.refine_inner_tiled(
+        *P, cfg, n, route="grid")}
     if varref_tiled.cluster_plan(h, w).fits:
         forms["K4 cluster"] = lambda P, cfg, n: \
             varref_tiled.refine_inner_tiled(*P, cfg, n, route="cluster")
-    forms["K4 grid"] = lambda P, cfg, n: varref_tiled.refine_inner_tiled(
-        *P, cfg, n, route="grid")
+    if varref_fused.fused_plan(h, w, C).fits:
+        forms["K3"] = lambda P, cfg, n: varref_fused.refine_inner(*P, cfg, n)
     return forms
+
+
+def one_cta_cluster(P, cfg, n):
+    """K4's cluster entry with a cluster of one CTA, a thread a pixel."""
+    from flowonthego_tpu_torch.ops.cuda import varref_fused
+    h, w = P[0].shape[1:]
+    threads = min(1024, -(-h * w // 32) * 32)
+    return varref_fused.launch_loop("fot_varref_cluster", *P, cfg, n,
+                                    (1, h, threads))
+
+
+def assert_forms_agree(outs, h, w):
+    """Every form's (uu, vv) equals the grid route's, bit for bit."""
+    for name, out in outs.items():
+        assert all(torch.equal(a, b)
+                   for a, b in zip(out, outs["K4 grid"])), \
+            f"{name} differs from K4 grid at {h}x{w}"
 
 
 def crossover(sizes, a, b):
@@ -439,35 +487,42 @@ def crossover(sizes, a, b):
     return None
 
 
-def varref_sweep(dev, cfg, g, n_frames, reps):
+def varref_sweep(dev, cfg, g, n_frames, reps, C=3):
     """K3 and both routes of K4 on the sweep's fields: bit-identical where
     more than one can take the field, each timed; the crossovers that the
     resolver's two thresholds stand for."""
     from flowonthego_tpu_torch.ops import variational
     sizes, times = [], {"K3": [], "K4 cluster": [], "K4 grid": []}
     for h, w, level in SWEEP:
-        P = varref_inputs(dev, cfg, h, w, g, seed=3, n_frames=n_frames)
-        forms = varref_forms(h, w)
+        P = varref_inputs(dev, cfg, h, w, g, seed=3, channels=C,
+                          n_frames=n_frames)
+        forms = varref_forms(h, w, C)
+        if h * w <= ONE_CTA_MAX_PIXELS:
+            forms["1-CTA cluster"] = one_cta_cluster
         outs = {name: fn(P, cfg, level + 1) for name, fn in forms.items()}
         torch.cuda.synchronize()
-        for name, out in outs.items():
-            assert all(torch.equal(a, b) for a, b in zip(out, outs["K3"])), \
-                f"{name} differs from K3 at {h}x{w}"
+        assert_forms_agree(outs, h, w)
         ms = {name: device_ms(lambda: fn(P, cfg, level + 1), reps)
               for name, fn in forms.items()}
         sizes.append(h * w)
         for name in times:
             times[name].append(ms.get(name, float("inf")))
-        log(f"  {n_frames} x {h}x{w} ({h * w} px a field) level {level}: "
+        log(f"  {n_frames} x {h}x{w}x{C} ({h * w} px a field) level {level}: "
             + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
             + f"; bit-identical; resolver -> "
-            f"{variational.varref_backend_for(cfg, h, w, 'cuda')}")
-    c1 = crossover(sizes, times["K3"], times["K4 cluster"])
+            f"{variational.varref_backend_for(cfg, h, w, 'cuda', C)}")
+    # K3 against the cluster route on the sizes K3 takes
+    n3 = sum(t < float("inf") for t in times["K3"])
+    c1 = crossover(sizes[:n3], times["K3"][:n3], times["K4 cluster"][:n3])
+    if c1 is None and times["K3"][n3 - 1] <= times["K4 cluster"][n3 - 1]:
+        k3 = (f"none: K3 is the faster on every field it takes, up to "
+              f"{sizes[n3 - 1]} px")
+    else:
+        k3 = "none" if c1 is None else f"{round(c1)} px"
     c2 = crossover(sizes, times["K4 cluster"], times["K4 grid"])
-    log(f"  crossovers at B={n_frames}: K3 | cluster at "
-        f"{'none' if c1 is None else round(c1)} px (FUSED_MAX_PIXELS "
-        f"{variational.FUSED_MAX_PIXELS}), cluster | grid at "
-        f"{'none' if c2 is None else round(c2)} px (CLUSTER_MAX_PIXELS "
+    log(f"  crossovers at B={n_frames}, C={C}: K3 | cluster at {k3} "
+        f"(FUSED_MAX_PIXELS {variational.FUSED_MAX_PIXELS}), cluster | grid "
+        f"at {'none' if c2 is None else round(c2)} px (CLUSTER_MAX_PIXELS "
         f"{variational.CLUSTER_MAX_PIXELS})")
 
 
@@ -581,9 +636,8 @@ def kernel_phase(dev):
             cuda_ms(lambda: varref_fused.refine_inner_plain(
                 *P, cfg, level + 1), plain_reps), bound)
 
-    # K3 on the field it gets on the main paths, the coarsest of 1024x448
-    # (14x32, level 5; ops 2-4), and on the coarsest of the 4K stream
-    # (17x30, level 7; the resolver's threshold lies between the two); at
+    # K3 on the fields it gets on the main paths, the coarsest of 1024x448
+    # (14x32, level 5; ops 2-4) and of the 4K stream (17x30, level 7); at
     # C = 3 and C = 1
     cfg = operating_point(2)
     errs = []
@@ -593,15 +647,13 @@ def kernel_phase(dev):
             err, line = check_varref(f"K3 varref C={C} {h}x{w} level {level}",
                                      varref_fused.refine_inner, P, cfg, level)
             errs.append(err)
-            if level == 5:
-                row = time_varref(
-                    varref_fused.refine_inner, P, cfg, level,
-                    bounds.varref_fused_bound(1, h, w, C, level + 1,
-                                              cfg.var_ref_iter), 5)
-                if C == 3:
-                    results["varref"] = row
-                line += ", " + timing_text(row)
-            log(line)
+            row = time_varref(
+                varref_fused.refine_inner, P, cfg, level,
+                bounds.varref_fused_bound(1, h, w, C, level + 1,
+                                          cfg.var_ref_iter), 5)
+            if (C, level) == (3, 5):
+                results["varref"] = row
+            log(line + ", " + timing_text(row))
     results["varref"]["max_abs_err"] = max(errs)
 
     # K4's grid route at op-3/op-4 scale 1 and op-4 scale 0 of 1024x448,
@@ -644,16 +696,27 @@ def kernel_phase(dev):
                 log(line)
         results[key]["max_abs_err"] = max(errs)
     # the three forms of one loop, bit for bit, on two more fields
-    for h, w, level in ((68, 120, 5), (112, 256, 2)):
+    for h, w, level in ((24, 40, 5), (32, 32, 4)):
         P = varref_planes(cfg, h, w)
         outs = {name: fn(P, cfg, level + 1)
                 for name, fn in varref_forms(h, w).items()}
         torch.cuda.synchronize()
         assert len(outs) == 3
-        for name, out in outs.items():
-            assert all(torch.equal(a, b) for a, b in zip(out, outs["K3"])), \
-                f"{name} differs from K3 at {h}x{w}"
+        assert_forms_agree(outs, h, w)
         log(f"K3, K4 cluster, K4 grid {h}x{w} level {level}: bit-identical")
+    # a field of more pixels than K3 has threads: the launch is refused and
+    # the wrapper raises (it is never sent to K4)
+    P = varref_planes(cfg, 56, 128)
+    assert not varref_fused.fused_plan(56, 128, 3).fits
+    n0 = varref_fused.launches
+    try:
+        varref_fused.refine_inner(*P, cfg, 4)
+    except RuntimeError as e:
+        log(f"K3 on 56x128x3 (does not fit): raises ({e})")
+    else:
+        raise AssertionError("a K3 launch that cannot fit did not raise")
+    assert varref_fused.launches == n0, "a refused launch was counted"
+    torch.cuda.synchronize()
     # a field whose rows do not fit a cluster's shared memory: the launch
     # is refused and the wrapper raises (it is never sent to the grid)
     P = varref_planes(cfg, 224, 512)
@@ -670,9 +733,11 @@ def kernel_phase(dev):
     log("K3, K4 cluster, K4 grid on the paths' field sizes (the resolver's "
         "two thresholds):")
     varref_sweep(dev, cfg, g, 1, 20)
+    varref_sweep(dev, cfg, g1, 1, 20, C=1)
 
-    # K5 at op-4 scale 0 of 1024x448 (timed) and a ragged field; flows of
-    # +-(outlier_thresh + 2) px, so border clamps fire
+    # K5 at op-4 scale 0 of 1024x448 (timed) and a ragged field (w % 4 !=
+    # 0, h % 4 != 0); flows of +-(outlier_thresh + 2) px, so border clamps
+    # fire; the timed field also on a smooth flow, as the pipeline gives
     bound = cfg.outlier_thresh + 2.0
     for C, gen in ((3, g), (1, g1)):
         for h, w, timed in ((448, 1024, True), (37, 61, False)):
@@ -703,7 +768,36 @@ def kernel_phase(dev):
                 line += (f", {timing_text(row)} (grid_sample, the same "
                          f"function only inside the image: max |diff| "
                          f"{lib_err:.3g} there)")
+                sx, sy = smooth_flow(h, w, 1, dev)
+                got, ref = (f(src, sx, sy) for f in (warp.warp_image,
+                                                     warp.warp_image_plain))
+                assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
+                    "K5 not exact on the smooth flow"
+                ms = device_ms(lambda: warp.warp_image(src, sx, sy), 50)
+                lib_ms = device_ms(warp_library(src, sx, sy), 50)
+                line += (f"; on a smooth flow (two motions + ~0.5 px): "
+                         f"bit-exact, kernel {ms:.4f} ms, library call "
+                         f"{lib_ms:.4f} ms")
             log(line)
+    # K5 on a strided crop of padded frames (what the pipeline hands it),
+    # on flows that leave the image by far, and with five channels (the
+    # generic form)
+    for C, h, w, pad, reach in ((3, 30, 44, 8, 100.0), (1, 17, 30, 4, 1e4),
+                                (5, 9, 13, 2, 20.0)):
+        padded = (torch.rand((2, h + 2 * pad, w + 2 * pad, C), generator=g)
+                  * 255).to(dev)
+        src = padded[:, pad:pad + h, pad:pad + w, :]
+        wx, wy = (((torch.rand((2, h, w), generator=g) * 2 - 1) * reach)
+                  .to(dev) for _ in range(2))
+        got = warp.warp_image(src, wx, wy)
+        ref = warp.warp_image_plain(src, wx, wy)
+        torch.cuda.synchronize()
+        assert not src.is_contiguous()
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
+            "K5 not exact on a strided crop"
+        log(f"K5 warp B=2 {h}x{w}x{C} strided crop, |flow| <= {reach:g} "
+            f"({100 * float(1 - got[1].mean()):.3g}% of the samples outside "
+            "the image): bit-exact")
     return results
 
 
@@ -883,9 +977,17 @@ def batch_kernel_phase(dev):
         device_ms(lambda: warp.warp_image(src, wx, wy), 50),
         cuda_ms(lambda: warp.warp_image_plain(src, wx, wy), 20),
         bounds.warp_bound(B, H0, W0, 3), 0.0, library_ms=device_ms(lib, 50))
+    sx, sy = smooth_flow(H0, W0, B, dev)
+    assert all(torch.equal(a, b) for a, b in zip(
+        warp.warp_image(src, sx, sy), warp.warp_image_plain(src, sx, sy))), \
+        "K5 not exact on the smooth flow"
+    ms = device_ms(lambda: warp.warp_image(src, sx, sy), 50)
+    lib_ms = device_ms(warp_library(src, sx, sy), 50)
     log(f"K5 warp B={B} {H0}x{W0}x3: bit-exact, frames bit-identical to "
         f"single launches; {timing_text(results['warp_b4'])} (grid_sample, "
-        f"inside the image), {B} single launches {single:.4f} ms")
+        f"inside the image), {B} single launches {single:.4f} ms; on a "
+        f"smooth flow: bit-exact, kernel {ms:.4f} ms, library call "
+        f"{lib_ms:.4f} ms")
 
     log(f"K3, K4 cluster, K4 grid at B={B} on the paths' field sizes:")
     varref_sweep(dev, operating_point(3), g, B, 10)
@@ -900,7 +1002,8 @@ def slice_phase(dev):
     from flowonthego_tpu_torch.models.dis_flow import dis_flow_padded
     from flowonthego_tpu_torch.ops.pyramid import pad_replicate
     from flowonthego_tpu_torch.utils.synth import (synthetic_frames,
-                                                   synthetic_pair)
+                                                   synthetic_pair,
+                                                   synthetic_split_pair)
 
     def padded_frames(stream, cfg, seed):
         h, w, factor, shift, n = stream
@@ -964,10 +1067,9 @@ def slice_phase(dev):
     (pair2, ms2), n_pair2 = counted(
         "op 2 compute_flow 1024x436 x21",
         lambda: timed_pair(cfg[2], 20, (i0, i1)), ALL)
-    # (the 4K stream's coarsest field, 17x30, is above K3's threshold)
     (flows_4k, ms_4k), n_4k = counted(
         "op 2 stream_flow 4K, twice", lambda: timed_stream(frames_4k, cfg_4k),
-        tuple(k for k in ALL if k != "varref"), ("varref",))
+        ALL)
     (pair4, ms4), n_pair4 = counted(
         "op 4 compute_flow 1024x436 x6",
         lambda: timed_pair(cfg[4], 5, (i0, i1)), ALL)
@@ -981,8 +1083,18 @@ def slice_phase(dev):
         "op 1 compute_flow 1024x436 x11",
         lambda: timed_pair(cfg[1], 10, (i0, i1)),
         ("pool", "gn"), ALL[2:])
+    # the pair whose halves move differently, once at op 2 and at op 4
+    s0, s1, split_field, split_known = synthetic_split_pair(
+        seed, 436, 1024, *SPLIT_SHIFTS)
+    split = tuple(torch.as_tensor(x, device=dev) for x in (s0, s1))
+    split_flows, n_split = {}, []
+    for op in (2, 4):
+        split_flows[op], n = counted(
+            f"op {op} compute_flow 1024x436, halves moving {SPLIT_SHIFTS}",
+            lambda: port.compute_flow(*split, cfg[op]), ALL)
+        n_split.append(n)
     launches = {k: sum(n[k] for n in (n_pair2, n_4k, n_pair4, n_pair4s,
-                                      n_op3, n_pair1))
+                                      n_op3, n_pair1, *n_split))
                 for k in n_pair1}
 
     # ---- checks: finite, known motion, plain path, JAX goldens ----
@@ -1000,6 +1112,28 @@ def slice_phase(dev):
         log(f"compute_flow {what} 1024x436 plain path: {ms_plain:.3f} "
             "ms/pair")
         flow_band(flow, ref, f"{what} kernels vs plain path")
+    known = torch.as_tensor(split_known, device=dev)
+    truth = torch.as_tensor(split_field, device=dev)
+    seam = 1024 // 2
+    reach = max(abs(v) for sh in SPLIT_SHIFTS for v in sh)
+    for op, flow in split_flows.items():
+        what = f"op {op} split pair {SPLIT_SHIFTS}"
+        assert flow.shape == (436, 1024, 2) and torch.isfinite(flow).all()
+        ref = port.compute_flow(*split, plain(cfg[op]))
+        flow_band(flow, ref, f"{what} kernels vs plain path")
+        # each half away from the seam and the border, against its motion
+        for side, cols, motion in (
+                ("left", slice(16, seam - 2 * reach), SPLIT_SHIFTS[0]),
+                ("right", slice(seam + reach, 1024 - 16), SPLIT_SHIFTS[1])):
+            part = flow[16:-16, cols].reshape(-1, 2)
+            med = part.median(dim=0).values.cpu().numpy()
+            log(f"  {what}: {side} half median flow {med.tolist()} vs "
+                f"{list(motion)}")
+            assert np.abs(med - np.asarray(motion)).max() <= SHIFT_TOL, what
+        epe = torch.linalg.vector_norm(flow - truth, dim=-1)[known]
+        log(f"  {what}: mean EPE vs the known field {float(epe.mean()):.3g} "
+            f"px over the {100 * float(known.float().mean()):.3g}% of the "
+            "pixels where it is known")
     for op in (2, 3):
         fin = dis_flow_padded(i0p[None], i1p[None], cfg[op])[0]
         flow_band(fin, torch.as_tensor(golden[op]["flow"], device=dev),

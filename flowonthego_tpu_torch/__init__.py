@@ -10,20 +10,22 @@ PyTorch versions.  This package never imports JAX.
 
 from .config import DISConfig, auto_coarsest_scale, operating_point, pad_to_divisible
 from .io import (flow_to_color, load_image, read_flo, read_pfm, save_image,
-                 write_flo, write_pfm)
+                 unknown_flow_mask, write_flo, write_pfm)
 from .models.dis_flow import (DISFlow, compute_flow, compute_flow_timed,
-                              dis_flow_padded)
+                              dis_flow_padded, flow_full_padded)
 from .models.stereo import compute_disparity
 from .ops.channels import prepare_input
 from .parallel import (MultiStream, batched_flow, stream_flow,
                        stream_video_chunks)
-from .utils.metrics import average_epe, endpoint_error
+from .utils.metrics import angular_error, average_epe, endpoint_error
 
 __all__ = [
     "DISConfig", "operating_point", "auto_coarsest_scale", "pad_to_divisible",
     "DISFlow", "compute_flow", "compute_flow_timed", "dis_flow_padded",
+    "flow_full_padded",
     "stream_flow", "batched_flow", "MultiStream", "stream_video_chunks",
     "compute_disparity", "prepare_input",
     "read_flo", "write_flo", "read_pfm", "write_pfm", "load_image",
-    "save_image", "flow_to_color", "average_epe", "endpoint_error",
+    "save_image", "flow_to_color", "unknown_flow_mask", "average_epe",
+    "endpoint_error", "angular_error",
 ]

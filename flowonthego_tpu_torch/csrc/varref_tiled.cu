@@ -1,9 +1,10 @@
 // K4: the variational-refinement inner loop on fields too large for one
 // CTA.  Replaces the Pallas kernel
 // flowonthego_tpu/ops/pallas/varref_fused.py (variational_refine_tiled ->
-// _tiled_kernel).  Both routes here run the same loop as K3,
-// fot_varref::refine_loop (varref_common.cuh), so they compute the same
-// function pixel for pixel, bit for bit.
+// _tiled_kernel).  Both routes here run fot_varref::refine_loop
+// (varref_common.cuh), built from the per-pixel functions that K3's loop
+// is built from, so all three compute the same function pixel for pixel,
+// bit for bit.
 //
 // Bound: bytes for the card, dependent phases for the kernel.  The
 // function reads 3 + 8 C planes and writes 2 (29 planes at C = 3: 53 MB at

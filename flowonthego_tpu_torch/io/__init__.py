@@ -1,10 +1,11 @@
 from .color import compute_color, flow_to_color, make_color_wheel
-from .flo import TAG_FLOAT, UNKNOWN_FLOW_THRESH, read_flo, write_flo
+from .flo import (TAG_FLOAT, UNKNOWN_FLOW_THRESH, read_flo, unknown_flow_mask,
+                  write_flo)
 from .images import load_image, save_image
 from .pfm import read_pfm, write_pfm
 
 __all__ = [
-    "read_flo", "write_flo", "TAG_FLOAT", "UNKNOWN_FLOW_THRESH",
-    "load_image", "save_image", "flow_to_color", "make_color_wheel",
-    "compute_color", "read_pfm", "write_pfm",
+    "read_flo", "write_flo", "unknown_flow_mask", "TAG_FLOAT",
+    "UNKNOWN_FLOW_THRESH", "load_image", "save_image", "flow_to_color",
+    "make_color_wheel", "compute_color", "read_pfm", "write_pfm",
 ]

@@ -49,3 +49,12 @@ def write_flo(path: str | os.PathLike, flow) -> None:
         f.write(TAG_STRING)
         f.write(np.asarray([width, height], dtype=np.int32).tobytes())
         f.write(np.ascontiguousarray(flow).tobytes())
+
+
+def unknown_flow_mask(flow) -> np.ndarray:
+    """Boolean [H, W] mask of pixels whose flow is unknown."""
+    if hasattr(flow, "detach"):
+        flow = flow.detach().cpu().numpy()
+    flow = np.asarray(flow)
+    return (np.abs(flow) > UNKNOWN_FLOW_THRESH).any(axis=-1) | np.isnan(
+        flow).any(axis=-1)

@@ -17,10 +17,13 @@ JAX pipeline adds one grid axis to each Pallas call.  The single-pair
 entry points (``compute_flow``, ``compute_flow_timed``, ``DISFlow``) run
 it with B = 1.
 
-PyTorch runs eagerly, so there is no jitted variant: the pipeline
-functions run on the device their input tensors lie on, and the entry
-points put host (numpy) inputs on the GPU unless the caller names a
-device (``utils/device.py``).
+``flow_full_padded`` is the JAX package's function of that name, padded
+frames in and full-resolution flow out; there it is one compiled program,
+here it runs eagerly like everything else (PyTorch has no ``jit`` to
+port; capturing this function in a CUDA graph is not done yet).  The
+pipeline functions run on the device their input tensors lie on, and the
+entry points put host (numpy) inputs on the GPU unless the caller names
+a device (``utils/device.py``).
 """
 
 from __future__ import annotations
@@ -167,6 +170,18 @@ def upsample_flow_to_full(flow: torch.Tensor, cfg: DISConfig,
     return resize_matmul(flow * float(2 ** cfg.finest_scale), out_h, out_w)
 
 
+def flow_full_padded(I0: torch.Tensor, I1: torch.Tensor,
+                     cfg: DISConfig) -> torch.Tensor:
+    """Full-resolution flow for an already-padded pair [H, W, C] -> [H, W,
+    2], or a batch of pairs [B, H, W, C] -> [B, H, W, 2] (H, W divisible
+    by 2**coarsest_scale): :func:`dis_flow_padded`, then
+    :func:`upsample_flow_to_full`, on the tensors' device."""
+    if I0.dim() == 3:
+        return flow_full_padded(I0[None], I1[None], cfg)[0]
+    flow = dis_flow_padded(I0, I1, cfg)
+    return upsample_flow_to_full(flow, cfg, I0.shape[1], I0.shape[2])
+
+
 def validate_image_pair(I0, I1, what: str = "image") -> None:
     """Fail fast with a clear error on a malformed input pair."""
     s0, s1 = tuple(I0.shape), tuple(I1.shape)
@@ -214,10 +229,8 @@ def compute_flow(I0, I1, cfg: Optional[DISConfig] = None, op_point: int = 2,
     if cfg is None:
         cfg = operating_point(op_point, width=w)
     pads = pad_to_divisible(w, h, cfg.coarsest_scale)
-    I0p = pad_replicate(I0, pads)[None]
-    I1p = pad_replicate(I1, pads)[None]
-    flow = dis_flow_padded(I0p, I1p, cfg)[0]
-    flow = upsample_flow_to_full(flow, cfg, I0p.shape[1], I0p.shape[2])
+    flow = flow_full_padded(pad_replicate(I0, pads), pad_replicate(I1, pads),
+                            cfg)
     pt, _, pl, _ = pads
     return flow[pt:pt + h, pl:pl + w, :]
 

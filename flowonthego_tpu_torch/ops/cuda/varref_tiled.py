@@ -3,14 +3,14 @@
 Replaces ``flowonthego_tpu/ops/pallas/varref_fused.py``
 (``variational_refine_tiled``, kernel ``_tiled_kernel``) with
 ``csrc/varref_tiled.cu``.  It is K3's function (:mod:`.varref_fused`),
-from the same source (``csrc/varref_common.cuh``), so all forms agree bit
-for bit.  The card could do the work in its bytes' time (29 planes at
-C = 3, ``bounds.varref_tiled_bound``); what a launch costs is its chain of
-dependent phases, 1 + rounds * (1 + 2 * ``var_ref_iter``) barriers, so
-the two routes differ in what a barrier costs (~0.45 us for a cluster of
-128- to 256-thread CTAs, ~1.1 us for the grid, by
-``probes/barrier_probe.cu`` on an NVIDIA H100 80GB HBM3 at 700 W) and in
-how many SMs share a phase's work:
+from the same per-pixel expressions (``csrc/varref_common.cuh``), so all
+forms agree bit for bit.  The card could do the work in its bytes' time
+(29 planes at C = 3, ``bounds.varref_tiled_bound``); what a launch costs
+is its chain of dependent phases, 1 + rounds * (1 + 2 *
+``var_ref_iter``) barriers, so the two routes differ in what a barrier
+costs (~0.45 us for a cluster of 128- to 256-thread CTAs, ~1.1 us for the
+grid, by ``probes/barrier_probe.cu`` on an NVIDIA H100 80GB HBM3 at 700
+W) and in how many SMs share a phase's work:
 
 * ``route="cluster"``, mid-size fields (a few thousand pixels: scale 4
   of a 1024x448 pair, scale 6 of a 4K frame): one thread-block cluster of
@@ -39,8 +39,8 @@ from typing import NamedTuple
 
 import torch
 
-from .varref_fused import (_N_SCRATCH, launch_loop, refine_inner_plain,
-                           warp_and_derivs)
+from .varref_fused import (_N_SCRATCH, CTA_SHARED_BYTES, launch_loop,
+                           refine_inner_plain, warp_and_derivs)
 
 # Kernel launches since the last reset (read and reset by chip_smoke.py);
 # launches_cluster counts those of them that took the cluster route.
@@ -50,7 +50,6 @@ launches_cluster = 0
 ROUTES = ("cluster", "grid")
 CLUSTER_MAX_CTAS = 8            # the portable cluster size
 CLUSTER_THREADS = 1024          # threads of a cluster route's CTA, at most
-CTA_SHARED_BYTES = 227 * 1024   # shared memory one CTA can use on Hopper
 CLUSTER_MIN_CTA_PIXELS = 64     # fewer pixels a CTA: halve the cluster
 CLUSTER_HALO_ROWS = 3           # neighbours' rows a CTA keeps: 1 up, 2 down
 
@@ -98,11 +97,13 @@ def refine_inner_tiled(wx, wy, mask, dIs, cfg, inner_iter: int,
         # a plan that does not fit is launched all the same: the card
         # refuses it and launch_loop raises
         out = launch_loop("fot_varref_cluster", wx, wy, mask, dIs, cfg,
-                          inner_iter, plan=plan[:3])
+                          inner_iter, plan[:3])
         launches_cluster += 1
     else:
+        scratch = torch.empty((_N_SCRATCH,) + tuple(wx.shape),
+                              dtype=torch.float32, device=wx.device)
         out = launch_loop("fot_varref_tiled", wx, wy, mask, dIs, cfg,
-                          inner_iter)
+                          inner_iter, (scratch.data_ptr(),))
     launches += 1
     return out
 

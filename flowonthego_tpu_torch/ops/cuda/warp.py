@@ -3,12 +3,16 @@
 Replaces ``flowonthego_tpu/ops/pallas/warp.py`` (``warp_image_banded``,
 kernel ``_kernel``) with ``csrc/warp.cu``.  On the card the warp is bound
 by bytes (8 B of flow and (C + 1) * 4 B of output per pixel; the four
-taps mostly hit L1/L2), so the kernel is one thread per pixel doing the
-four clamped taps for every channel and the in-bounds mask.  The TPU
-kernel's banded stencil stood in for a gather the TPU lacks, and needed
-``|flow| <= bound``; the kernel needs no bound.  It computes the plain
-version's arithmetic in the same order, so the two are bit-exact.  A
-batch of frames is one launch of one thread per pixel of the batch.
+taps mostly hit L1/L2).  A warp's lanes sit on neighbouring pixels of a
+row, so that on a smooth flow their taps share sectors, and a thread owns
+that column of four consecutive rows, with all 16 C tap loads issued
+before the first blend; the channel count is a compile-time constant (1
+and 3; others take a generic form), row and frame come from the grid.
+``probes/warp_probe.cu`` holds the forms that were measured against it.
+The TPU kernel's banded stencil stood in for a gather the TPU lacks, and
+needed ``|flow| <= bound``; the kernel needs no bound.  It computes the
+plain version's arithmetic in the same order, so the two are bit-exact.
+A batch of frames is one launch, the frame a grid dimension.
 
 :func:`warp_image` launches the kernel for CUDA tensors and runs
 :func:`warp_image_plain` (``ops/variational.warp_image``) for CPU tensors.

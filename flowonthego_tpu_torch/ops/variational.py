@@ -13,7 +13,8 @@ half_gamma_over3 = gamma/6.
 
 :func:`variational_refine_auto` routes each field by
 :func:`varref_backend_for`: the plain stencils here, the K3 kernel
-(:mod:`.cuda.varref_fused`, one CTA) up to :data:`FUSED_MAX_PIXELS`, the
+(:mod:`.cuda.varref_fused`, one CTA with everything in its shared
+memory) up to :data:`FUSED_MAX_PIXELS`, the
 K4 kernel's cluster route (:mod:`.cuda.varref_tiled`, one thread-block
 cluster a field) up to :data:`CLUSTER_MAX_PIXELS`, or its grid route (the
 whole card) above that.  The choice is by the size of one field,
@@ -35,33 +36,39 @@ EPS_GRAD = 0.001 * 0.001
 EPS_SMOOTH = 0.001 * 0.001
 
 
-# Both thresholds are crossovers of the kernels' times on an H100 80GB HBM3
-# at 700 W, by the sweep that chip_smoke.py prints (device time of
-# back-to-back launches, at B = 1 and B = 4; PERF.md), linear between the
-# two sweep points around each and averaged over six sweeps.
-# Largest field (pixels) that goes to K3; larger ones go to K4.  K3 is the
-# faster at 448 px (0.053 vs 0.055 ms for the cluster route), the cluster
-# route at 896 px (0.046 vs 0.065 ms) and beyond: 466-498 px in the sweeps.
-FUSED_MAX_PIXELS = 490
+# Both thresholds come from the kernels' times on an H100 80GB HBM3 at 700
+# W, by the sweep that chip_smoke.py prints (device time of back-to-back
+# launches, at B = 1 and B = 4, C = 3 and C = 1; PERF.md).
+# Largest field (pixels) that goes to K3; larger ones go to K4.  K3 runs a
+# thread a pixel, so 1,024 pixels is the most it takes, and it is the
+# faster on every field it takes: 0.025 vs 0.055 ms for the cluster route
+# at 448 px, 0.043 vs 0.047 at 1,024 px (C = 3; 0.030 vs 0.037 at C = 1).
+FUSED_MAX_PIXELS = 1_024
 # Largest field (pixels) on K4's cluster route; larger ones, and any field
 # whose rows do not fit the cluster's shared memory, take the grid route.
-# The cluster route is the faster at 3,840 px (0.063 vs 0.073 ms), the grid
-# route at 7,168 px (0.059 vs 0.066 ms) and beyond, where 8 CTAs cannot
-# get through a phase as fast as 28 can: 5,847-6,103 px in the sweeps.
+# The cluster route is the faster at 3,840 px (0.061 vs 0.073 ms), the grid
+# route at 7,168 px (0.059 vs 0.063 ms) and beyond, where 8 CTAs cannot
+# get through a phase as fast as 28 can: the two cross at 5,850-6,330 px in
+# the sweeps at C = 3 (7,700-8,000 at C = 1).
 CLUSTER_MAX_PIXELS = 6_000
 
 
-def varref_backend_for(cfg: DISConfig, h: int, w: int,
-                       device_type: str) -> str:
-    """Resolve ``cfg.varref_backend`` for an h x w field on a device of
-    ``device_type`` ("cpu", "cuda"): "xla" (the plain stencils), "fused"
-    (K3), "cluster" or "tiled" (K4's cluster and grid routes).  The TPU
-    package's Mosaic compile probe, its seeded verdicts and its 128-lane
-    width rule guard a TPU compiler and have no counterpart here."""
+def varref_backend_for(cfg: DISConfig, h: int, w: int, device_type: str,
+                       channels: int = 3) -> str:
+    """Resolve ``cfg.varref_backend`` for an h x w field of ``channels``
+    image channels on a device of ``device_type`` ("cpu", "cuda"): "xla"
+    (the plain stencils), "fused" (K3), "cluster" or "tiled" (K4's cluster
+    and grid routes).  A field goes to K3 or to the cluster route only if
+    its planes fit the shared memory that route keeps them in
+    (``fused_plan``, ``cluster_plan``).  The TPU package's Mosaic compile
+    probe, its seeded verdicts and its 128-lane width rule guard a TPU
+    compiler and have no counterpart here."""
     if not use_kernel_on(cfg.varref_backend, device_type):
         return "xla"
     if h * w <= FUSED_MAX_PIXELS:
-        return "fused"
+        from .cuda.varref_fused import fused_plan
+        if fused_plan(h, w, channels).fits:
+            return "fused"
     if h * w <= CLUSTER_MAX_PIXELS:
         from .cuda.varref_tiled import cluster_plan
         if cluster_plan(h, w).fits:
@@ -71,9 +78,10 @@ def varref_backend_for(cfg: DISConfig, h: int, w: int,
 
 def variational_refine_auto(flow, im1, im2, cfg: DISConfig, level: int):
     """Refine the fields ``flow`` [B, h, w, 2] on the backend of
-    :func:`varref_backend_for` (chosen by the size h x w of one field)."""
+    :func:`varref_backend_for` (chosen by the size h x w of one field and
+    the images' channel count)."""
     backend = varref_backend_for(cfg, flow.shape[1], flow.shape[2],
-                                 flow.device.type)
+                                 flow.device.type, im1.shape[-1])
     if backend == "fused":
         from .cuda.varref_fused import variational_refine_fused
         return variational_refine_fused(flow, im1, im2, cfg, level)

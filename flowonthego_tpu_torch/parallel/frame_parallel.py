@@ -21,7 +21,7 @@ import torch
 
 from ..config import DISConfig, pool_backend
 from ..models.dis_flow import (as_image, dis_flow_from_pyramids,
-                               dis_flow_padded, pin_fp32,
+                               dis_flow_padded, flow_full_padded, pin_fp32,
                                upsample_flow_to_full)
 from ..ops.pyramid import build_pyramid
 from ..ops.resize import resize_linear_antialias
@@ -45,10 +45,9 @@ def batched_flow(I0, I1, cfg: DISConfig, full_res: bool = True,
         raise ValueError(f"batched_flow takes two [B, H, W, C] batches of "
                          f"one shape, got {tuple(I0.shape)} and "
                          f"{tuple(I1.shape)}")
-    flow = dis_flow_padded(I0, I1, cfg)
     if full_res:
-        flow = upsample_flow_to_full(flow, cfg, I0.shape[1], I0.shape[2])
-    return flow
+        return flow_full_padded(I0, I1, cfg)
+    return dis_flow_padded(I0, I1, cfg)
 
 
 def warm_start(flow: torch.Tensor, cfg: DISConfig, init_h: int,

@@ -26,3 +26,12 @@ def endpoint_error(flow, gt) -> np.ndarray:
 def average_epe(flow, gt) -> float:
     """Average endpoint error over known pixels."""
     return float(np.nanmean(endpoint_error(flow, gt)))
+
+
+def angular_error(flow, gt) -> np.ndarray:
+    """Per-pixel angular error (degrees) in the (u, v, 1) space."""
+    flow = _numpy(flow)
+    gt = _numpy(gt)
+    num = (flow * gt).sum(-1) + 1.0
+    den = np.sqrt((flow ** 2).sum(-1) + 1.0) * np.sqrt((gt ** 2).sum(-1) + 1.0)
+    return np.degrees(np.arccos(np.clip(num / den, -1.0, 1.0)))

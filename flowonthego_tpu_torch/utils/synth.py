@@ -7,6 +7,8 @@ float64 arithmetic in a fixed order, so the same seed gives the same
 frames on any machine; a golden flow computed on one machine therefore
 holds on another.  Frames are crops of that texture moved by a whole
 number of pixels, so the true flow is known everywhere but at the border.
+:func:`synthetic_split_pair` moves the two halves of a frame by different
+amounts, so the true flow is known per pixel and is not uniform.
 """
 
 from __future__ import annotations
@@ -67,3 +69,38 @@ def synthetic_pair(seed: int, height: int, width: int,
     """(I0, I1) with flow ``shift = (sx, sy)`` from I0 to I1."""
     i0, i1 = synthetic_frames(seed, 2, height, width, shift, channels, factor)
     return i0, i1
+
+
+def synthetic_split_pair(seed: int, height: int, width: int,
+                         shift_left: tuple[int, int] = (2, 2),
+                         shift_right: tuple[int, int] = (16, 8),
+                         channels: int = 3, factor: int = 16):
+    """A pair whose left half moves by ``shift_left`` and whose right half
+    by ``shift_right`` (whole pixels, (sx, sy)) -> (I0, I1, flow, known).
+
+    I0 is a crop of the texture; I1 is that texture warped by the exact
+    field: a pixel of I1 left of the seam ``width // 2`` shows the texture
+    moved by ``shift_left``, one at or right of it the texture moved by
+    ``shift_right``.  ``flow`` [H, W, 2] float32 is the motion of every I0
+    pixel and ``known`` [H, W] bool marks the pixels where it is the true
+    flow: those whose target ``x + flow`` lies in I1 on their own side of
+    the seam.  Between the two (a band as wide as the difference of the
+    horizontal motions) content is hidden or uncovered and no flow is
+    true."""
+    shifts = np.asarray([shift_left, shift_right], dtype=np.int64)
+    m = int(np.abs(shifts).max()) + 8
+    base = smooth_texture(seed, height + 2 * m, width + 2 * m, channels,
+                          factor)
+    seam = width // 2
+    i0 = base[m:m + height, m:m + width]
+    moved = [base[m - sy:m - sy + height, m - sx:m - sx + width]
+             for sx, sy in shifts]
+    i1 = np.concatenate([moved[0][:, :seam], moved[1][:, seam:]], axis=1)
+    jj, ii = np.mgrid[0:height, 0:width]
+    right = ii + shifts[1, 0] >= seam          # lands right of the seam
+    left = ii + shifts[0, 0] < seam
+    flow = np.where(right[..., None], shifts[1], shifts[0]).astype(np.float32)
+    tx, ty = ii + flow[..., 0], jj + flow[..., 1]
+    known = ((left ^ right) & (tx >= 0) & (tx < width) & (ty >= 0)
+             & (ty < height))
+    return i0, np.ascontiguousarray(i1), flow, known

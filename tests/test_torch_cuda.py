@@ -81,9 +81,10 @@ def test_gn_kernel(cuda, warm):
 
 @pytest.mark.parametrize("level", [0, 3])
 def test_varref_kernel(cuda, level):
-    i0, i1 = synthetic_frames(2, 2, 56, 128, (1, 0), factor=4)
+    # 16x64: 1,024 px, the most K3 takes (a thread a pixel)
+    i0, i1 = synthetic_frames(2, 2, 16, 64, (1, 0), factor=4)
     g = torch.Generator().manual_seed(2)
-    flow = (torch.randn((1, 56, 128, 2), generator=g) * 0.3
+    flow = (torch.randn((1, 16, 64, 2), generator=g) * 0.3
             + torch.tensor([1.0, 0.0])).to(cuda)
     im1 = torch.as_tensor(i0, device=cuda)[None]
     im2 = torch.as_tensor(i1, device=cuda)[None]
@@ -181,7 +182,8 @@ def test_varref_kernels_one_channel(cuda):
 
 def test_varref_tiled_kernel(cuda):
     """K4 against the plain loop at op-3 scale 1 of 1024x448, and against
-    K3 on the scale-2 field (the same function, the same arithmetic)."""
+    K3 on a field that K3 takes (the same function, the same
+    arithmetic)."""
     cfg = port.operating_point(3)
     P = _varref_planes(cuda, 224, 512, cfg)
     n0 = varref_tiled.launches
@@ -190,7 +192,7 @@ def test_varref_tiled_kernel(cuda):
     ru, rv = varref_tiled.refine_inner_plain(*P, cfg, 2)
     torch.testing.assert_close(uu, ru, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(vv, rv, rtol=1e-4, atol=1e-5)
-    P = _varref_planes(cuda, 112, 256, cfg)
+    P = _varref_planes(cuda, 28, 32, cfg)
     u4, v4 = varref_tiled.refine_inner_tiled(*P, cfg, 3)
     u3, v3 = varref_fused.refine_inner(*P, cfg, 3)
     torch.testing.assert_close(u4, u3, rtol=1e-4, atol=1e-5)
@@ -199,14 +201,15 @@ def test_varref_tiled_kernel(cuda):
 
 @pytest.mark.parametrize("h,w,level,channels", [
     (28, 64, 4, 3), (34, 60, 6, 3), (56, 128, 3, 1), (112, 256, 2, 3),
-    (9, 200, 2, 3)])
+    (9, 200, 2, 3), (28, 48, 4, 3), (28, 64, 4, 1), (17, 30, 7, 3)])
 def test_varref_cluster_route(cuda, h, w, level, channels):
     """K4's cluster route (work planes in the CTAs' shared memory, halo
     rows through distributed shared memory), its grid route and K3 run
-    one loop: bit-identical on a field all three take, within tolerance
-    of the plain loop; a batch of four (one cluster a frame) matches each
-    frame alone.  9x200 splits into 8 CTAs: four of 2 rows, one of 1 and
-    three with none."""
+    one loop: bit-identical on a field all three take (K3 takes those of
+    at most 1,024 pixels, a thread each), within tolerance of the
+    plain loop; a batch of four (one cluster a frame) matches each frame
+    alone.  9x200 splits into 8 CTAs: four of 2 rows, one of 1 and three
+    with none."""
     cfg = port.operating_point(3)
     P = _varref_planes(cuda, h, w, cfg, channels, n_frames=B)
     assert varref_tiled.cluster_plan(h, w).fits
@@ -221,9 +224,10 @@ def test_varref_cluster_route(cuda, h, w, level, channels):
     ug, vg = varref_tiled.refine_inner_tiled(*P, cfg, level + 1,
                                              route="grid")
     assert varref_tiled.launches_cluster == c0 + 1
-    u3, v3 = varref_fused.refine_inner(*P, cfg, level + 1)
     assert torch.equal(uu, ug) and torch.equal(vv, vg)
-    assert torch.equal(uu, u3) and torch.equal(vv, v3)
+    if varref_fused.fused_plan(h, w, channels).fits:
+        u3, v3 = varref_fused.refine_inner(*P, cfg, level + 1)
+        assert torch.equal(uu, u3) and torch.equal(vv, v3)
     for b in range(B):
         ub, vb = varref_tiled.refine_inner_tiled(
             *(x[b:b + 1] for x in P), cfg, level + 1, route="cluster")
@@ -244,6 +248,54 @@ def test_varref_cluster_refused_launch_raises(cuda):
         varref_tiled.refine_inner_tiled(*P, cfg, 2, route="auto")
     assert varref_tiled.launches == n0
     uu, _ = varref_tiled.refine_inner_tiled(*P, cfg, 2, route="grid")
+    assert torch.isfinite(uu).all()
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("h,w,level", [
+    (14, 32, 5), (17, 30, 7), (18, 32, 5), (22, 32, 5), (28, 32, 4),
+    (31, 33, 4), (32, 32, 4), (3, 5, 2), (1, 40, 1), (40, 1, 1)])
+def test_varref_fused_matches_k4(cuda, h, w, level, channels):
+    """K3 (one CTA a field, a thread a pixel, everything in registers and
+    shared memory) at every size up to the resolver's threshold and on to
+    the 1,024 pixels it can take: bit-identical to both routes of K4,
+    within tolerance of the plain loop, a batch of four (one CTA a frame)
+    equal to each frame alone; 31x33 and 17x30 leave the last warp
+    ragged, 1x40 and 40x1 have no neighbour in one direction."""
+    cfg = port.operating_point(2)
+    P = _varref_planes(cuda, h, w, cfg, channels, n_frames=B)
+    assert varref_fused.fused_plan(h, w, channels).fits
+    n0 = varref_fused.launches
+    uu, vv = varref_fused.refine_inner(*P, cfg, level + 1)
+    assert varref_fused.launches == n0 + 1
+    ru, rv = varref_fused.refine_inner_plain(*P, cfg, level + 1)
+    torch.testing.assert_close(uu, ru, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(vv, rv, rtol=1e-4, atol=1e-5)
+    for route in varref_tiled.ROUTES:
+        u4, v4 = varref_tiled.refine_inner_tiled(*P, cfg, level + 1,
+                                                 route=route)
+        assert torch.equal(uu, u4) and torch.equal(vv, v4), route
+    for b in range(B):
+        ub, vb = varref_fused.refine_inner(*(x[b:b + 1] for x in P), cfg,
+                                           level + 1)
+        assert torch.equal(ub[0], uu[b]) and torch.equal(vb[0], vv[b])
+
+
+@pytest.mark.parametrize("h,w,channels", [(56, 128, 3), (28, 64, 3),
+                                          (40, 96, 1), (33, 32, 1)])
+def test_varref_fused_refused_launch_raises(cuda, h, w, channels):
+    """A field of more than 1,024 pixels (K3 has a thread a pixel): the
+    launch is refused and the wrapper raises; nothing is counted, nothing
+    is sent to K4, and the next launch works."""
+    cfg = port.operating_point(3)
+    P = _varref_planes(cuda, h, w, cfg, channels)
+    assert not varref_fused.fused_plan(h, w, channels).fits
+    n0, n4 = varref_fused.launches, varref_tiled.launches
+    with pytest.raises(RuntimeError, match="fot_varref_fused"):
+        varref_fused.refine_inner(*P, cfg, 2)
+    assert (varref_fused.launches, varref_tiled.launches) == (n0, n4)
+    uu, _ = varref_fused.refine_inner(*_varref_planes(cuda, 14, 32, cfg), cfg,
+                                      2)
     assert torch.isfinite(uu).all()
 
 
@@ -283,6 +335,47 @@ def test_warp_kernel(cuda):
         assert warp.launches == n0 + 1
         ref, rm = warp.warp_image_plain(src, wx, wy)
         assert torch.equal(got, ref) and torch.equal(gm, rm)
+
+
+@pytest.mark.parametrize("channels", [1, 3, 5])
+@pytest.mark.parametrize("n_frames", [1, 4])
+@pytest.mark.parametrize("h,w", [(37, 61), (16, 64), (3, 130), (9, 7)])
+def test_warp_kernel_forms(cuda, h, w, channels, n_frames):
+    """K5 is bit-exact with the plain warp at C = 1 and 3 (compiled) and 5
+    (the generic form), for one frame and four, with widths and heights
+    that are and are not multiples of 4 (a thread owns four rows), on a
+    dense source and on a strided crop, on flows within the image, flows
+    that leave it and flows far outside it."""
+    g = torch.Generator().manual_seed(6)
+    big = (torch.rand((n_frames, h + 9, w + 6, channels), generator=g)
+           * 255).to(cuda)
+    crop = big[:, 4:4 + h, 3:3 + w]
+    for src in (crop.contiguous(), crop):
+        for reach in (0.75, 8.0, 1e4):
+            wx, wy = (((torch.rand((n_frames, h, w), generator=g) * 2 - 1)
+                       * reach).to(cuda) for _ in range(2))
+            n0 = warp.launches
+            got, gm = warp.warp_image(src, wx, wy)
+            assert warp.launches == n0 + 1
+            ref, rm = warp.warp_image_plain(src, wx, wy)
+            assert torch.equal(got, ref) and torch.equal(gm, rm)
+
+
+def test_warp_kernel_smooth_split_flow(cuda):
+    """K5 on the flow the pipeline gives it: the split pair's known field
+    (two motions and a seam) with a smooth sub-pixel part."""
+    from flowonthego_tpu_torch.utils.synth import (smooth_texture,
+                                                   synthetic_split_pair)
+    h, w = 56, 128
+    _, i1, field, _ = synthetic_split_pair(3, h, w, (2, 2), (16, 8),
+                                           factor=4)
+    flow = field + (smooth_texture(4, h, w, 2, factor=4) - 128.0) / 100.0
+    flow = torch.as_tensor(flow, dtype=torch.float32, device=cuda)
+    src = torch.as_tensor(i1, device=cuda)[None]
+    wx, wy = flow[None, ..., 0].contiguous(), flow[None, ..., 1].contiguous()
+    got, gm = warp.warp_image(src, wx, wy)
+    ref, rm = warp.warp_image_plain(src, wx, wy)
+    assert torch.equal(got, ref) and torch.equal(gm, rm)
 
 
 def test_compute_flow_op4_runs_k4_k5(cuda):

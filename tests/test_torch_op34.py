@@ -31,6 +31,8 @@ import flowonthego_tpu_torch as port
 from flowonthego_tpu_torch.convert import config_from_jax
 from flowonthego_tpu_torch.ops import variational as pvar
 from flowonthego_tpu_torch.ops.cuda import varref_tiled, warp
+from flowonthego_tpu_torch.ops.cuda.varref_fused import (
+    CTA_SHARED_BYTES, FUSED_MAX_PIXELS_PER_CTA, fused_plan)
 from flowonthego_tpu_torch.utils import timing
 from flowonthego_tpu_torch.utils.synth import synthetic_frames
 from test_torch_slice import assert_flow_band
@@ -74,6 +76,66 @@ def test_warp_matches_banded_and_gather(rng, h, w, bound):
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(band_i))
 
 
+@pytest.mark.parametrize("h,w,channels,strided", [
+    (40, 64, 3, False), (37, 61, 3, True), (23, 50, 1, True),
+    (18, 30, 3, False)])
+def test_warp_nonuniform_flow_matches_jax(h, w, channels, strided):
+    """The port's warp on the flow the pipeline gives it, the split pair's
+    field (two motions, a seam, samples that leave the image at the right
+    and lower border) plus a smooth sub-pixel part: widths that are and
+    are not multiples of 4, a dense source and a strided crop of a larger
+    frame.  Mask: equal to both JAX forms.  Warped image: exact against
+    JAX's gather warp (the same four corners in the same order), within
+    atol 1e-3 of its banded Pallas warp in interpret mode (rows, then
+    columns: 1-2 ulp of 0..255)."""
+    from flowonthego_tpu_torch.utils.synth import (smooth_texture,
+                                                   synthetic_split_pair)
+    left, right = (2, 2), (7, 4)
+    _, i1, field, _ = synthetic_split_pair(11, h, w, left, right, channels,
+                                           factor=4)
+    flow = (field + (smooth_texture(12, h, w, 2, factor=4) - 128.0)
+            / 100.0).astype(np.float32)
+    wx, wy = np.ascontiguousarray(flow[..., 0]), np.ascontiguousarray(
+        flow[..., 1])
+    bound = float(np.abs(flow).max()) + 1.0
+    src = torch.as_tensor(i1)
+    if strided:
+        big = torch.zeros((h + 6, w + 10, channels))
+        big[3:3 + h, 5:5 + w] = src
+        src = big[3:3 + h, 5:5 + w]
+        assert not src.is_contiguous()
+    got_w, got_m = (x[0] for x in warp.warp_image(
+        src[None], torch.as_tensor(wx)[None], torch.as_tensor(wy)[None]))
+    gat_w, gat_m = jax_warp_image(jnp.asarray(i1), jnp.asarray(wx),
+                                  jnp.asarray(wy), force_onehot=False)
+    band_w, band_m = warp_image_banded(jnp.asarray(i1), jnp.asarray(wx),
+                                       jnp.asarray(wy), bound, tile_rows=16,
+                                       interpret=True)
+    assert 0 < float(got_m.mean()) < 1          # some samples leave the image
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(gat_m))
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(band_m))
+    np.testing.assert_array_equal(got_w.numpy(), np.asarray(gat_w))
+    np.testing.assert_allclose(got_w.numpy(), np.asarray(band_w), rtol=0,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("reach", [30.0, 1e4])
+def test_warp_flows_far_outside_match_jax(rng, reach):
+    """Flows that leave the image by far (every tap clamped): mask and
+    image exact against JAX's gather warp."""
+    h, w = 19, 27
+    src = (rng.random((h, w, 3)) * 255).astype(np.float32)
+    wx = ((rng.random((h, w)) * 2 - 1) * reach).astype(np.float32)
+    wy = ((rng.random((h, w)) * 2 - 1) * reach).astype(np.float32)
+    got_w, got_m = (x[0] for x in warp.warp_image(
+        *(torch.as_tensor(x)[None] for x in (src, wx, wy))))
+    gat_w, gat_m = jax_warp_image(jnp.asarray(src), jnp.asarray(wx),
+                                  jnp.asarray(wy), force_onehot=False)
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(gat_m))
+    np.testing.assert_array_equal(got_w.numpy(), np.asarray(gat_w))
+    assert float(got_m.mean()) < 0.5
+
+
 # ---------------------------------------------------------------- K4 var-ref
 
 @pytest.mark.parametrize("level,channels", [(0, 3), (1, 3), (0, 1), (1, 1)])
@@ -110,38 +172,96 @@ def test_varref_resolver():
         assert pvar.varref_backend_for(cfg, *shape, "cpu") == "xla"
         plain = dataclasses.replace(cfg, varref_backend="xla")
         assert pvar.varref_backend_for(plain, *shape, "cuda") == "xla"
-    assert pvar.varref_backend_for(cfg, *small, "cuda") == "fused"
-    assert pvar.varref_backend_for(cfg, *large, "cuda") == "cluster"
-    assert pvar.varref_backend_for(cfg, *huge, "cuda") == "tiled"
+    for channels in (1, 3):
+        assert pvar.varref_backend_for(cfg, *small, "cuda",
+                                       channels) == "fused"
+        assert pvar.varref_backend_for(cfg, *large, "cuda",
+                                       channels) == "cluster"
+        assert pvar.varref_backend_for(cfg, *huge, "cuda",
+                                       channels) == "tiled"
     forced = dataclasses.replace(cfg, varref_backend="pallas")
     assert pvar.varref_backend_for(forced, *large, "cuda") == "cluster"
     assert pvar.varref_backend_for(forced, *huge, "cuda") == "tiled"
     with pytest.raises(ValueError, match="CUDA kernel"):
         pvar.varref_backend_for(forced, *small, "cpu")
-    # at 1024x448 the coarsest field (scale 5) goes to K3, scale 4 to K4's
-    # cluster route, the finer ones to its grid route
-    assert 14 * 32 <= n < 28 * 64 <= pvar.CLUSTER_MAX_PIXELS < 56 * 128
+    # at 1024x448 the coarsest field (scale 5) goes to K3, as does the 4K
+    # stream's (17x30), scale 4 to K4's cluster route, the finer ones to
+    # its grid route
+    assert 14 * 32 < 17 * 30 <= n < 28 * 64 <= pvar.CLUSTER_MAX_PIXELS \
+        < 56 * 128
+    # K3 never gets a field it cannot take
+    assert n <= FUSED_MAX_PIXELS_PER_CTA
 
 
 # The fields of the main paths (1024x448 scales 5-0, the 4K stream's
-# scales 7-5) and the fields on either side of both thresholds.
-@pytest.mark.parametrize("h,w,want", [
-    (14, 32, "fused"), (17, 30, "cluster"),
-    (28, 64, "cluster"), (34, 60, "cluster"), (56, 128, "tiled"),
-    (68, 120, "tiled"), (112, 256, "tiled"),
-    (224, 512, "tiled"), (448, 1024, "tiled"),
-    (20, pvar.FUSED_MAX_PIXELS // 20, "fused"),
-    (20, pvar.FUSED_MAX_PIXELS // 20 + 1, "cluster"),
-    (64, pvar.CLUSTER_MAX_PIXELS // 64, "cluster"),
-    (64, pvar.CLUSTER_MAX_PIXELS // 64 + 1, "tiled"),
+# scales 7-5) at C = 3 and C = 1, and the fields on either side of both
+# thresholds.
+@pytest.mark.parametrize("h,w,channels,want", [
+    (14, 32, 3, "fused"), (17, 30, 3, "fused"),
+    (14, 32, 1, "fused"), (17, 30, 1, "fused"),
+    (28, 64, 3, "cluster"), (34, 60, 3, "cluster"), (28, 64, 1, "cluster"),
+    (56, 128, 3, "tiled"), (68, 120, 3, "tiled"), (112, 256, 3, "tiled"),
+    (224, 512, 3, "tiled"), (448, 1024, 3, "tiled"), (448, 1024, 1, "tiled"),
+    (2, pvar.FUSED_MAX_PIXELS // 2, 3, "fused"),
+    (2, pvar.FUSED_MAX_PIXELS // 2 + 1, 3, "cluster"),
+    (1, pvar.FUSED_MAX_PIXELS, 1, "fused"),
+    (64, pvar.CLUSTER_MAX_PIXELS // 64, 3, "cluster"),
+    (64, pvar.CLUSTER_MAX_PIXELS // 64 + 1, 3, "tiled"),
+    # within K3's pixel threshold, but so many channels that its planes do
+    # not fit a CTA's shared memory: the next route takes the field
+    (2, pvar.FUSED_MAX_PIXELS // 2, 10, "cluster"),
     # few, very long rows: within the pixel threshold, but two rows a CTA
     # do not fit its shared memory
-    (2, pvar.CLUSTER_MAX_PIXELS // 2, "tiled"),
+    (2, pvar.CLUSTER_MAX_PIXELS // 2, 3, "tiled"),
 ])
-def test_varref_resolver_routes(h, w, want):
+def test_varref_resolver_routes(h, w, channels, want):
     cfg = port.operating_point(2)
-    assert pvar.varref_backend_for(cfg, h, w, "cuda") == want
-    assert pvar.varref_backend_for(cfg, h, w, "cpu") == "xla"
+    assert pvar.varref_backend_for(cfg, h, w, "cuda", channels) == want
+    assert pvar.varref_backend_for(cfg, h, w, "cpu", channels) == "xla"
+
+
+def test_variational_refine_auto_passes_channels(monkeypatch):
+    """The resolver is asked with the images' channel count."""
+    seen = []
+
+    def fake(cfg, h, w, device_type, channels=3):
+        seen.append((h, w, device_type, channels))
+        return "xla"
+
+    monkeypatch.setattr(pvar, "varref_backend_for", fake)
+    cfg = port.operating_point(2)
+    for channels in (1, 3):
+        flow = torch.zeros((2, 12, 16, 2))
+        im = torch.rand((2, 12, 16, channels)) * 255
+        out = pvar.variational_refine_auto(flow, im, im, cfg, 1)
+        assert out.shape == flow.shape
+    assert seen == [(12, 16, "cpu", 1), (12, 16, "cpu", 3)]
+
+
+@pytest.mark.parametrize("h,w,channels,threads,fits", [
+    (14, 32, 3, 448, True), (14, 32, 1, 448, True), (17, 30, 3, 512, True),
+    (17, 30, 1, 512, True), (3, 5, 3, 32, True), (1, 1, 1, 32, True),
+    (31, 33, 3, 1024, True), (32, 32, 3, 1024, True),
+    (32, 32, 1, 1024, True),
+    # a thread a pixel: more than 1,024 pixels never fit
+    (25, 41, 3, 1056, False), (25, 41, 1, 1056, False),
+    (28, 64, 3, 1792, False), (56, 128, 1, 7168, False),
+    # the 227 KB edge, which C = 1 and C = 3 never reach within 1,024
+    # pixels (29 planes * 4 B * 1,024 px = 116 KB): seven channels do
+    (1, 952, 7, 960, True), (1, 953, 7, 960, False),
+    (32, 32, 6, 1024, True), (32, 32, 7, 1024, False)])
+def test_fused_plan(h, w, channels, threads, fits):
+    """K3's plan: a thread a pixel in whole warps, 5 + 8 C planes of 4-byte
+    pixels in shared memory, fitting if there are at most 1,024 pixels and
+    at most 227 KB."""
+    plan = fused_plan(h, w, channels)
+    assert plan.threads == threads and plan.threads % 32 == 0
+    assert plan.threads >= h * w
+    assert plan.shared_bytes == (5 + 8 * channels) * h * w * 4
+    assert plan.fits == fits
+    assert plan.fits == (h * w <= FUSED_MAX_PIXELS_PER_CTA
+                         and plan.shared_bytes <= CTA_SHARED_BYTES)
+    assert CTA_SHARED_BYTES == 227 * 1024
 
 
 def test_cluster_plan():
