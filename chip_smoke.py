@@ -23,9 +23,11 @@ Phases (any failure raises and the script exits non-zero):
      fit must raise; K5 on a random flow and on a smooth one (two motions
      and a sub-pixel part, as the pipeline gives it), on a strided crop,
      far outside the image and in its generic form;
-  4. the main paths at real size, each with the launch counters reset
-     just before it and read just after (numpy frames with no ``device``
-     must come back on the card): op 2 (``compute_flow`` on a
+  4. the main paths at real size, each from scratch (no cached graph)
+     with the wrappers' launch counters reset just before it and read
+     just after, under ``torch.profiler``, whose device events say how
+     often each kernel ran, replays of a CUDA graph included (numpy frames
+     with no ``device`` must come back on the card): op 2 (``compute_flow`` on a
      seeded 1024x436 pair moving (16, 8) px, ``stream_flow`` over four
      3840x2160 frames), op 4 (``compute_flow`` on that pair, and on one
      moving (2, 2) px, which stays inside the outlier radius at every
@@ -63,22 +65,56 @@ Phases (any failure raises and the script exits non-zero):
      ``compute_flow`` and its motion), a four-stream ``MultiStream`` at op
      2 against ``stream_flow`` on each stream, ``stream_video_chunks`` on a
      9-frame video in four chunks, and the bf16 solve's flow against the
-     float32 flow, with ms per batch, frame and tick.
+     float32 flow, with ms per batch, frame and tick;
+  9. the captured paths (``utils/graphs.py``: every entry point of phases
+     4-8 already ran through its CUDA graph from its second call on) at
+     full width, each counted as in phase 4: op 2, op 4 on the (2,
+     2) pair and op 2 with forward-backward consistency through
+     ``compute_flow`` at 1024x436, ``batched_flow`` of four, the op-2
+     3840x2160 stream, the op-3 stream and a four-stream ``MultiStream``
+     tick: the captured flow equals the eager flow bit for bit and two
+     flows held at once do not alias; per call, eagerly and captured, the
+     device events and the host's launch calls (``torch.profiler``; a
+     captured call must make one graph launch, which must run each device
+     event of the eager call as often and only its own copies more; an
+     eager call must run each kernel as often as its wrapper counted), ms
+     as host wall and as
+     CUDA-event time over calls queued back to back (median of 3
+     trials) and the busy share (profiled device time over wall time);
+     the table of captured and eager entries; the allocator's bytes
+     before and after the 4K stream's capture and after ``clear()``;
+ 10. the native I/O library (``io/native.py``): ``native: built`` or
+     ``native: unavailable`` with the compiler's message (then the
+     Python twins serve, and the phase ends there); on a host without
+     ``png.h`` or ``jpeglib.h`` the build is the one without those two
+     decoders, and the full build's message is printed; when built, a .flo round trip, a PPM decode against ``load_image``,
+     the colour wheel against ``flow_to_color`` and
+     ``stream_flow(FrameStream(directory of PPM frames))`` against
+     ``stream_flow`` over the loaded frames, bit for bit;
+ 11. the device-list forms on a one-device mesh:
+     ``make_data_parallel_flow`` against ``batched_flow`` and
+     ``MultiStream(devices=[cuda:0])`` against ``MultiStream(device=)``,
+     bit for bit.
 A kernel's ``ms`` is the device's time for back-to-back launches of its
 wrapper (:func:`device_ms`); a plain version's is the time between two
 events with the host's enqueue time in it.  It prints one JSON line of
 per-kernel results (``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``,
-``library_ms``; the batched and bf16 rows with the launches of phase 8;
-K4 as two rows, one for each route) and, last, the device line
+``library_ms``; ``launches``: how often the kernel ran on the device in
+the main paths' runs of phases 4, 6 and 9, from those runs' profiles; the
+batched and bf16 rows with those of phase 8; K4 as two rows, one for each
+route) and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
 prints no result.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -90,6 +126,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = {op: os.path.join(REPO, "tests", "data",
                            f"torch_port_golden_op{op}_1024x448.npz")
           for op in (2, 3)}
+# JAX's op-2 finest flow on the split pair (SPLIT_SHIFTS)
+GOLDEN_SPLIT = os.path.join(REPO, "tests", "data",
+                            "torch_port_golden_op2_split_1024x448.npz")
 # op-2 goldens of two modes: (file, config fields)
 GOLDEN_MODES = {
     "fb": ("torch_port_golden_op2_fb_1024x448.npz",
@@ -275,7 +314,10 @@ def smooth_flow(h, w, B, dev):
 
 
 def host_ms(fn, reps: int) -> float:
-    """Mean wall time of ``fn`` over ``reps`` calls, ending in a sync."""
+    """Mean wall time of ``fn`` over ``reps`` calls, ending in a sync,
+    after one call that is not timed (an entry point's first call runs
+    eagerly and records its CUDA graph)."""
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -335,27 +377,135 @@ def kernel_modules():
             "varref_tiled": varref_tiled, "warp": warp}
 
 
-def counted(name, fn, expect, absent=()):
-    """Run one path with the launch counters from zero; check that every
-    kernel in ``expect`` launched and none in ``absent``; return (result,
-    counts).  "varref_tiled" counts K4's launches on its grid route and
-    "varref_cluster" those on its cluster route.  "gn_bf16" counts K2's
-    bf16 launches: with it in ``expect`` every K2 launch must be one (bf16
-    was asked for), else none."""
+# The kernels' names on the device, as a profile shows them (K2's bf16
+# form is the same kernel compiled for __nv_bfloat16 loads).
+KERNEL_NAMES = {"pool": "pool2x2_kernel", "gn": "dis_gn_kernel",
+                "varref": "varref_kernel",
+                "varref_cluster": "varref_cluster_kernel",
+                "varref_tiled": "varref_tiled_kernel", "warp": "warp_kernel"}
+KERNEL_RE = {k: re.compile(rf"(?<![A-Za-z0-9_]){name}(?![A-Za-z0-9_])")
+             for k, name in KERNEL_NAMES.items()}
+# host runtime calls that put work on the device
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset",
+                "cudaGraphLaunch")
+# A copy between two device tensors shows in a profile as a memcpy
+# activity or as one of CUDA's own copy kernels (memcpy32_post,
+# memcpy128, ...), the same copy now as one, now as the other, and as
+# PyTorch's copy kernel where a side is strided: all are counted under
+# this name.
+THROW_AWAY = 32     # kernels a profile spends before what it measures
+PROFILE_TRIES = 4
+COPY = "device-to-device copy"
+COPY_RE = re.compile(r"^Memcpy DtoD|^memcpy\d+|direct_copy_kernel_cuda")
+
+
+def profiled(fn, before=None):
+    """Run ``fn`` under ``torch.profiler`` to a sync: (result, Counter of
+    the device events' names, device ms, the host's launch calls, of which
+    graph launches).  The device events are what ran on the card, whether
+    launched one by one or replayed from a CUDA graph.
+
+    The tracer sometimes loses the device events at the start of what it
+    records (a few, or some hundreds).  So the profile starts in a
+    warm-up step, and the recorded step begins with THROW_AWAY kernels
+    that no path runs (digamma): they are left out of the counts, and a
+    profile that does not show all of them is incomplete, is discarded
+    and taken again (``before()`` is called ahead of every attempt)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    scratch = torch.ones(1, device="cuda")
+
+    def throw_away():
+        for _ in range(THROW_AWAY):
+            scratch.digamma_()
+        torch.cuda.synchronize()
+
+    for _ in range(PROFILE_TRIES):
+        if before is not None:
+            before()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            throw_away()
+            prof.step()
+            throw_away()
+            out = fn()
+            torch.cuda.synchronize()
+        names = collections.Counter()
+        host_n = graph_n = thrown = 0
+        dev_us = 0.0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                if "digamma" in e.name:
+                    thrown += 1
+                    continue
+                names[COPY if COPY_RE.search(e.name) else e.name] += 1
+                dev_us += e.time_range.elapsed_us()
+            elif e.name.startswith(LAUNCH_CALLS):
+                host_n += 1
+                graph_n += e.name.startswith("cudaGraphLaunch")
+        if thrown == THROW_AWAY:
+            return out, names, dev_us / 1e3, host_n - thrown, graph_n
+        log(f"  (the tracer lost {THROW_AWAY - thrown} of the {THROW_AWAY} "
+            "throw-away kernels that lead a profile: profile discarded, "
+            "taken again)")
+    raise AssertionError(f"{PROFILE_TRIES} profiles in a row were incomplete")
+
+
+def kernel_counts(names) -> dict:
+    """How often each kernel of the port ran, from a profile's device
+    events.  "varref_tiled" is K4's grid route, "varref_cluster" its
+    cluster route, "gn_bf16" K2's launches with bf16 operands (counted
+    under "gn" too)."""
+    counts = dict.fromkeys(ALL + ("gn_bf16",), 0)
+    for name, n in names.items():
+        for k, pattern in KERNEL_RE.items():
+            if pattern.search(name):
+                counts[k] += n
+                if k == "gn" and "bfloat16" in name:
+                    counts["gn_bf16"] += n
+    return counts
+
+
+def wrapper_counts(reset=False) -> dict:
+    """The wrappers' own launch counts (each adds one where it launches
+    its kernel, eagerly or into a capture), keyed as kernel_counts."""
     wrappers = kernel_modules()
-    for m in wrappers.values():
-        m.launches = 0
-    wrappers["gn"].launches_bf16 = 0
-    wrappers["varref_tiled"].launches_cluster = 0
-    out = fn()
-    torch.cuda.synchronize()
     counts = {k: m.launches for k, m in wrappers.items()}
     counts["gn_bf16"] = wrappers["gn"].launches_bf16
     counts["varref_cluster"] = wrappers["varref_tiled"].launches_cluster
     counts["varref_tiled"] -= counts["varref_cluster"]
-    log(f"{name} launches: {counts}")
-    assert all(counts[k] > 0 for k in expect), (name, counts)
-    assert not any(counts[k] for k in absent), (name, counts)
+    if reset:
+        for m in wrappers.values():
+            m.launches = 0
+        wrappers["gn"].launches_bf16 = 0
+        wrappers["varref_tiled"].launches_cluster = 0
+    return counts
+
+
+def counted(name, fn, expect, absent=()):
+    """Drive one path from scratch (no cached graph) with the wrappers'
+    launch counters from zero, under the profiler; return (result, how
+    often each kernel ran on the device in this run).  Every kernel in
+    ``expect`` must have been launched by its wrapper and have run on the
+    device, and none in ``absent``.  A call that replays a CUDA graph
+    calls no wrapper, so the device's count is the one kept: it is read
+    from this run's device events by kernel name.  With "gn_bf16" in
+    ``expect`` every K2 launch must be a bf16 one, else none."""
+    from flowonthego_tpu_torch.utils import graphs
+
+    def from_scratch():
+        graphs.clear()
+        wrapper_counts(reset=True)
+
+    out, names, _, _, graph_n = profiled(fn, before=from_scratch)
+    wrapped = wrapper_counts()
+    counts = kernel_counts(names)
+    log(f"{name}: kernels run on the device {counts}; launched by the "
+        f"wrappers {wrapped}; graph launches {graph_n}")
+    for k in expect:
+        assert wrapped[k] > 0 and counts[k] > 0, (name, k, counts, wrapped)
+    for k in absent:
+        assert wrapped[k] == 0 and counts[k] == 0, (name, k, counts, wrapped)
     assert counts["gn_bf16"] == (counts["gn"] if "gn_bf16" in expect
                                  else 0), (name, counts)
     return out, counts
@@ -1026,6 +1176,10 @@ def slice_phase(dev):
         flow = port.compute_flow(*pair, cfg)              # first call
         return flow, host_ms(lambda: port.compute_flow(*pair, cfg), reps)
 
+    def pair_thrice(cfg, pair):
+        """One eager call (which records the path) and two replays."""
+        return [port.compute_flow(*pair, cfg) for _ in range(3)][-1]
+
     # inputs: the goldens' 1024x436 pair, four 4K frames and four 1024x436
     # frames (edge-padded)
     golden = {op: np.load(path) for op, path in GOLDEN.items()}
@@ -1064,25 +1218,30 @@ def slice_phase(dev):
     assert torch.equal(port.compute_flow(*host_pair, cfg[2]),
                        port.compute_flow(i0, i1, cfg[2]))
 
-    (pair2, ms2), n_pair2 = counted(
-        "op 2 compute_flow 1024x436 x21",
-        lambda: timed_pair(cfg[2], 20, (i0, i1)), ALL)
-    (flows_4k, ms_4k), n_4k = counted(
-        "op 2 stream_flow 4K, twice", lambda: timed_stream(frames_4k, cfg_4k),
-        ALL)
-    (pair4, ms4), n_pair4 = counted(
-        "op 4 compute_flow 1024x436 x6",
-        lambda: timed_pair(cfg[4], 5, (i0, i1)), ALL)
-    (pair4s, ms4s), n_pair4s = counted(
-        f"op 4 compute_flow 1024x436 shift {SMALL_SHIFT} x6",
-        lambda: timed_pair(cfg[4], 5, small), ALL)
-    (flows_op3, ms_op3), n_op3 = counted(
+    # (the runs are profiled to count what ran on the device; the times
+    # are taken afterwards, unprofiled)
+    pair2, n_pair2 = counted("op 2 compute_flow 1024x436 x3",
+                             lambda: pair_thrice(cfg[2], (i0, i1)), ALL)
+    flows_4k, n_4k = counted(
+        "op 2 stream_flow 4K, twice",
+        lambda: [run_stream(frames_4k, cfg_4k) for _ in range(2)][-1], ALL)
+    pair4, n_pair4 = counted("op 4 compute_flow 1024x436 x3",
+                             lambda: pair_thrice(cfg[4], (i0, i1)), ALL)
+    pair4s, n_pair4s = counted(
+        f"op 4 compute_flow 1024x436 shift {SMALL_SHIFT} x3",
+        lambda: pair_thrice(cfg[4], small), ALL)
+    flows_op3, n_op3 = counted(
         "op 3 stream_flow 1024x448, twice",
-        lambda: timed_stream(frames_op3, cfg[3]), ALL)
-    (pair1, ms1), n_pair1 = counted(
-        "op 1 compute_flow 1024x436 x11",
-        lambda: timed_pair(cfg[1], 10, (i0, i1)),
-        ("pool", "gn"), ALL[2:])
+        lambda: [run_stream(frames_op3, cfg[3]) for _ in range(2)][-1], ALL)
+    pair1, n_pair1 = counted("op 1 compute_flow 1024x436 x3",
+                             lambda: pair_thrice(cfg[1], (i0, i1)),
+                             ("pool", "gn"), ALL[2:])
+    ms2 = timed_pair(cfg[2], 10, (i0, i1))[1]
+    ms4 = timed_pair(cfg[4], 3, (i0, i1))[1]
+    ms4s = timed_pair(cfg[4], 3, small)[1]
+    ms1 = timed_pair(cfg[1], 10, (i0, i1))[1]
+    ms_4k = timed_stream(frames_4k, cfg_4k)[1]
+    ms_op3 = timed_stream(frames_op3, cfg[3])[1]
     # the pair whose halves move differently, once at op 2 and at op 4
     s0, s1, split_field, split_known = synthetic_split_pair(
         seed, 436, 1024, *SPLIT_SHIFTS)
@@ -1099,14 +1258,14 @@ def slice_phase(dev):
 
     # ---- checks: finite, known motion, plain path, JAX goldens ----
     for op, pair, motion, flow, ms, reps in (
-            (2, (i0, i1), shift, pair2, ms2, 5),
+            (2, (i0, i1), shift, pair2, ms2, 1),
             (4, (i0, i1), shift, pair4, ms4, 1),
             (4, small, SMALL_SHIFT, pair4s, ms4s, 1),
-            (1, (i0, i1), shift, pair1, ms1, 5)):
+            (1, (i0, i1), shift, pair1, ms1, 1)):
         what = f"op {op} pair {motion}"
         assert flow.shape == (436, 1024, 2) and torch.isfinite(flow).all()
         log(f"compute_flow {what} 1024x436: {ms:.3f} ms/pair (kernels, "
-            "device-resident pair, host clock to sync)")
+            "captured, device-resident pair, host clock to sync)")
         check_shift(flow, motion, 16, f"{what} vs known shift")
         ref, ms_plain = timed_pair(plain(cfg[op]), reps, pair)
         log(f"compute_flow {what} 1024x436 plain path: {ms_plain:.3f} "
@@ -1138,6 +1297,19 @@ def slice_phase(dev):
         fin = dis_flow_padded(i0p[None], i1p[None], cfg[op])[0]
         flow_band(fin, torch.as_tensor(golden[op]["flow"], device=dev),
                   f"op {op} 1024x448 finest flow vs JAX golden")
+    g = np.load(GOLDEN_SPLIT)
+    assert int(g["seed"]) == seed
+    assert tuple(map(tuple, g["shift"].tolist())) == SPLIT_SHIFTS
+    fin = dis_flow_padded(pad_replicate(split[0], pads)[None],
+                          pad_replicate(split[1], pads)[None], cfg[2])[0]
+    flow_band(fin, torch.as_tensor(g["flow"], device=dev),
+              "op 2 split pair 1024x448 finest flow vs JAX golden")
+    for what, flow in (("the card", fin),
+                       ("JAX", torch.as_tensor(g["flow"]))):
+        left = flow[2:-2, 2:seam // 8 - 4].reshape(-1, 2) * 8.0
+        log(f"  op 2 split pair, left half median on {what}: "
+            f"{left.median(dim=0).values.tolist()} (motion "
+            f"{list(SPLIT_SHIFTS[0])})")
     for what, (name, fields) in GOLDEN_MODES.items():
         g = np.load(os.path.join(REPO, "tests", "data", name))
         assert int(g["seed"]) == seed and tuple(g["shift"]) == shift
@@ -1243,7 +1415,7 @@ def batch_phase(dev):
                 f"compute_flow| {err:.3g} px (bound {BATCH_TOL:g}); median "
                 f"{med.tolist()}, {off:.3g} px off (bound {MOTION_TOL:g})")
             assert err <= BATCH_TOL and off <= MOTION_TOL, (op, b)
-        reps = 10 if op == 2 else 3
+        reps = 5 if op == 2 else 2
         ms = host_ms(lambda: port.batched_flow(I0, I1, cfg), reps)
         ms_single = host_ms(lambda: [port.compute_flow(*p, cfg)
                                      for p in pairs], reps)
@@ -1287,13 +1459,17 @@ def batch_phase(dev):
             check_shift(t[k, pt:pt + h, pl:pl + w], motion, 16,
                         f"stream {k} tick vs known shift")
     stream = port.MultiStream(cfg, Hp, Wp, n_streams=B, device=dev)
-    stream.start(torch.stack([v[0] for v in videos]))
+    feed = ping_pong([torch.stack([v[t] for v in videos])
+                      for t in range(STREAM_FRAMES)])
+    stream.start(next(feed))
+    stream.push(next(feed))         # the first tick records the path
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for t in range(1, STREAM_FRAMES):
-        stream.push(torch.stack([v[t] for v in videos]))
+    for _ in range(6):
+        stream.push(next(feed))
     torch.cuda.synchronize()
-    tick = (time.perf_counter() - t0) * 1e3 / (STREAM_FRAMES - 1)
+    tick = (time.perf_counter() - t0) * 1e3 / 6
+    stream.close()
     seq = host_ms(lambda: [list(port.stream_flow(v, cfg, fetch=False))
                            for v in videos], 1) / (STREAM_FRAMES - 1)
     log(f"MultiStream op 2 {B} streams: {tick:.3f} ms/tick, "
@@ -1419,8 +1595,10 @@ def cli_phase(dev):
             cmd = cli.parse_command(
                 src + [os.path.join(d, name.replace(" ", "_") + suffix)]
                 + args)
-            (rc, ms), counts = counted(f"CLI {name}", lambda: timed_run(cmd),
-                                       expect, absent)
+            rc, counts = counted(f"CLI {name}", lambda: cli.run(cmd), expect,
+                                 absent)
+            assert rc == 0, name
+            rc, ms = timed_run(cmd)
             assert rc == 0, name
             for k in launches:
                 launches[k] += counts[k]
@@ -1447,8 +1625,7 @@ def cli_phase(dev):
         cmd = cli.parse_command(pairs["flow"]
                                 + [os.path.join(d, "fb_again.flo"), "2",
                                    "--fb"])
-        (rc, _), counts = counted("CLI fb again", lambda: timed_run(cmd),
-                                  ALL)
+        rc, counts = counted("CLI fb again", lambda: cli.run(cmd), ALL)
         for k in launches:
             launches[k] += counts[k]
         again = torch.as_tensor(read_flo(cmd.out))
@@ -1456,6 +1633,382 @@ def cli_phase(dev):
             "--fb flow differs between two runs"
         log("CLI fb: two runs bit-identical")
     return launches
+
+# ------------------------------------------------------------------ graphs
+
+GRAPH_TRIALS = 3     # trials of the chained timing (the median is kept)
+
+
+def chained_ms(fn, n):
+    """(host wall ms, CUDA-event ms, host enqueue ms) per call of ``fn``:
+    ``n`` calls queued back to back, ending in a sync; the enqueue time is
+    the host's up to its last call's return; medians of GRAPH_TRIALS."""
+    walls, events, enqueues = [], [], []
+    for _ in range(GRAPH_TRIALS):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        enqueues.append((time.perf_counter() - t0) * 1e3 / n)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / n)
+        events.append(start.elapsed_time(end) / n)
+    return tuple(float(np.median(x)) for x in (walls, events, enqueues))
+
+
+def launch_profile(fn, n):
+    """Per call of ``fn`` over ``n`` profiled calls: (Counter of device
+    events by name, device ms, the host's launch calls, of which graph
+    launches)."""
+    _, names, dev_ms, host_n, graph_n = profiled(
+        lambda: [fn() for _ in range(n)])
+    uneven = {k: c for k, c in names.items() if c % n}
+    if uneven:
+        log(f"  device events not a multiple of the {n} calls: {uneven}")
+    assert not uneven, "the calls of one path ran different device events"
+    per_call = collections.Counter({k: c // n for k, c in names.items()})
+    return per_call, dev_ms / n, host_n / n, graph_n / n
+
+
+def ping_pong(frames):
+    """Frames 0, 1, ..., n-1, n-2, ..., 1, 0, 1, ... without end: every
+    consecutive pair moves by plus or minus the stream's motion."""
+    import itertools
+    order = list(range(len(frames))) + list(range(len(frames) - 2, 0, -1))
+    return (frames[k] for k in itertools.cycle(order))
+
+
+def graph_phase(dev):
+    """The captured paths against the eager ones; returns the launches of
+    the captured runs."""
+    import flowonthego_tpu_torch as port
+    from flowonthego_tpu_torch.config import pad_to_divisible
+    from flowonthego_tpu_torch.ops.pyramid import pad_replicate
+    from flowonthego_tpu_torch.utils import graphs
+    from flowonthego_tpu_torch.utils.synth import (synthetic_frames,
+                                                   synthetic_pair)
+    launches = dict.fromkeys(ALL, 0)
+    log("captured and eager entries (utils/graphs.ENTRIES):")
+    log(graphs.table())
+
+    def memory(what):
+        st = port.device_memory_stats()["cuda:0"]
+        log(f"  allocator, {what}: {st['bytes_in_use'] / 2**20:.1f} MiB in "
+            f"use, peak {st['peak_bytes_in_use'] / 2**20:.1f} MiB, limit "
+            f"{st['bytes_limit'] / 2**20:.0f} MiB")
+        return st
+
+    def report(name, eager_fn, captured_fn, n, copies, per=1):
+        """Profile and time both forms of one path; ``per`` frames a call.
+        A captured call must be one graph launch that runs the eager
+        call's device events, each as often, and ``copies`` device-to-
+        device copies more (a stateless path's inputs into the graph's
+        tensors, any path's result out of them)."""
+        rows = {}
+        for form, fn in (("eager", eager_fn), ("captured", captured_fn)):
+            wall, event, enqueue = chained_ms(fn, n)
+            names, dev_ms, host_n, graph_n = launch_profile(fn, min(n, 5))
+            rows[form] = (names, graph_n)
+            log(f"  {name} {form}: {wall:.3f} ms wall, {event:.3f} ms "
+                f"between events, {enqueue:.3f} ms of host enqueue per call "
+                f"({wall / per:.3f} wall a frame); "
+                f"device {dev_ms:.3f} ms in {sum(names.values())} events, "
+                f"{100 * dev_ms / wall:.1f}% busy; host launch calls "
+                f"{host_n:.0f}, of them graph launches {graph_n:.0f}; "
+                f"kernels {kernel_counts(names)}")
+        (eager_names, eager_graphs), (names, graph_n) = (rows["eager"],
+                                                         rows["captured"])
+        assert graph_n == 1, \
+            f"{name}: a captured call must be one graph launch"
+        assert eager_graphs == 0
+        more, fewer = names - eager_names, eager_names - names
+        log(f"  {name}: device events of a captured call beyond the eager "
+            f"call's {dict(more)}, missing from it {dict(fewer)}")
+        assert kernel_counts(names) == kernel_counts(eager_names), \
+            f"{name}: the graph does not run the eager call's kernels"
+        assert not fewer and more == {COPY: copies}, \
+            f"{name}: captured and eager device events differ"
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    # ---- stateless paths: compute_flow and batched_flow ----
+    g = np.load(GOLDEN[2])
+    seed, shift = int(g["seed"]), tuple(int(x) for x in g["shift"])
+    h, w = BATCH_HW
+    pair = tuple(torch.as_tensor(x, device=dev)
+                 for x in synthetic_pair(seed, h, w, shift))
+    small = tuple(torch.as_tensor(x, device=dev)
+                  for x in synthetic_pair(seed, h, w, SMALL_SHIFT))
+    cfg2 = port.operating_point(2, width=w)
+    cfg4 = port.operating_point(4, width=w)
+    fb = dataclasses.replace(cfg2, use_fb_consistency=True)
+    pads = pad_to_divisible(w, h, cfg2.coarsest_scale)
+    pairs = [tuple(torch.as_tensor(x, device=dev)
+                   for x in synthetic_pair(BATCH_SEED + b, h, w, s))
+             for b, s in enumerate(BATCH_SHIFTS)]
+    I0, I1 = (torch.stack([pad_replicate(p[k], pads) for p in pairs])
+              for k in (0, 1))
+    graphs.clear()
+    for name, fn, n, per in (
+            ("op 2 compute_flow 1024x436",
+             lambda: port.compute_flow(*pair, cfg2), 10, 1),
+            (f"op 4 compute_flow 1024x436 {SMALL_SHIFT}",
+             lambda: port.compute_flow(*small, cfg4), 5, 1),
+            ("op 2 fb compute_flow 1024x436",
+             lambda: port.compute_flow(*pair, fb), 10, 1),
+            (f"op 2 batched_flow B={B}",
+             lambda: port.batched_flow(I0, I1, cfg2), 10, B)):
+        def eager_fn(fn=fn):
+            with graphs.eager():
+                return fn()
+        # launched one by one, the device runs what the wrappers count
+        ref, names = profiled(
+            eager_fn, before=lambda: wrapper_counts(reset=True))[:2]
+        assert kernel_counts(names) == wrapper_counts(), \
+            f"{name}: the wrappers' counts differ from the device's"
+        got, counts = counted(f"{name}, 3 calls (eager and recorded, then "
+                              "two replays)",
+                              lambda: [fn() for _ in range(3)], ALL)
+        add(counts)
+        assert all(torch.equal(x, ref) for x in got), \
+            f"{name}: captured differs from eager"
+        assert len({x.data_ptr() for x in got}) == 3, f"{name}: flows alias"
+        graphs.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        log(f"{name}: captured == eager bit for bit, 3 calls, no two flows "
+            f"share memory; a path's first call (the eager run and the "
+            f"recording) {(time.perf_counter() - t0) * 1e3:.1f} ms")
+        report(name, eager_fn, fn, n, 3, per)
+    log(f"cached paths (entry, replays): {graphs.cached_paths()}")
+
+    # ---- streams: two alternating graphs over the carried state ----
+    cfg4k = port.operating_point(2, width=STREAM_4K[1])
+    cfg3 = port.operating_point(3, width=STREAM_OP3[1])
+    for name, stream, cfg, seed_s, n in (
+            ("op 2 stream 3840x2160", STREAM_4K, cfg4k, 7, 10),
+            ("op 3 stream 1024x436", STREAM_OP3, cfg3, 5, 10)):
+        sh, sw, factor, motion, n_frames = stream
+        spads = pad_to_divisible(sw, sh, cfg.coarsest_scale)
+        frames = [pad_replicate(torch.as_tensor(f, device=dev), spads)
+                  for f in synthetic_frames(seed_s, n_frames, sh, sw, motion,
+                                            factor=factor)]
+        big = sw > 2000
+        if big:
+            graphs.clear()
+            torch.cuda.reset_peak_memory_stats()
+            before = memory(f"before the {name} capture")
+        with graphs.eager():
+            ref = list(port.stream_flow(frames, cfg, fetch=False))
+        got, counts = counted(
+            f"{name}, {n_frames} frames, twice",
+            lambda: [list(port.stream_flow(frames, cfg, fetch=False))
+                     for _ in range(2)], ALL)
+        add(counts)
+        for run in got:
+            assert all(torch.equal(a, b) for a, b in zip(run, ref)), \
+                f"{name}: captured differs from eager"
+        first = got[1][0].clone()
+        assert torch.equal(first, ref[0])      # held across two more steps
+        log(f"{name}: captured == eager bit for bit over {len(ref)} pairs, "
+            "twice (the second stream on the cached path); a flow held "
+            "across later steps is unchanged")
+        if big:
+            after = memory(f"after the {name} capture (two graphs, one "
+                           "pool, and the flows held)")
+            log(f"  the capture's share: "
+                f"{(after['bytes_in_use'] - before['bytes_in_use']) / 2**20:.1f}"
+                " MiB")
+        with graphs.eager():
+            eager_stream = port.stream_flow(ping_pong(frames), cfg,
+                                            fetch=False)
+            next(eager_stream)
+        captured_stream = port.stream_flow(ping_pong(frames), cfg,
+                                           fetch=False)
+        next(captured_stream)
+        # both forms run the same step on fixed tensors; the captured one
+        # copies the flow out of the graph's tensor
+        report(name, lambda: next(eager_stream),
+               lambda: next(captured_stream), n, 1)
+        eager_stream.close()
+        captured_stream.close()
+        if big:
+            graphs.clear()
+            memory("after graphs.clear()")
+
+    # ---- a MultiStream tick of B streams ----
+    videos = [torch.stack([pad_replicate(torch.as_tensor(f, device=dev), pads)
+                           for f in synthetic_frames(BATCH_SEED + k,
+                                                     STREAM_FRAMES, h, w, s)])
+              for k, s in enumerate(BATCH_SHIFTS)]
+    Hp, Wp = videos[0].shape[1:3]
+    batches = [torch.stack([v[t] for v in videos])
+               for t in range(STREAM_FRAMES)]
+
+    def ticks(n_ticks):
+        ms = port.MultiStream(cfg2, Hp, Wp, n_streams=B, device=dev)
+        feed = ping_pong(batches)
+        ms.start(next(feed))
+        out = [ms.push(next(feed)) for _ in range(n_ticks)]
+        ms.close()
+        return out
+
+    with graphs.eager():
+        ref = ticks(5)
+    got, counts = counted(f"MultiStream {B} streams, 5 ticks, captured",
+                          lambda: ticks(5), ALL)
+    add(counts)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
+        "MultiStream: captured differs from eager"
+    assert len({x.data_ptr() for x in got}) == 5
+    log(f"MultiStream op 2 {B} streams: captured == eager bit for bit over "
+        "5 ticks, no two ticks share memory")
+    streams = {}
+    for form in ("eager", "captured"):
+        with (graphs.eager() if form == "eager"
+              else contextlib.nullcontext()):
+            ms = port.MultiStream(cfg2, Hp, Wp, n_streams=B, device=dev)
+            feed = ping_pong(batches)
+            ms.start(next(feed))
+            ms.push(next(feed))
+        streams[form] = (ms, feed)
+
+    def tick(form):
+        ms, feed = streams[form]
+        return lambda: ms.push(next(feed))
+
+    report(f"MultiStream op 2 tick of {B}", tick("eager"), tick("captured"),
+           10, 1, B)
+    for ms, _ in streams.values():
+        ms.close()
+    log(f"cached paths (entry, replays): {graphs.cached_paths()}")
+    return launches
+
+
+# ------------------------------------------------------------------ native
+
+def native_phase(dev):
+    """The native I/O library, if this machine can build it."""
+    import tempfile
+
+    import flowonthego_tpu_torch as port
+    from flowonthego_tpu_torch.io import native
+    from flowonthego_tpu_torch.utils.synth import synthetic_frames
+
+    t0 = time.perf_counter()
+    if not native.ensure_built():
+        log("native: unavailable (the Python twins serve; FrameStream "
+            "raises); the compiler said:")
+        for line in native.build_log.splitlines()[:12]:
+            log("  " + line)
+        assert native.get_lib() is None
+        try:
+            native.FrameStream([])
+        except RuntimeError as e:
+            log(f"  FrameStream: raises ({e})")
+        else:
+            raise AssertionError("FrameStream without a library did not raise")
+        return
+    log(f"native: built ({native.variant}) in "
+        f"{time.perf_counter() - t0:.2f} s -> "
+        f"{os.path.relpath(native.library_path(native.variant), REPO)}")
+    if native.variant != "full":
+        log("  this host lacks libpng or libjpeg, so the build leaves the "
+            "PNG and JPEG decoders out; the full build said:")
+        for line in native.build_log.splitlines()[:8]:
+            log("    " + line[:300])
+    assert native.get_lib() is not None
+    cfg = port.operating_point(2, width=1024)
+    frames = [np.clip(f, 0, 255).astype(np.uint8) for f in
+              synthetic_frames(5, 5, 448, 1024, (8, 8))]
+    with tempfile.TemporaryDirectory() as d:
+        flow = np.random.default_rng(0).standard_normal(
+            (436, 1024, 2)).astype(np.float32) * 4
+        a, b = os.path.join(d, "a.flo"), os.path.join(d, "b.flo")
+        native.write_flo_native(a, flow)
+        port.write_flo(b, flow)
+        assert open(a, "rb").read() == open(b, "rb").read()
+        assert np.array_equal(native.read_flo_native(a), flow)
+        assert np.array_equal(port.read_flo(a), flow)
+        log("native .flo: written bytes equal the Python writer's, read back "
+            "bit for bit by both readers")
+        paths = []
+        for k, f in enumerate(frames):
+            paths.append(os.path.join(d, f"frame_{k:03d}.ppm"))
+            port.save_image(paths[-1], f)
+        loaded = [port.load_image(p) for p in paths]
+        for p, img in zip(paths, loaded):
+            assert np.array_equal(native.load_image_native(p), img)
+        log(f"native PPM decode: {len(paths)} frames 1024x448 equal "
+            "load_image")
+        color = native.flow_to_color_native(flow)
+        twin = port.flow_to_color(flow)
+        diff = np.abs(color.astype(int) - twin.astype(int))
+        log(f"native colour wheel vs flow_to_color: max |diff| {diff.max()} "
+            f"grey level, {100 * float((diff == 0).mean()):.2f}% of the "
+            "bytes equal (bound 1 level, 97%: float32 against float64 cut to "
+            "a byte)")
+        assert diff.max() <= 1 and (diff == 0).mean() >= 0.97
+        want = list(port.stream_flow(loaded, cfg, fetch=False))
+        stream = native.FrameStream(paths, max_pixels=448 * 1024)
+        t0 = time.perf_counter()
+        got = list(port.stream_flow(stream, cfg, fetch=False))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(got)
+        stream.close()
+        assert len(got) == len(want) == len(paths) - 1
+        for x, y in zip(got, want):
+            assert x.device.type == "cuda" and torch.equal(x, y)
+            check_shift(x, (8, 8), 32, "FrameStream pair vs known shift")
+        log(f"stream_flow(FrameStream({len(paths)} PPM frames)) == "
+            f"stream_flow(loaded frames) bit for bit, on {got[0].device}; "
+            f"{ms:.3f} ms/frame from file to flow (host clock)")
+
+
+# ------------------------------------------------------------------ devices
+
+def device_list_phase(dev):
+    """The data-parallel forms on a mesh of this one card."""
+    import flowonthego_tpu_torch as port
+    from flowonthego_tpu_torch.config import pad_to_divisible
+    from flowonthego_tpu_torch.ops.pyramid import pad_replicate
+    from flowonthego_tpu_torch.utils.synth import synthetic_frames
+    h, w = BATCH_HW
+    cfg = port.operating_point(2, width=w)
+    pads = pad_to_divisible(w, h, cfg.coarsest_scale)
+    videos = [torch.stack([pad_replicate(torch.as_tensor(f, device=dev), pads)
+                           for f in synthetic_frames(BATCH_SEED + k, 3, h, w,
+                                                     s)])
+              for k, s in enumerate(BATCH_SHIFTS)]
+    batches = [torch.stack([v[t] for v in videos]) for t in range(3)]
+    mesh = port.make_mesh()
+    assert mesh.shape == {"data": torch.cuda.device_count(), "space": 1}
+    mesh = port.make_mesh(devices=[dev])
+    fn = port.make_data_parallel_flow(mesh, cfg)
+    got = fn(batches[0], batches[1])
+    assert got.device == dev
+    assert torch.equal(got, port.batched_flow(batches[0], batches[1], cfg))
+    log(f"make_data_parallel_flow on a 1-device mesh == batched_flow bit "
+        f"for bit ({tuple(got.shape)})")
+    Hp, Wp = batches[0].shape[1:3]
+    a = port.MultiStream(cfg, Hp, Wp, n_streams=B, devices=[dev])
+    b = port.MultiStream(cfg, Hp, Wp, n_streams=B, device=dev)
+    for ms in (a, b):
+        ms.start(batches[0])
+    for t in (1, 2):
+        assert torch.equal(a.push(batches[t]), b.push(batches[t]))
+    a.close()
+    b.close()
+    log(f"MultiStream(devices=[{dev}]) == MultiStream(device={dev}) bit for "
+        "bit over 2 ticks")
 
 
 def main() -> int:
@@ -1472,6 +2025,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     log(smi.stdout.strip().splitlines()[0])
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     pin_fp32()
@@ -1482,15 +2036,26 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s -> "
         f"{os.path.relpath(lib_path, REPO)}")
 
-    kernels = kernel_phase(dev)
-    kernels.update(batch_kernel_phase(dev))
-    launches = slice_phase(dev)
-    for k, n in cli_phase(dev).items():
+    def phase(fn):
+        t0 = time.perf_counter()
+        out = fn(dev)
+        torch.cuda.synchronize()
+        log(f"{fn.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    kernels = phase(kernel_phase)
+    kernels.update(phase(batch_kernel_phase))
+    launches = phase(slice_phase)
+    for k, n in phase(cli_phase).items():
         launches[k] += n
-    batch_launches, bf16_launches = batch_phase(dev)
+    batch_launches, bf16_launches = phase(batch_phase)
     for k, n in batch_launches.items():
         launches[k + "_b4"] = n
     launches["gn_bf16"] = bf16_launches
+    for k, n in phase(graph_phase).items():
+        launches[k] += n
+    phase(native_phase)
+    phase(device_list_phase)
 
     src = "flowonthego_tpu_torch/csrc/"
     pallas = "flowonthego_tpu/ops/pallas/"
@@ -1523,6 +2088,8 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})
+    log(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

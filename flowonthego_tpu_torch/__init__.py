@@ -9,21 +9,29 @@ PyTorch versions.  This package never imports JAX.
 """
 
 from .config import DISConfig, auto_coarsest_scale, operating_point, pad_to_divisible
-from .io import (flow_to_color, load_image, read_flo, read_pfm, save_image,
-                 unknown_flow_mask, write_flo, write_pfm)
+from .io import (FrameStream, flow_to_color, flow_to_color_native,
+                 load_image, load_image_native, read_flo, read_flo_native,
+                 read_pfm, save_image, unknown_flow_mask, write_flo,
+                 write_flo_native, write_pfm)
 from .models.dis_flow import (DISFlow, compute_flow, compute_flow_timed,
                               dis_flow_padded, flow_full_padded)
 from .models.stereo import compute_disparity
 from .ops.channels import prepare_input
-from .parallel import (MultiStream, batched_flow, stream_flow,
-                       stream_video_chunks)
+from .parallel import (MultiStream, batched_flow, make_data_parallel_flow,
+                       make_mesh, stream_flow, stream_video_chunks)
+from .utils import graphs
 from .utils.metrics import angular_error, average_epe, endpoint_error
+from .utils.profiling import annotate, device_memory_stats, trace
 
 __all__ = [
     "DISConfig", "operating_point", "auto_coarsest_scale", "pad_to_divisible",
     "DISFlow", "compute_flow", "compute_flow_timed", "dis_flow_padded",
     "flow_full_padded",
     "stream_flow", "batched_flow", "MultiStream", "stream_video_chunks",
+    "make_data_parallel_flow", "make_mesh", "graphs",
+    "trace", "annotate", "device_memory_stats",
+    "FrameStream", "read_flo_native", "write_flo_native",
+    "load_image_native", "flow_to_color_native",
     "compute_disparity", "prepare_input",
     "read_flo", "write_flo", "read_pfm", "write_pfm", "load_image",
     "save_image", "flow_to_color", "unknown_flow_mask", "average_epe",

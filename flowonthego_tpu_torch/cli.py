@@ -44,6 +44,7 @@ from .io.pfm import write_pfm
 from .models.dis_flow import as_image, compute_flow, compute_flow_timed
 from .models.stereo import compute_disparity
 from .ops.channels import prepare_input
+from .utils import graphs
 from .utils.timing import warmup
 
 
@@ -186,8 +187,9 @@ def run(cmd: Command) -> int:
     t1 = time.perf_counter()
     if cmd.mode == "depth":
         cfg_d = dataclasses.replace(cfg, use_var_ref=False)
-        disp = compute_disparity(I0, I1, cfg=cfg_d,
-                                 cam_lr=cmd.cam).cpu().numpy()
+        with graphs.eager():        # one pair a process: see graphs.ENTRIES
+            disp = compute_disparity(I0, I1, cfg=cfg_d,
+                                     cam_lr=cmd.cam).cpu().numpy()
         if verbosity > 0:
             print(f"TIME (Depth Run-Time incl. compile) (ms): "
                   f"{(time.perf_counter() - t1) * 1e3:.3g}")
@@ -197,7 +199,8 @@ def run(cmd: Command) -> int:
     if verbosity > 1:
         flow = compute_flow_timed(I0, I1, cfg=cfg)
     else:
-        flow = compute_flow(I0, I1, cfg=cfg)
+        with graphs.eager():        # one pair a process: see graphs.ENTRIES
+            flow = compute_flow(I0, I1, cfg=cfg)
     flow = flow.cpu().numpy()
     if verbosity > 0:
         print(f"TIME (O.Flow Run-Time incl. compile) (ms): "

@@ -18,12 +18,17 @@ entry points (``compute_flow``, ``compute_flow_timed``, ``DISFlow``) run
 it with B = 1.
 
 ``flow_full_padded`` is the JAX package's function of that name, padded
-frames in and full-resolution flow out; there it is one compiled program,
-here it runs eagerly like everything else (PyTorch has no ``jit`` to
-port; capturing this function in a CUDA graph is not done yet).  The
-pipeline functions run on the device their input tensors lie on, and the
-entry points put host (numpy) inputs on the GPU unless the caller names
-a device (``utils/device.py``).
+frames in and full-resolution flow out.  There it is one compiled
+program; here, on the card, it is one CUDA graph per (shape, ``cfg``,
+device), recorded after the first call of a path and replayed as one
+launch from then on (``utils/graphs.py``); ``batched_flow`` goes through
+it, and so do ``compute_flow`` and ``DISFlow``, whose padding and crop
+are part of the recorded path (``flow_padded``'s ``pads``).  On the CPU,
+and inside ``graphs.eager()``, it runs the same Python eagerly.  The building blocks
+(``dis_flow_padded``, ``dis_flow_from_pyramids``) always run eagerly: a
+capture records them.  The pipeline functions run on the device their
+input tensors lie on, and the entry points put host (numpy) inputs on the
+GPU unless the caller names a device (``utils/device.py``).
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from ..ops import variational as var_mod
 from ..ops.patches import PatchGrid, extract_templates_and_hessians
 from ..ops.pyramid import build_pyramid, pad_replicate
 from ..ops.resize import resize_matmul
+from ..utils import graphs
 from ..utils.device import resolve_device
 from ..utils.timing import PhaseTimer
 
@@ -170,16 +176,48 @@ def upsample_flow_to_full(flow: torch.Tensor, cfg: DISConfig,
     return resize_matmul(flow * float(2 ** cfg.finest_scale), out_h, out_w)
 
 
+def flow_padded(I0: torch.Tensor, I1: torch.Tensor, cfg: DISConfig,
+                full_res: bool = True, pads=(0, 0, 0, 0)) -> torch.Tensor:
+    """Flows of a batch of padded pairs [B, H, W, C] on the tensors'
+    device: [B, H, W, 2] (``full_res``: :func:`dis_flow_padded`, then
+    :func:`upsample_flow_to_full`) or the finest-scale flows.  With
+    ``pads`` (top, bottom, left, right) the pairs are edge-padded by them
+    first and the full-resolution flows cropped back
+    (:func:`compute_flow`).  On the card one CUDA graph per (shape,
+    ``cfg``, ``full_res``, ``pads``, device), see :mod:`..utils.graphs`;
+    eagerly on the CPU."""
+    pin_fp32()
+    if I0.dim() != 4 or I0.shape != I1.shape:
+        raise ValueError(f"flow_padded takes two [B, H, W, C] batches of "
+                         f"one shape, got {tuple(I0.shape)} and "
+                         f"{tuple(I1.shape)}")
+    pads = tuple(pads)
+    return graphs.run("flow_full_padded" if full_res else "dis_flow_padded",
+                      lambda a, b: _flow_padded(a, b, cfg, full_res, pads),
+                      (I0, I1), static=(cfg, pads))
+
+
+def _flow_padded(I0, I1, cfg: DISConfig, full_res: bool,
+                 pads) -> torch.Tensor:
+    """:func:`flow_padded`, eagerly (what a capture records)."""
+    h, w = I0.shape[1], I0.shape[2]
+    if any(pads):
+        I0, I1 = pad_replicate(I0, pads), pad_replicate(I1, pads)
+    flow = dis_flow_padded(I0, I1, cfg)
+    if not full_res:
+        return flow
+    flow = upsample_flow_to_full(flow, cfg, I0.shape[1], I0.shape[2])
+    return flow[:, pads[0]:pads[0] + h, pads[2]:pads[2] + w, :]
+
+
 def flow_full_padded(I0: torch.Tensor, I1: torch.Tensor,
                      cfg: DISConfig) -> torch.Tensor:
     """Full-resolution flow for an already-padded pair [H, W, C] -> [H, W,
     2], or a batch of pairs [B, H, W, C] -> [B, H, W, 2] (H, W divisible
-    by 2**coarsest_scale): :func:`dis_flow_padded`, then
-    :func:`upsample_flow_to_full`, on the tensors' device."""
+    by 2**coarsest_scale), on the tensors' device (:func:`flow_padded`)."""
     if I0.dim() == 3:
         return flow_full_padded(I0[None], I1[None], cfg)[0]
-    flow = dis_flow_padded(I0, I1, cfg)
-    return upsample_flow_to_full(flow, cfg, I0.shape[1], I0.shape[2])
+    return flow_padded(I0, I1, cfg, full_res=True)
 
 
 def validate_image_pair(I0, I1, what: str = "image") -> None:
@@ -228,11 +266,9 @@ def compute_flow(I0, I1, cfg: Optional[DISConfig] = None, op_point: int = 2,
     h, w = I0.shape[0], I0.shape[1]
     if cfg is None:
         cfg = operating_point(op_point, width=w)
+    pin_fp32()
     pads = pad_to_divisible(w, h, cfg.coarsest_scale)
-    flow = flow_full_padded(pad_replicate(I0, pads), pad_replicate(I1, pads),
-                            cfg)
-    pt, _, pl, _ = pads
-    return flow[pt:pt + h, pl:pl + w, :]
+    return flow_padded(I0[None], I1[None], cfg, pads=pads)[0]
 
 
 def compute_flow_timed(I0, I1, cfg: Optional[DISConfig] = None,

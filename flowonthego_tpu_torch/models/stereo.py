@@ -7,7 +7,10 @@ sign-clamped: <= 0 when matching into the right image (``cam_lr == 0``),
 >= 0 into the left.  The output is a dense [H, W] disparity map.
 
 The pyramids go through K1; the 1-D solve is the JAX package's XLA loop
-(no Pallas kernel), here in plain PyTorch on the inputs' device.
+(no Pallas kernel), here in plain PyTorch on the inputs' device.  On the
+card ``compute_disparity`` runs the padding, ``stereo_disparity_padded``,
+the upsample and the crop as one CUDA graph per (shape, ``cfg``,
+``cam_lr``, device) (``utils/graphs.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from ..ops import dis as dis_mod
 from ..ops.densify import densify
 from ..ops.patches import PatchGrid, extract_templates_and_hessians
 from ..ops.pyramid import build_pyramid, pad_replicate
+from ..utils import graphs
 from ..utils.device import resolve_device
 from .dis_flow import as_image, pin_fp32, upsample_flow_to_full, \
     validate_image_pair
@@ -120,10 +124,15 @@ def compute_disparity(I_left, I_right, cfg: Optional[DISConfig] = None,
         cfg = dataclasses.replace(operating_point(op_point, width=w),
                                   use_var_ref=False)
     pads = pad_to_divisible(w, h, cfg.coarsest_scale)
-    I0p = pad_replicate(I_left, pads)
-    I1p = pad_replicate(I_right, pads)
-    disp = stereo_disparity_padded(I0p, I1p, cfg, cam_lr)
-    disp2 = torch.stack([disp, torch.zeros_like(disp)], dim=-1)
-    full = upsample_flow_to_full(disp2, cfg, I0p.shape[0], I0p.shape[1])
     pt, _, pl, _ = pads
-    return full[pt:pt + h, pl:pl + w, 0]
+
+    def fn(a, b):
+        I0p = pad_replicate(a, pads)
+        I1p = pad_replicate(b, pads)
+        disp = stereo_disparity_padded(I0p, I1p, cfg, cam_lr)
+        disp2 = torch.stack([disp, torch.zeros_like(disp)], dim=-1)
+        full = upsample_flow_to_full(disp2, cfg, I0p.shape[0], I0p.shape[1])
+        return full[pt:pt + h, pl:pl + w, 0]
+
+    return graphs.run("compute_disparity", fn, (I_left, I_right),
+                      static=(cfg, cam_lr))

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..config import DISConfig, use_kernel
+from ..utils.device import device_constant
 from .cuda import dis_gn
 from .interp import sample_patches_bilinear
 from .patches import PatchGrid
@@ -54,12 +55,15 @@ _PATCH = (-3, -2, -1)         # the ps, ps, C dims of a per-pixel patch tensor
 def init_state(templates, tgrad_x, tgrad_y, H, grid: PatchGrid) -> PatchState:
     """Fresh per-scale state of templates [B, n_h, n_w, ps, ps, C]: zero
     flow, nothing converged."""
-    mx, my = grid.midpoints()
     dev, dt = templates.device, templates.dtype
     B = templates.shape[0]
-    mid = np.broadcast_to(np.stack([mx, my], axis=-1),
-                          (B, grid.n_h, grid.n_w, 2))
-    mid_org = torch.as_tensor(mid.copy(), device=dev).to(dt)
+    # the grid's midpoints, built on the host once per (grid, device) and
+    # shared by the B frames
+    mid_org = device_constant(
+        ("mid_org", grid, dt), dev,
+        lambda: torch.as_tensor(
+            np.stack(grid.midpoints(), axis=-1)[None]).to(dt)
+    ).expand(B, grid.n_h, grid.n_w, 2)
     zeros2 = torch.zeros((B, grid.n_h, grid.n_w, 2), dtype=dt, device=dev)
     return PatchState(
         p_cur=zeros2,
@@ -76,6 +80,17 @@ def init_state(templates, tgrad_x, tgrad_y, H, grid: PatchGrid) -> PatchState:
     )
 
 
+def coarse_lookup(grid: PatchGrid, ch: int, cw: int, device):
+    """(ix, iy) [n_h, n_w] int64 on ``device``: where each patch of
+    ``grid`` reads a coarser field of ch x cw, floor(midpoint / 2) clamped
+    to the field; built on the host once per (grid, field, device)."""
+    def build(axis, n):
+        return lambda: np.minimum(grid.midpoints()[axis].astype(int) // 2,
+                                  n - 1)
+    return (device_constant(("coarse_ix", grid, cw), device, build(0, cw)),
+            device_constant(("coarse_iy", grid, ch), device, build(1, ch)))
+
+
 def init_from_coarser(state: PatchState, coarse_flow: torch.Tensor,
                       grid: PatchGrid) -> PatchState:
     """Warm start from the coarser scale's dense flow [B, ch, cw, 2]:
@@ -88,11 +103,9 @@ def init_from_coarser(state: PatchState, coarse_flow: torch.Tensor,
     row short of floor(midpoint / 2) for the last grid row.  The clamp
     is per frame: the index never leaves frame b's field.
     """
-    mx, my = grid.midpoints()
     dev = coarse_flow.device
     ch, cw = coarse_flow.shape[1], coarse_flow.shape[2]
-    ix = torch.as_tensor(np.minimum(mx.astype(int) // 2, cw - 1), device=dev)
-    iy = torch.as_tensor(np.minimum(my.astype(int) // 2, ch - 1), device=dev)
+    ix, iy = coarse_lookup(grid, ch, cw, dev)
     p = coarse_flow[:, iy, ix, :] * 2.0        # [B, n_h, n_w, 2]
 
     mid = state.mid_org + p

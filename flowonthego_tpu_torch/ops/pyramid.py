@@ -12,6 +12,11 @@ Every downsample runs on the flat ``[B*H, W*C]`` view through
 level heights above the coarsest are even (H is divisible by
 2^(n_levels-1)), so a 2x2 window never spans two frames and the batch
 pools as stacked rows in one launch with no change to the kernel.
+
+A stream's captured step keeps the carried pyramid in fixed tensors
+(:func:`pyramid_buffers`): ``build_pyramid(..., out=levels)`` writes each
+kept level straight into them, the same values by the same arithmetic,
+so the pyramid is never copied from one frame's step to the next.
 """
 
 from __future__ import annotations
@@ -36,14 +41,18 @@ def _edge_index(n: int, lo: int, hi: int, device) -> torch.Tensor:
     return torch.arange(-lo, n + hi, device=device).clamp_(0, n - 1)
 
 
-def pad_replicate(img: torch.Tensor, pad) -> torch.Tensor:
+def pad_replicate(img: torch.Tensor, pad, out=None) -> torch.Tensor:
     """Replicate-pad the spatial dims of [..., H, W, C]; ``pad`` is an int
-    or (top, bottom, left, right)."""
+    or (top, bottom, left, right).  With ``out`` (a contiguous tensor of
+    the padded shape) the result is written there."""
     pt, pb, pl, pr = (pad,) * 4 if isinstance(pad, int) else pad
     H, W = img.shape[-3], img.shape[-2]
     rows = _edge_index(H, pt, pb, img.device)
     cols = _edge_index(W, pl, pr, img.device)
-    return img.index_select(-3, rows).index_select(-2, cols)
+    tall = img.index_select(-3, rows)
+    if out is None:
+        return tall.index_select(-2, cols)
+    return torch.index_select(tall, tall.dim() - 2, cols, out=out)
 
 
 def pad_constant(img: torch.Tensor, pad: int, value: float = 0.0) -> torch.Tensor:
@@ -51,14 +60,31 @@ def pad_constant(img: torch.Tensor, pad: int, value: float = 0.0) -> torch.Tenso
     return F.pad(img, (0, 0, pad, pad, pad, pad), value=value)
 
 
-def central_diff(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def central_diff(img: torch.Tensor, out=None):
     """gx[y, x] = I[y, x+1] - I[y, x-1], gy likewise; replicate border;
-    [..., H, W, C]."""
+    [..., H, W, C].  With ``out = (gx, gy)`` (views of that shape, which
+    may be strided) the differences are written there."""
+    ox, oy = (None, None) if out is None else out
     xpad = pad_replicate(img, (0, 0, 1, 1))
-    gx = xpad[..., 2:, :] - xpad[..., :-2, :]
+    gx = torch.sub(xpad[..., 2:, :], xpad[..., :-2, :], out=ox)
     ypad = pad_replicate(img, (1, 1, 0, 0))
-    gy = ypad[..., 2:, :, :] - ypad[..., :-2, :, :]
+    gy = torch.sub(ypad[..., 2:, :, :], ypad[..., :-2, :, :], out=oy)
     return gx, gy
+
+
+def pyramid_buffers(B: int, H: int, W: int, C: int, n_levels: int,
+                    padding: int, start_level: int, device) -> list:
+    """Fixed tensors for ``build_pyramid(..., out=...)``: a zeroed
+    :class:`PyramidLevel` [B, h + 2p, w + 2p, C] for every level from
+    ``start_level`` on, None below it (those levels only feed the
+    downsample chain and are not kept).  The gradients' zero border is
+    written here, once; a build writes their interior only."""
+    def level(lvl):
+        shape = (B, (H >> lvl) + 2 * padding, (W >> lvl) + 2 * padding, C)
+        return PyramidLevel(*(torch.zeros(shape, dtype=torch.float32,
+                                          device=device) for _ in range(3)))
+    return [level(lvl) if lvl >= start_level else None
+            for lvl in range(n_levels)]
 
 
 def _downsample_half_flat(x: torch.Tensor, C: int, bias=None,
@@ -78,7 +104,7 @@ def downsample_half(img: torch.Tensor, backend: str = "auto") -> torch.Tensor:
 
 def build_pyramid(img: torch.Tensor, n_levels: int, padding: int,
                   start_level: int = 0, ingest_bias=None,
-                  backend: str = "auto") -> List[PyramidLevel]:
+                  backend: str = "auto", out=None) -> List[PyramidLevel]:
     """Build ``n_levels`` levels (level 0 = full res) of padded image and
     gradient pyramids from the frames ``img`` [B, H, W, C] (float32 or
     uint8), H and W divisible by ``2**(n_levels-1)``.
@@ -92,6 +118,10 @@ def build_pyramid(img: torch.Tensor, n_levels: int, padding: int,
     1``; levels below ``start_level`` store the pre-bias image.
 
     ``backend`` selects the pool like a config backend field.
+
+    ``out`` (from :func:`pyramid_buffers`, same sizes): the levels from
+    ``start_level`` on are written into its tensors and ``out`` is
+    returned; the levels below are not kept.
     """
     if img.dim() != 4:
         raise ValueError(f"build_pyramid takes frames [B, H, W, C], got "
@@ -114,6 +144,15 @@ def build_pyramid(img: torch.Tensor, n_levels: int, padding: int,
                 cur, C, bias=ingest_bias if lvl == 1 else None,
                 backend=backend)
         h, w = H >> lvl, W >> lvl
+        if out is not None:
+            if lvl >= start_level:
+                dst, p = out[lvl], padding
+                current = cur.reshape(B, h, w, C)
+                central_diff(current, out=(
+                    dst.grad_x[:, p:p + h, p:p + w, :],
+                    dst.grad_y[:, p:p + h, p:p + w, :]))
+                pad_replicate(current, padding, out=dst.image)
+            continue
         if lvl < start_level:
             levels.append(PyramidLevel(image=cur.reshape(B, h, w, C),
                                        grad_x=None, grad_y=None))
@@ -125,4 +164,4 @@ def build_pyramid(img: torch.Tensor, n_levels: int, padding: int,
             grad_x=pad_constant(gx, padding),
             grad_y=pad_constant(gy, padding),
         ))
-    return levels
+    return levels if out is None else out

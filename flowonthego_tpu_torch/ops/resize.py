@@ -3,6 +3,8 @@
 * :func:`resize_matmul` — half-pixel centres, clamped taps, as two dense
   matrix products (the final flow upsample), matching
   ``jax.image.resize(method='linear', antialias=False)`` on upscales.
+* :func:`resize_full` — the same resize as a gather of the four taps
+  (the form ``resize_matmul`` is held against).
 * :func:`resize_linear_antialias` — the warm-start downsample of
   ``stream_flow``.  ``jax.image.resize(..., method="linear")`` antialiases
   on downsampling (a triangle filter widened by the scale factor);
@@ -16,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..utils.device import device_constant
 
 
 def _interp_matrix(out_len: int, in_len: int) -> np.ndarray:
@@ -32,13 +36,48 @@ def _interp_matrix(out_len: int, in_len: int) -> np.ndarray:
     return R
 
 
+def interp_matrix_on(out_len: int, in_len: int, device) -> torch.Tensor:
+    """:func:`_interp_matrix` on ``device``, built on the host once per
+    (sizes, device)."""
+    return device_constant(("interp_matrix", out_len, in_len), device,
+                           lambda: _interp_matrix(out_len, in_len))
+
+
+def _src_index(out_len: int, in_len: int, device):
+    """(i0, i1, frac) of the half-pixel, clamped bilinear resize along one
+    axis, computed on ``device`` in float32 as the JAX package does."""
+    j = torch.arange(out_len, dtype=torch.float32, device=device)
+    src = ((j + 0.5) / (out_len / in_len) - 0.5).clamp(0.0, in_len - 1.0)
+    f = torch.floor(src)
+    i0 = f.to(torch.int64)
+    return i0, (i0 + 1).clamp(max=in_len - 1), src - f
+
+
+def resize_full(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bilinear resize [H, W, C] -> [out_h, out_w, C] (or with leading
+    dims), half-pixel centres, clamped taps, as a gather of the four taps;
+    no antialiasing."""
+    h, w = img.shape[-3], img.shape[-2]
+    y0, y1, fy = _src_index(out_h, h, img.device)
+    x0, x1, fx = _src_index(out_w, w, img.device)
+    fy = fy[:, None, None]
+    fx = fx[None, :, None]
+    rows0 = img.index_select(-3, y0)
+    rows1 = img.index_select(-3, y1)
+    top = (rows0.index_select(-2, x0) * (1.0 - fx)
+           + rows0.index_select(-2, x1) * fx)
+    bot = (rows1.index_select(-2, x0) * (1.0 - fx)
+           + rows1.index_select(-2, x1) * fx)
+    return top * (1.0 - fy) + bot * fy
+
+
 def resize_matmul(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Bilinear resize [..., H, W, C] -> [..., out_h, out_w, C] as two
     matmuls, batched over the leading dims (float32: the port's entry
     points keep TF32 off, batched products included)."""
     h, w = img.shape[-3], img.shape[-2]
-    Rv = torch.as_tensor(_interp_matrix(out_h, h), device=img.device)
-    Rh = torch.as_tensor(_interp_matrix(out_w, w), device=img.device)
+    Rv = interp_matrix_on(out_h, h, img.device)
+    Rh = interp_matrix_on(out_w, w, img.device)
     tmp = torch.einsum("oh,...hwc->...owc", Rv, img)
     return torch.einsum("pw,...owc->...opc", Rh, tmp)
 

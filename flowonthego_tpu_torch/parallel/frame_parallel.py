@@ -1,31 +1,41 @@
-"""Batched frame pairs and video streaming (port of ``batched_flow`` and
-``stream_flow`` from ``flowonthego_tpu/parallel/frame_parallel.py``).
+"""Batched frame pairs and video streaming (port of ``batched_flow``,
+``make_data_parallel_flow`` and ``stream_flow`` from
+``flowonthego_tpu/parallel/frame_parallel.py``).
 
 ``batched_flow`` runs B pre-padded pairs as one batch through the
 pipeline: each kernel launches once per scale for the whole batch, where
-JAX ``vmap``s the pipeline.  Its multi-device form
-(``make_data_parallel_flow``) is not ported yet.
+JAX ``vmap``s the pipeline; on the card the whole call is one CUDA graph
+(``models.dis_flow.flow_padded``).  ``make_data_parallel_flow`` splits a
+batch over the 'data' devices of a mesh (``parallel/mesh.py``), one
+``batched_flow`` a device and no communication.
 
 ``stream_flow`` carries two things from frame to frame:
   * the previous pair's flow, downsampled to the coarsest-scale warm-start
     resolution, as ``init_flow``;
   * the previous frame's pyramid: frame t is I1 of pair t-1 and I0 of
     pair t, so each pyramid is built once and used twice.
+Its step (the new frame's pyramid, the pipeline, the upsample, the next
+warm start) is :class:`StreamCore`, which ``MultiStream`` shares.  On the
+card the step is the counterpart of the JAX package's jitted ``step``: two
+alternating CUDA graphs over two sets of carried tensors
+(``utils/graphs.StreamPath``), one graph launch a frame.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Iterable
 
 import torch
 
 from ..config import DISConfig, pool_backend
-from ..models.dis_flow import (as_image, dis_flow_from_pyramids,
-                               dis_flow_padded, flow_full_padded, pin_fp32,
-                               upsample_flow_to_full)
-from ..ops.pyramid import build_pyramid
+from ..models.dis_flow import (as_image, dis_flow_from_pyramids, flow_padded,
+                               pin_fp32, upsample_flow_to_full)
+from ..ops.pyramid import build_pyramid, pyramid_buffers
 from ..ops.resize import resize_linear_antialias
+from ..utils import graphs
 from ..utils.device import resolve_device
+from .mesh import Mesh, batch_sharding
 
 
 def batched_flow(I0, I1, cfg: DISConfig, full_res: bool = True,
@@ -45,9 +55,32 @@ def batched_flow(I0, I1, cfg: DISConfig, full_res: bool = True,
         raise ValueError(f"batched_flow takes two [B, H, W, C] batches of "
                          f"one shape, got {tuple(I0.shape)} and "
                          f"{tuple(I1.shape)}")
-    if full_res:
-        return flow_full_padded(I0, I1, cfg)
-    return dis_flow_padded(I0, I1, cfg)
+    return flow_padded(I0, I1, cfg, full_res=full_res)
+
+
+def make_data_parallel_flow(mesh: Mesh, cfg: DISConfig,
+                            full_res: bool = True):
+    """``fn(I0, I1)``: :func:`batched_flow` with the batch axis split over
+    the 'data' devices of ``mesh``.
+
+    The pipeline is local to a frame, so the devices share nothing: shard
+    d of the batch runs as one ``batched_flow`` on device d, every
+    device's work is queued before any result is gathered, and the flows
+    come back as one [B, H, W, 2] tensor on the mesh's first device.  A
+    batch that does not divide by the number of 'data' devices raises, as
+    the JAX package's sharding does.
+    """
+    sharding = batch_sharding(mesh)
+    first = mesh.devices[0][0]
+
+    def fn(I0, I1):
+        parts = zip(sharding.shards(I0), sharding.shards(I1),
+                    sharding.devices)
+        flows = [batched_flow(a, b, cfg, full_res, device=d)
+                 for a, b, d in parts]
+        return torch.cat([f.to(first) for f in flows], dim=0)
+
+    return fn
 
 
 def warm_start(flow: torch.Tensor, cfg: DISConfig, init_h: int,
@@ -57,6 +90,90 @@ def warm_start(flow: torch.Tensor, cfg: DISConfig, init_h: int,
     return resize_linear_antialias(
         flow / (2.0 ** (cfg.coarsest_scale + 1 - cfg.finest_scale)),
         init_h, init_w)
+
+
+def _pyramid_args(cfg: DISConfig):
+    """``build_pyramid``'s arguments after the frames, for ``cfg``."""
+    return ((cfg.coarsest_scale + 1, cfg.padding),
+            dict(start_level=cfg.finest_scale, backend=pool_backend(cfg)))
+
+
+def _make_stream_path(cfg: DISConfig, shape, full_res: bool, device):
+    """The fixed tensors of a stream path and its step (see
+    :class:`..utils.graphs.StreamPath`): the frames' tensor, two sets of
+    carried state (pyramid from the finest processed level up, warm
+    start), and ``step(k)``, which reads set k and writes set 1 - k."""
+    B, H, W, C = shape
+    args, kw = _pyramid_args(cfg)
+    init_hw = (H >> (cfg.coarsest_scale + 1), W >> (cfg.coarsest_scale + 1))
+    frames = torch.empty(shape, dtype=torch.float32, device=device)
+    pyrs = [pyramid_buffers(B, H, W, C, *args, cfg.finest_scale, device)
+            for _ in range(2)]
+    inits = [torch.zeros((B, *init_hw, 2), dtype=torch.float32,
+                         device=device) for _ in range(2)]
+
+    def step(k):
+        pyr = build_pyramid(frames, *args, **kw, out=pyrs[1 - k])
+        flow = dis_flow_from_pyramids(pyrs[k], pyr, cfg, init_flow=inits[k])
+        inits[1 - k].copy_(warm_start(flow, cfg, *init_hw))
+        if not full_res:
+            return flow
+        return upsample_flow_to_full(flow, cfg, H, W)
+
+    return (pyrs, inits), frames, step
+
+
+class StreamCore:
+    """The state and the step of B warm-started streams on one device.
+
+    ``start(frames)`` takes the first frames [B, H, W, C]; each
+    ``step(frames)`` returns the flows [B, H, W, 2] (``full_res``) or the
+    finest-scale flows from the previous frames to these.  Frames are
+    float32 tensors or numpy arrays.
+
+    The carried pyramid and warm start live in two sets of fixed tensors
+    that a step reads and writes in turn
+    (:class:`..utils.graphs.StreamPath`).  On the card the step is
+    replayed from a CUDA graph; on the CPU (and inside
+    ``graphs.eager()``) the same step runs eagerly on the same tensors.
+    ``close()`` hands a captured path back for the next stream of the same
+    shape and ``cfg``.
+    """
+
+    def __init__(self, cfg: DISConfig, n_streams: int, height: int,
+                 width: int, channels: int, full_res: bool, device):
+        self.cfg = cfg
+        self.shape = (int(n_streams), height, width, channels)
+        self.full_res = full_res
+        self.device = torch.device(device)
+        self._path = None        # the fixed-tensor path, once started
+
+    def start(self, frames) -> None:
+        pin_fp32()
+        self.close()
+        key = (self.shape, self.cfg, self.full_res)
+        path = graphs.acquire_stream(
+            "stream_step", key, functools.partial(
+                _make_stream_path, self.cfg, self.shape, self.full_res),
+            self.device)
+        pyrs, inits = path.state
+        args, kw = _pyramid_args(self.cfg)
+        build_pyramid(as_image(frames, self.device), *args, **kw, out=pyrs[0])
+        inits[0].zero_()
+        self._path = path
+
+    @property
+    def started(self) -> bool:
+        return self._path is not None
+
+    def step(self, frames) -> torch.Tensor:
+        return self._path.step(frames)
+
+    def close(self) -> None:
+        """End the stream (its path may serve another)."""
+        if self._path is not None:
+            self._path.release()
+        self._path = None
 
 
 def stream_flow(frames: Iterable, cfg: DISConfig, full_res: bool = True,
@@ -69,44 +186,38 @@ def stream_flow(frames: Iterable, cfg: DISConfig, full_res: bool = True,
     frame lies if that is a tensor, and on the GPU if it is a numpy array
     (without a GPU that raises: pass ``device="cpu"``).
     Yields [H, W, 2] (``full_res``) or finest-scale flows, as numpy with
-    ``fetch`` or as device tensors without.
+    ``fetch`` or as device tensors without; a yielded flow is the
+    caller's own and no later step changes it.
     """
-    pin_fp32()
-    n_levels = cfg.coarsest_scale + 1
-    kw = dict(start_level=cfg.finest_scale, backend=pool_backend(cfg))
-    pyr = None
-    init = None
+    core = None
     shape0 = None
-    for frame in frames:
-        if shape0 is None:
-            device = resolve_device(device, frame)
-        cur = as_image(frame, device)
-        if cur.dim() != 3 or cur.shape[2] not in (1, 3):
-            raise ValueError(
-                f"stream frame must be [H, W, 1|3], got {tuple(cur.shape)}")
-        if shape0 is None:
-            shape0 = tuple(cur.shape)
-            div = 2 ** cfg.coarsest_scale
-            if shape0[0] % div or shape0[1] % div:
+    try:
+        for frame in frames:
+            if shape0 is None:
+                device = resolve_device(device, frame)
+            shape = tuple(frame.shape)
+            if len(shape) != 3 or shape[2] not in (1, 3):
                 raise ValueError(
-                    f"stream frames must be pre-padded to 2^{cfg.coarsest_scale}"
-                    f" divisibility, got {shape0[0]}x{shape0[1]}")
-        elif tuple(cur.shape) != shape0:
-            raise ValueError(
-                f"stream frame shape changed: {tuple(cur.shape)} vs "
-                f"{shape0} — all frames of a stream must match")
-        init_h = cur.shape[0] >> (cfg.coarsest_scale + 1)
-        init_w = cur.shape[1] >> (cfg.coarsest_scale + 1)
-        if pyr is None:
-            pyr = build_pyramid(cur[None], n_levels, cfg.padding, **kw)
-            init = torch.zeros((1, init_h, init_w, 2), dtype=torch.float32,
-                               device=cur.device)
-            continue
-        pyr1 = build_pyramid(cur[None], n_levels, cfg.padding, **kw)
-        flow = dis_flow_from_pyramids(pyr, pyr1, cfg, init_flow=init)
-        out = (upsample_flow_to_full(flow[0], cfg, cur.shape[0],
-                                     cur.shape[1])
-               if full_res else flow[0])
-        init = warm_start(flow, cfg, init_h, init_w)
-        pyr = pyr1
-        yield out.cpu().numpy() if fetch else out
+                    f"stream frame must be [H, W, 1|3], got {shape}")
+            if shape0 is None:
+                shape0 = shape
+                div = 2 ** cfg.coarsest_scale
+                if shape0[0] % div or shape0[1] % div:
+                    raise ValueError(
+                        f"stream frames must be pre-padded to "
+                        f"2^{cfg.coarsest_scale} divisibility, got "
+                        f"{shape0[0]}x{shape0[1]}")
+                core = StreamCore(cfg, 1, *shape0, full_res, device)
+                core.start(as_image(frame, device)[None])
+                continue
+            if shape != shape0:
+                raise ValueError(
+                    f"stream frame shape changed: {shape} vs "
+                    f"{shape0} — all frames of a stream must match")
+            batch = (frame[None] if isinstance(frame, torch.Tensor)
+                     else torch.as_tensor(frame)[None])
+            out = core.step(batch)[0]
+            yield out.cpu().numpy() if fetch else out
+    finally:
+        if core is not None:
+            core.close()

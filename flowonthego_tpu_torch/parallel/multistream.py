@@ -9,9 +9,17 @@ runs one batched pair through the pipeline, so each kernel launches once
 per scale for all N streams.  The carried pyramids and warm starts stay on
 the device.
 
+Every tick's work (the new frames' pyramid, the pipeline, the upsample,
+the next warm start) is :class:`.frame_parallel.StreamCore`; on the card
+it is replayed from a CUDA graph, the counterpart of the JAX package's
+jitted ``step_fn`` with its donated state, one graph launch a tick.
+
 The JAX package shards the stream axis over its mesh's 'data' axis, one
 stream per chip; on one card that axis is ``n_streams`` on one device.
-Sharding the streams over several GPUs is not ported yet.
+With ``devices=[...]`` the streams are split over several devices, a
+contiguous sub-batch each with its pyramids and warm starts there; the
+devices share nothing, and every device's tick is queued before any flow
+is gathered.
 
 Deployment shapes this covers:
   * N live camera/video feeds (the multi-feed server);
@@ -25,19 +33,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import DISConfig, pool_backend
-from ..models.dis_flow import (as_image, dis_flow_from_pyramids, pin_fp32,
-                               upsample_flow_to_full)
-from ..ops.pyramid import build_pyramid
-from .frame_parallel import warm_start
+from ..config import DISConfig
+from ..models.dis_flow import as_image
+from .frame_parallel import StreamCore
 
 
 class MultiStream:
     """N independent warm-started video streams, one batch on ``device``
-    (required: the streams run where they are told, never elsewhere).
+    or split over ``devices`` (one of the two is required: the streams run
+    where they are told, never elsewhere).
 
     Frames are pushed as a batch [N, H, W, C] (or packed [N, H, W*C]);
-    one flow field per stream comes back, device-resident.
+    one flow field per stream comes back, device-resident (on the first
+    device of ``devices``).
 
     Usage::
 
@@ -49,7 +57,7 @@ class MultiStream:
 
     def __init__(self, cfg: DISConfig, height: int, width: int,
                  channels: int = 3, full_res: bool = True, *,
-                 n_streams: int, device):
+                 n_streams: int, device=None, devices=None):
         div = 2 ** cfg.coarsest_scale
         if height % div or width % div:
             raise ValueError(
@@ -57,25 +65,33 @@ class MultiStream:
                 f" divisibility, got {height}x{width}")
         if n_streams < 1:
             raise ValueError(f"n_streams must be >= 1, got {n_streams}")
+        if (device is None) == (devices is None):
+            raise ValueError("MultiStream takes either device= or devices=")
+        devices = [torch.device(d) for d in
+                   (devices if devices is not None else [device])]
+        if not devices or n_streams % len(devices):
+            raise ValueError(f"{n_streams} streams do not divide over "
+                             f"{len(devices)} devices")
         self.cfg = cfg
         self.H, self.W, self.C = height, width, channels
         self.full_res = full_res
         self.n_streams = int(n_streams)
-        self.device = torch.device(device)
-        cs = cfg.coarsest_scale
-        self._init_hw = (height >> (cs + 1), width >> (cs + 1))
-        self._pyr_kw = dict(start_level=cfg.finest_scale,
-                            backend=pool_backend(cfg))
-        self._state = None
+        self.devices = devices
+        self.device = devices[0]
+        per = self.n_streams // len(devices)
+        self._cores = [StreamCore(cfg, per, height, width, channels, full_res,
+                                  d) for d in devices]
 
-    def _pack(self, frames) -> torch.Tensor:
-        a = as_image(frames, self.device)
-        if a.dim() == 4:
+    def _pack(self, frames):
+        """The batch as [N, H, W, C] (a tensor or a host array, not
+        moved: each device takes its own streams)."""
+        a = frames if isinstance(frames, torch.Tensor) else np.asarray(frames)
+        if a.ndim == 4:
             if tuple(a.shape[1:]) != (self.H, self.W, self.C):
                 raise ValueError(
                     f"stream batch must be [N, {self.H}, {self.W}, "
                     f"{self.C}], got {tuple(a.shape)}")
-        elif a.dim() != 3 or tuple(a.shape[1:]) != (self.H, self.W * self.C):
+        elif a.ndim != 3 or tuple(a.shape[1:]) != (self.H, self.W * self.C):
             raise ValueError(
                 f"stream batch must be [N, H, W, C] or packed [N, H, W*C],"
                 f" got {tuple(a.shape)}")
@@ -86,36 +102,46 @@ class MultiStream:
                              f"of {a.shape[0]}")
         return a
 
-    def _pyramid(self, frames: torch.Tensor):
-        return build_pyramid(frames, self.cfg.coarsest_scale + 1,
-                             self.cfg.padding, **self._pyr_kw)
+    def _shards(self, frames):
+        a = self._pack(frames)
+        per = self.n_streams // len(self._cores)
+        return [a[k * per:(k + 1) * per] for k in range(len(self._cores))]
 
     def start(self, first_frames) -> None:
         """Prime every stream with its first frame (no flow output)."""
-        pin_fp32()
-        frames = self._pack(first_frames)
-        init = torch.zeros((self.n_streams, *self._init_hw, 2),
-                           dtype=torch.float32, device=self.device)
-        self._state = (self._pyramid(frames), init)
+        for core, part in zip(self._cores, self._shards(first_frames)):
+            core.start(as_image(part, core.device))
 
     def push(self, frames) -> torch.Tensor:
         """Advance every stream one frame; returns [N, H, W, 2] flows (or
-        the finest-scale flows without ``full_res``) on the device: row i
-        is stream i's flow from its previous frame to this one."""
-        if self._state is None:
+        the finest-scale flows without ``full_res``) on the (first)
+        device: row i is stream i's flow from its previous frame to this
+        one.  The flows are the caller's own: no later tick changes
+        them."""
+        if not self._cores[0].started:
             raise RuntimeError("call start(first_frames) before push()")
-        pyr_prev, init = self._state
-        pyr = self._pyramid(self._pack(frames))
-        flow = dis_flow_from_pyramids(pyr_prev, pyr, self.cfg,
-                                      init_flow=init)
-        out = (upsample_flow_to_full(flow, self.cfg, self.H, self.W)
-               if self.full_res else flow)
-        self._state = (pyr, warm_start(flow, self.cfg, *self._init_hw))
-        return out
+        flows = [core.step(part)
+                 for core, part in zip(self._cores, self._shards(frames))]
+        if len(flows) == 1:
+            return flows[0]
+        return torch.cat([f.to(self.device) for f in flows], dim=0)
+
+    def close(self) -> None:
+        """End the streams (on the card their captured paths may then
+        serve other streams of the same shape)."""
+        for core in self._cores:
+            core.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
 
 def stream_video_chunks(frames, cfg: DISConfig, n_streams: int, device,
-                        full_res: bool = True) -> np.ndarray:
+                        full_res: bool = True,
+                        overlap_warmup: bool = True) -> np.ndarray:
     """Process ONE video of T frames as ``n_streams`` parallel chunks.
 
     Splits [T, H, W, C] into N contiguous chunks with one-frame overlap
@@ -126,8 +152,10 @@ def stream_video_chunks(frames, cfg: DISConfig, n_streams: int, device,
     true frame pair.  Streams past their chunk's end re-feed their last
     frame (result discarded), so every tick keeps the full batch.
 
-    ``frames`` is a numpy array or a tensor (on any device).  Returns
-    [T-1, H, W, 2] (``full_res``) as a host array.
+    ``frames`` is a numpy array or a tensor (on any device); ``device``
+    is one device or a list of them (the chunks split over it).
+    ``overlap_warmup`` is accepted and unused, as in the JAX package.
+    Returns [T-1, H, W, 2] (``full_res``) as a host array.
     """
     if frames.ndim != 4:
         raise ValueError(f"frames must be [T, H, W, C], got "
@@ -138,8 +166,9 @@ def stream_video_chunks(frames, cfg: DISConfig, n_streams: int, device,
     if n_pairs < N:
         raise ValueError(f"need at least {N + 1} frames for {N} chunks")
     H, W, C = frames.shape[1], frames.shape[2], frames.shape[3]
-    ms = MultiStream(cfg, H, W, C, full_res=full_res, n_streams=N,
-                     device=device)
+    where = (dict(devices=list(device)) if isinstance(device, (list, tuple))
+             else dict(device=device))
+    ms = MultiStream(cfg, H, W, C, full_res=full_res, n_streams=N, **where)
 
     # chunk k handles pairs [starts[k], starts[k+1])
     starts = [k * n_pairs // N for k in range(N + 1)]
@@ -158,4 +187,5 @@ def stream_video_chunks(frames, cfg: DISConfig, n_streams: int, device,
             p = starts[k] + t
             if p < starts[k + 1]:
                 out[p] = flows[k]
+    ms.close()
     return out

@@ -1,6 +1,13 @@
 """Where the device time goes on the port's main paths (one NVIDIA GPU).
 
-    python -m flowonthego_tpu_torch.profile_paths [--reps N]
+    python -m flowonthego_tpu_torch.profile_paths [--reps N] [--eager]
+
+Every path runs as its entry point runs it on the card: replayed from its
+CUDA graph (``utils/graphs.py``; the device events are the graph's
+kernels).  ``--eager`` runs them launch by launch instead
+(``graphs.eager()``), as they ran before the captures.  Each path's calls
+run inside ``utils.profiling.annotate(<path name>)``, so a trace taken
+around this script (``utils.profiling.trace``) shows the paths by name.
 
 For each path: the wall time per pair without the profiler (host clock,
 ending in a sync), then ``torch.profiler`` over the same calls: device
@@ -35,6 +42,7 @@ CATEGORIES = (("dis_gn_kernel", "K2 gn"),
               ("varref_tiled_kernel", "K4 grid"),
               ("varref_kernel", "K3"), ("warp_kernel", "K5 warp"),
               ("pool2x2_kernel", "K1 pool"), ("Memcpy", "copies"),
+              ("memcpy", "copies"),     # CUDA's own copy kernels
               ("Memset", "copies"), ("gemm", "GEMM"),
               ("indexing_backward_kernel", "index_put sort+sum"),
               ("RadixSort", "index_put sort+sum"))
@@ -47,22 +55,49 @@ def category(name: str) -> str:
     return "small torch kernels"
 
 
-def device_breakdown(fn, reps: int):
-    """(total device ms, {category: (ms, launches)}) of ``reps`` calls."""
+def device_breakdown(fn, reps: int, skip: str = ""):
+    """(total device ms, {category: (ms, launches)}) of ``reps`` calls;
+    ``skip`` names an ``annotate`` range around the calls, whose span on
+    the device timeline is no kernel.  The tracer sometimes loses the
+    device events at the start of what it records, so the profile starts
+    in a warm-up step and the recorded step begins with 32 throw-away
+    kernels that no path runs (digamma): they are left out, and a profile
+    that does not show all of them is taken again."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    from torch.profiler import ProfilerActivity, profile, schedule
+    scratch = torch.ones(1, device="cuda")
+
+    def throw_away():
+        for _ in range(32):
+            scratch.digamma_()
         torch.cuda.synchronize()
-    per = collections.defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            throw_away()
+            prof.step()
+            throw_away()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        per = collections.defaultdict(lambda: [0.0, 0])
+        thrown = 0
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA or e.name == skip:
+                continue
+            if "digamma" in e.name:
+                thrown += 1
+                continue
             row = per[category(e.name)]
             row[0] += e.time_range.elapsed_us() / 1e3
             row[1] += 1
-    return sum(ms for ms, _ in per.values()), per
+        if thrown == 32:
+            return sum(ms for ms, _ in per.values()), per
+        print(f"   (incomplete profile: {32 - thrown} of 32 throw-away "
+              "kernels lost; taken again)", flush=True)
+    raise RuntimeError("four profiles in a row were incomplete")
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -75,9 +110,17 @@ def wall_ms(fn, reps: int) -> float:
 
 
 def report(name: str, fn, reps: int, pairs_per_call: int = 1) -> dict:
-    fn()                                            # first call
+    from flowonthego_tpu_torch.utils.profiling import annotate
+    inner = fn
+
+    def fn():
+        with annotate(name):
+            return inner()
+
+    fn()                            # first call: eager, and records
+    fn()                            # second: the first replay
     wall = wall_ms(fn, reps) / pairs_per_call
-    dev_ms, per = device_breakdown(fn, reps)
+    dev_ms, per = device_breakdown(fn, reps, skip=name)
     n = reps * pairs_per_call
     launches = sum(k for _, k in per.values()) / n
     per_call = (f" ({wall * pairs_per_call:.3f} ms and "
@@ -96,9 +139,19 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=5,
                     help="calls per path, unprofiled and profiled")
+    ap.add_argument("--eager", action="store_true",
+                    help="run launch by launch, not from the CUDA graphs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_paths: needs a CUDA device")
+    if args.eager:
+        from flowonthego_tpu_torch.utils import graphs
+        with graphs.eager():
+            return run(args)
+    return run(args)
+
+
+def run(args) -> int:
     import flowonthego_tpu_torch as port
     from flowonthego_tpu_torch.config import pad_to_divisible
     from flowonthego_tpu_torch.models.dis_flow import pin_fp32

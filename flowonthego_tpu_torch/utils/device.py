@@ -10,7 +10,46 @@ written out once and every entry point that takes host arrays
 
 from __future__ import annotations
 
+import threading
+
 import torch
+
+_constants: dict = {}
+_constants_lock = threading.Lock()
+
+
+def device_constant(key, device, build) -> torch.Tensor:
+    """The tensor ``torch.as_tensor(build())`` on ``device``, made once
+    per (``key``, device) and kept until :func:`clear_constants`.
+
+    For the small tensors a path builds on the host from static geometry
+    alone (grid midpoints, gather indices, interpolation matrices).  A
+    copy from host memory cannot be recorded into a CUDA graph, and a
+    recorded graph reads its inputs at fixed addresses: so such a tensor
+    is uploaded once, on a path's first (eager) call, and every later
+    call, captured or not, reads the same tensor (a recorded graph holds
+    on to the ones it reads).  Callers never write to it.  ``key`` names
+    the function and every value ``build`` depends on."""
+    device = torch.device(device)
+    full = (key, str(device))
+    with _constants_lock:
+        t = _constants.get(full)
+        if t is None:
+            t = _constants[full] = torch.as_tensor(build()).to(device)
+        return t
+
+
+def constants() -> list:
+    """Every constant there is now (for a holder that must keep them
+    alive)."""
+    with _constants_lock:
+        return list(_constants.values())
+
+
+def clear_constants() -> None:
+    """Forget every constant; each is built anew when next asked for."""
+    with _constants_lock:
+        _constants.clear()
 
 
 def resolve_device(device, *inputs) -> torch.device:

@@ -22,6 +22,7 @@ from flowonthego_tpu_torch.ops.cuda import (dis_gn, pool, varref_fused,
 from flowonthego_tpu_torch.ops.patches import (PatchGrid,
                                                extract_templates_and_hessians)
 from flowonthego_tpu_torch.ops.pyramid import build_pyramid
+from flowonthego_tpu_torch.utils import graphs
 from flowonthego_tpu_torch.utils.synth import synthetic_frames
 
 pytestmark = pytest.mark.cuda
@@ -310,7 +311,8 @@ def test_compute_flow_takes_both_k4_routes(cuda):
     i0, i1 = synthetic_frames(5, 2, 436, 1024, (4, 2), factor=8)
     n3, n4, nc = (varref_fused.launches, varref_tiled.launches,
                   varref_tiled.launches_cluster)
-    flow = port.compute_flow(i0, i1, cfg)       # numpy, no device: the card
+    with graphs.eager():    # the wrappers count what a call launches itself
+        flow = port.compute_flow(i0, i1, cfg)   # numpy, no device: the card
     assert flow.is_cuda
     assert varref_fused.launches - n3 == want.count("fused")
     assert varref_tiled.launches_cluster - nc == want.count("cluster")
@@ -551,14 +553,197 @@ def test_batched_fb_flow_deterministic(cuda):
     cfg = dataclasses.replace(port.operating_point(2, width=256),
                               use_fb_consistency=True)
     mods = (pool, dis_gn, varref_fused, varref_tiled, warp)
-    counts = [m.launches for m in mods]
-    first = port.batched_flow(I0, I1, cfg)
-    batch_n = [m.launches - n for m, n in zip(mods, counts)]
-    assert batch_n[1] > 0
-    assert torch.equal(port.batched_flow(I0, I1, cfg), first)
-    for b in range(len(shifts)):
+
+    def eager(a, b):
+        """(flows, the wrappers' launches) of one launch-by-launch call."""
         counts = [m.launches for m in mods]
-        single = port.batched_flow(I0[b:b + 1], I1[b:b + 1], cfg)
-        assert [m.launches - n for m, n in zip(mods, counts)] == batch_n
+        with graphs.eager():
+            out = port.batched_flow(a, b, cfg)
+        return out, [m.launches - n for m, n in zip(mods, counts)]
+
+    first, batch_n = eager(I0, I1)
+    assert batch_n[1] > 0
+    assert torch.equal(eager(I0, I1)[0], first)
+    for _ in range(2):      # the captured path: recorded, then replayed
+        assert torch.equal(port.batched_flow(I0, I1, cfg), first)
+    for b in range(len(shifts)):
+        single, single_n = eager(I0[b:b + 1], I1[b:b + 1])
+        assert single_n == batch_n
         epe = torch.linalg.vector_norm(first[b] - single[0], dim=-1)
         assert epe.mean() <= 1e-3 and torch.quantile(epe, 0.99) <= 1e-2
+
+
+# ------------------------------------------------------- CUDA-graph captures
+
+def _eager_then_captured(fn, calls=3):
+    """``fn()`` eagerly, then ``calls`` times through its captured path
+    (the first of them runs eagerly and records, the others replay)."""
+    graphs.clear()
+    with graphs.eager():
+        ref = fn()
+    got = [fn() for _ in range(calls)]
+    torch.cuda.synchronize()
+    return ref, got, graphs.cached_paths()
+
+
+GRAPH_MODES = {
+    "op 1": (1, {}), "op 2": (2, {}), "op 3": (3, {}), "op 4": (4, {}),
+    "fb": (2, dict(use_fb_consistency=True)),
+    "huber": (2, dict(cost_fn="huber")),
+    "bf16": (2, dict(dtype="bfloat16")),
+    "plain": (2, dict(gn_backend="xla", varref_backend="xla")),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(GRAPH_MODES))
+def test_captured_compute_flow_equals_eager(cuda, mode):
+    """A replayed graph returns the eager call's flow bit for bit (it
+    replays the same kernels on the same arguments), on 124x256 from
+    scale 4, so that K3 and both routes of K4 are in the graph."""
+    op, fields = GRAPH_MODES[mode]
+    cfg = dataclasses.replace(port.operating_point(op, width=256),
+                              coarsest_scale=4, **fields)
+    i0, i1 = (torch.as_tensor(x, device=cuda) for x in
+              synthetic_frames(3, 2, 124, 256, (2, 1), factor=4))
+    ref, got, paths = _eager_then_captured(
+        lambda: port.compute_flow(i0, i1, cfg))
+    assert paths == [("flow_full_padded", 2)]
+    assert all(torch.equal(g, ref) for g in got)
+    assert len({g.data_ptr() for g in got}) == 3
+
+
+def test_captured_gray_and_depth_equal_eager(cuda):
+    cfg = dataclasses.replace(port.operating_point(2, width=256),
+                              coarsest_scale=4)
+    i0, i1 = (torch.as_tensor(x, device=cuda) for x in
+              synthetic_frames(3, 2, 124, 256, (-2, 0), factor=4))
+    g0, g1 = (port.prepare_input(x, "gray") for x in (i0, i1))
+    ref, got, _ = _eager_then_captured(lambda: port.compute_flow(g0, g1, cfg))
+    assert all(torch.equal(g, ref) for g in got)
+    depth = dataclasses.replace(cfg, use_var_ref=False)
+    ref, got, paths = _eager_then_captured(
+        lambda: port.compute_disparity(i0, i1, depth))
+    assert paths == [("compute_disparity", 2)]
+    assert all(torch.equal(g, ref) for g in got)
+
+
+@pytest.mark.parametrize("full_res", [True, False])
+def test_captured_batched_flow_equals_eager(cuda, full_res):
+    cfg = dataclasses.replace(port.operating_point(2, width=256),
+                              coarsest_scale=4)
+    pairs = [synthetic_frames(5 + b, 2, 128, 256, s, factor=4)
+             for b, s in enumerate(((2, 1), (-2, 2), (4, -2), (0, 2)))]
+    I0, I1 = (torch.as_tensor(np.stack([p[k] for p in pairs]), device=cuda)
+              for k in (0, 1))
+    ref, got, _ = _eager_then_captured(
+        lambda: port.batched_flow(I0, I1, cfg, full_res=full_res))
+    assert all(torch.equal(g, ref) for g in got)
+
+
+def test_captured_streams_equal_eager_and_do_not_alias(cuda):
+    """``stream_flow`` and a 4-stream ``MultiStream`` through the two
+    alternating graphs against the eager stream bit for bit; flows held
+    at once stay as they were."""
+    cfg = dataclasses.replace(port.operating_point(2, width=256),
+                              coarsest_scale=4)
+    frames = [torch.as_tensor(f, device=cuda) for f in
+              synthetic_frames(7, 7, 128, 256, (2, 1), factor=4)]
+    graphs.clear()
+    with graphs.eager():
+        ref = list(port.stream_flow(frames, cfg, fetch=False))
+    runs = [list(port.stream_flow(frames, cfg, fetch=False))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert graphs.cached_paths() == [("stream_step", 11)]
+    for got in runs:
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    videos = torch.stack([torch.stack(frames), torch.stack(frames[::-1]),
+                          torch.stack(frames), torch.stack(frames[::-1])])
+    with graphs.eager():
+        em = port.MultiStream(cfg, 128, 256, n_streams=4, device=cuda)
+        em.start(videos[:, 0])
+        want = [em.push(videos[:, t]) for t in range(1, 7)]
+    pm = port.MultiStream(cfg, 128, 256, n_streams=4, device=cuda)
+    pm.start(videos[:, 0])
+    got = [pm.push(videos[:, t]) for t in range(1, 7)]
+    pm.close()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    # stream 0 is the stream above.  At the finest scale a batch of 4
+    # gives it the single stream's flow bit for bit; the full-resolution
+    # flows differ by <= 1e-5 px, so that gap is the upsample's (its
+    # matmuls see another shape in a batch)
+    fine = list(port.stream_flow(frames, cfg, full_res=False, fetch=False))
+    fm = port.MultiStream(cfg, 128, 256, n_streams=4, full_res=False,
+                          device=cuda)
+    fm.start(videos[:, 0])
+    for t in range(1, 7):
+        assert torch.equal(fm.push(videos[:, t])[0], fine[t - 1])
+    fm.close()
+    assert float((got[0][0] - ref[0]).abs().max()) <= 1e-5
+
+
+def test_failed_capture_raises_and_leaves_no_path(cuda):
+    """A function that cannot be captured (it synchronises) raises out of
+    the call that records it, the path's first; nothing is cached and
+    nothing falls back."""
+
+    def fn(a):
+        return a * float(a.sum())        # a device-to-host copy
+
+    graphs.clear()
+    x = torch.ones(8, device=cuda)
+    with graphs.eager():
+        assert torch.equal(fn(x), x * 8)      # the eager call is fine
+    for _ in range(2):                        # and no later call gets by
+        with pytest.raises(Exception):
+            graphs.run("flow_full_padded", fn, (x,), static=("bad",))
+        torch.cuda.synchronize()
+        assert graphs.cached_paths() == []
+    # the card is usable afterwards
+    for _ in range(3):
+        ok = graphs.run("flow_full_padded", lambda a: a + 1, (x,),
+                        static=("good",))
+        assert torch.equal(ok, x + 1)
+    assert graphs.cached_paths() == [("flow_full_padded", 2)]
+    graphs.clear()
+
+
+def test_cache_frees_its_memory(cuda):
+    """Evicted and cleared paths give their pools back."""
+    graphs.clear()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+
+    def fn(a):
+        return (a @ a).relu()
+
+    for n in range(graphs.MAX_ENTRIES + 3):
+        x = torch.ones((256 + n, 256 + n), device=cuda)
+        for _ in range(2):
+            graphs.run("dis_flow_padded", fn, (x,))
+    assert len(graphs.cached_paths()) == graphs.MAX_ENTRIES
+    del x
+    graphs.clear()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() <= base + (1 << 20)
+
+
+def test_device_list_forms_on_one_card(cuda):
+    """A one-device mesh and ``devices=[cuda:0]``: the one-device forms
+    bit for bit."""
+    cfg = dataclasses.replace(port.operating_point(2, width=256),
+                              coarsest_scale=4)
+    pairs = [synthetic_frames(5 + b, 3, 128, 256, s, factor=4)
+             for b, s in enumerate(((2, 1), (-2, 2)))]
+    I0, I1, I2 = (torch.as_tensor(np.stack([p[k] for p in pairs]),
+                                  device=cuda) for k in (0, 1, 2))
+    fn = port.make_data_parallel_flow(port.make_mesh(devices=[cuda]), cfg)
+    assert torch.equal(fn(I0, I1), port.batched_flow(I0, I1, cfg))
+    a = port.MultiStream(cfg, 128, 256, n_streams=2, devices=[cuda])
+    b = port.MultiStream(cfg, 128, 256, n_streams=2, device=cuda)
+    for m in (a, b):
+        m.start(I0)
+    for frames in (I1, I2):
+        assert torch.equal(a.push(frames), b.push(frames))
+    assert set(port.device_memory_stats()["cuda:0"]) == {
+        "bytes_in_use", "peak_bytes_in_use", "bytes_limit"}
