@@ -15,7 +15,8 @@ Phases (any failure raises and the script exits non-zero):
      the card could take for the call's bytes and operations) and, for
      K1 and K5, the time of the one PyTorch call that computes the same
      function (``avg_pool2d``, ``grid_sample``; yardsticks, used nowhere
-     in the port); K2 in every compiled form and its generic form; K3
+     in the port); K2 in every compiled form and its generic form, and
+     its strip-offset entry on the op-4 patches cut by a few rows; K3
      against both routes of K4 (cluster and grid) bit for bit on the
      fields all can take, and all timed on the field sizes of the paths
      at C = 3 and C = 1 (the var-ref resolver's two thresholds), beside
@@ -94,15 +95,31 @@ Phases (any failure raises and the script exits non-zero):
  11. the device-list forms on a one-device mesh:
      ``make_data_parallel_flow`` against ``batched_flow`` and
      ``MultiStream(devices=[cuda:0])`` against ``MultiStream(device=)``,
-     bit for bit.
+     bit for bit;
+ 12. the spatial forms on meshes whose positions are all this card, each
+     counted as in phase 4 (3 calls: the eager first call, which records,
+     and two replays): ``make_fine_spatial_flow`` on 2 strips and
+     ``make_tile2d_flow`` on 2x2 tiles at op 4 on a 3840x2304 pair (scales
+     2 and 3 sharded; K2's strip entry once per sharded scale and shard a
+     call), ``make_spatial_flow`` on 4 strips at op 2 on 3840x2176 and
+     ``make_batch_spatial_flow`` of 2 on a 2x2 (data x space) mesh: replays
+     equal the eager call bit for bit, violation count 0, each against the
+     unsharded path at the JAX package's bar, the op-4 medians against the
+     motion; ms per call captured, eager and of the unsharded path; a
+     starved halo counts violations and the recovering form returns the
+     unsharded flow;
+ 13. ``python -m flowonthego_tpu_torch.tools.flow_stream`` (in-process)
+     over PPM frames: its .flo files equal ``stream_flow``'s flows.
 A kernel's ``ms`` is the device's time for back-to-back launches of its
 wrapper (:func:`device_ms`); a plain version's is the time between two
 events with the host's enqueue time in it.  It prints one JSON line of
 per-kernel results (``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``,
 ``library_ms``; ``launches``: how often the kernel ran on the device in
-the main paths' runs of phases 4, 6 and 9, from those runs' profiles; the
-batched and bf16 rows with those of phase 8; K4 as two rows, one for each
-route) and, last, the device line
+the main paths' runs of phases 4, 6, 9 and 12, from those runs'
+profiles; the batched and bf16 rows with those of phase 8; K4 as two rows,
+one for each route; K2's strip-offset entry as its own row, timed in
+phase 3 on the op-4 patches, launched in phase 12) and, last, the device
+line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
 prints no result.
 """
@@ -385,6 +402,9 @@ KERNEL_NAMES = {"pool": "pool2x2_kernel", "gn": "dis_gn_kernel",
                 "varref_tiled": "varref_tiled_kernel", "warp": "warp_kernel"}
 KERNEL_RE = {k: re.compile(rf"(?<![A-Za-z0-9_]){name}(?![A-Za-z0-9_])")
              for k, name in KERNEL_NAMES.items()}
+# K2's strip-offset entry (the spatial forms' sharded scales), counted
+# under "gn" and, apart, under "gn_offset"
+GN_STRIP_RE = re.compile(r"(?<![A-Za-z0-9_])dis_gn_strip_kernel(?![A-Za-z0-9_])")
 # host runtime calls that put work on the device
 LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset",
                 "cudaGraphLaunch")
@@ -454,15 +474,19 @@ def profiled(fn, before=None):
 def kernel_counts(names) -> dict:
     """How often each kernel of the port ran, from a profile's device
     events.  "varref_tiled" is K4's grid route, "varref_cluster" its
-    cluster route, "gn_bf16" K2's launches with bf16 operands (counted
-    under "gn" too)."""
-    counts = dict.fromkeys(ALL + ("gn_bf16",), 0)
+    cluster route, "gn_bf16" K2's launches with bf16 operands and
+    "gn_offset" those of its strip-offset entry (both counted under "gn"
+    too)."""
+    counts = dict.fromkeys(ALL + ("gn_bf16", "gn_offset"), 0)
     for name, n in names.items():
+        strip = GN_STRIP_RE.search(name) is not None
         for k, pattern in KERNEL_RE.items():
-            if pattern.search(name):
+            if pattern.search(name) or (k == "gn" and strip):
                 counts[k] += n
                 if k == "gn" and "bfloat16" in name:
                     counts["gn_bf16"] += n
+                if k == "gn" and strip:
+                    counts["gn_offset"] += n
     return counts
 
 
@@ -472,12 +496,14 @@ def wrapper_counts(reset=False) -> dict:
     wrappers = kernel_modules()
     counts = {k: m.launches for k, m in wrappers.items()}
     counts["gn_bf16"] = wrappers["gn"].launches_bf16
+    counts["gn_offset"] = wrappers["gn"].launches_offset
     counts["varref_cluster"] = wrappers["varref_tiled"].launches_cluster
     counts["varref_tiled"] -= counts["varref_cluster"]
     if reset:
         for m in wrappers.values():
             m.launches = 0
         wrappers["gn"].launches_bf16 = 0
+        wrappers["gn"].launches_offset = 0
         wrappers["varref_tiled"].launches_cluster = 0
     return counts
 
@@ -529,6 +555,8 @@ GN_SHAPES = ((2, 56, 128, ("cold", "warm")), (2, 68, 120, ("cold", "warm")),
 # registers (8 and 12) and two that take the generic form (6 and 10), each
 # at C = 1 and 3 with float32 and bf16 operands, on a 56x128 level
 GN_FORM_SIZES = (8, 12, 6, 10)
+# K2's strip entry: the target cut by (rows, columns) at its top left
+STRIP_CUT = (2, 3)
 
 
 def gn_inputs(dev, op, h, w, g, channels=3, n_frames=1, patch_size=None):
@@ -571,7 +599,7 @@ def gn_bound_of(args, kw, bf16=False):
     from flowonthego_tpu_torch.ops.cuda import bounds, dis_gn
     I1, templates = args[0], args[1]
     B, n_h, n_w, ps, _, C = templates.shape
-    iters = dis_gn.gn_scale_loop_plain(*args, **kw, bf16=bf16,
+    iters = dis_gn.gn_scale_loop_plain(*args, **dict(kw, bf16=bf16),
                                        count_iters=True)[2]
     live = int(iters.sum())
     b = bounds.gn_bound(B, n_h * n_w, ps, C, I1.shape[1], I1.shape[2],
@@ -752,6 +780,32 @@ def kernel_phase(dev):
                              "the patch-iterations live")
                 log(line)
     results["gn"]["max_abs_err"] = max(errs)
+
+    # K2's strip-offset entry on the timed op-4 patches (scale 1 of
+    # 1024x448, warm), the target cut by STRIP_CUT rows and columns and
+    # the offset mapping the global midpoints into the cut, beside the
+    # entry without an offset; its row in the kernels line is measured on
+    # the spatial forms' own shard inputs (spatial_phase)
+    cfg, grid, gn_args, kw = gn_inputs(dev, 4, 224, 512, g)
+    r0, c0 = STRIP_CUT
+    args = (gn_args["warm"][0][:, r0:, c0:].contiguous(),) + \
+        gn_args["warm"][1:]
+    ko = dict(kw, offset=(float(-c0), float(-r0)))
+    got = dis_gn.gn_scale_loop(*args, **ko)
+    ref = dis_gn.gn_scale_loop_plain(*args, **ko)
+    torch.cuda.synchronize()
+    err, text = check_gn(4, got, ref)
+    b, live = gn_bound_of(args, ko)
+    row = kernel_row(
+        device_ms(lambda: dis_gn.gn_scale_loop(*args, **ko), 10),
+        cuda_ms(lambda: dis_gn.gn_scale_loop_plain(*args, **ko), 1, 1), b,
+        max_abs_err=err)
+    whole = device_ms(lambda: dis_gn.gn_scale_loop(*gn_args["warm"], **kw),
+                      10)
+    log(f"K2 gn strip entry op 4 224x512 cut by {STRIP_CUT} ({grid.n_patches}"
+        f" patches, warm): {text}, {timing_text(row)}; "
+        f"{100 * live:.3g}% of the patch-iterations live; the entry without "
+        f"an offset on the whole target, same call: {whole:.4f} ms")
 
     # K2's compiled and generic forms, float32 and bf16 operands
     for ps in GN_FORM_SIZES:
@@ -1663,12 +1717,17 @@ def chained_ms(fn, n):
 def launch_profile(fn, n):
     """Per call of ``fn`` over ``n`` profiled calls: (Counter of device
     events by name, device ms, the host's launch calls, of which graph
-    launches)."""
-    _, names, dev_ms, host_n, graph_n = profiled(
-        lambda: [fn() for _ in range(n)])
-    uneven = {k: c for k, c in names.items() if c % n}
-    if uneven:
-        log(f"  device events not a multiple of the {n} calls: {uneven}")
+    launches).  The tracer can lose an event anywhere in a profile, not
+    only where the canary looks: a profile whose counts do not divide by
+    ``n`` is taken again, and fails only if every try is so."""
+    for _ in range(PROFILE_TRIES):
+        _, names, dev_ms, host_n, graph_n = profiled(
+            lambda: [fn() for _ in range(n)])
+        uneven = {k: c for k, c in names.items() if c % n}
+        if not uneven:
+            break
+        log(f"  device events not a multiple of the {n} calls: {uneven} "
+            "(profile taken again)")
     assert not uneven, "the calls of one path ran different device events"
     per_call = collections.Counter({k: c // n for k, c in names.items()})
     return per_call, dev_ms / n, host_n / n, graph_n / n
@@ -1901,7 +1960,6 @@ def native_phase(dev):
 
     import flowonthego_tpu_torch as port
     from flowonthego_tpu_torch.io import native
-    from flowonthego_tpu_torch.utils.synth import synthetic_frames
 
     t0 = time.perf_counter()
     if not native.ensure_built():
@@ -1927,8 +1985,7 @@ def native_phase(dev):
             log("    " + line[:300])
     assert native.get_lib() is not None
     cfg = port.operating_point(2, width=1024)
-    frames = [np.clip(f, 0, 255).astype(np.uint8) for f in
-              synthetic_frames(5, 5, 448, 1024, (8, 8))]
+    frames = native_frames()
     with tempfile.TemporaryDirectory() as d:
         flow = np.random.default_rng(0).standard_normal(
             (436, 1024, 2)).astype(np.float32) * 4
@@ -2011,6 +2068,309 @@ def device_list_phase(dev):
         "bit over 2 ticks")
 
 
+# ------------------------------------------------------------------ spatial
+
+# The spatial forms at 4K on meshes of this one card.  The 4K texture of the
+# stream phases, replicate-padded to 2304 rows (the strip and tile forms
+# need H % (n * 2^coarsest_scale) == 0) or to 2176 (replicate-coarse):
+# op 4 on 2 strips and 2x2 tiles shards scales 2 and 3; op 2 shards no
+# scale, and make_spatial_flow is its form.
+SPATIAL_4K = (2160, 3840, 64)           # height, width, texture factor
+SPATIAL_OP4_MOTION = (16, 8)            # a multiple of 2^fs = 4 at op 4
+SPATIAL_OP4_ROWS = 2304
+SPATIAL_TOL_STRIPS = dict(rtol=1e-3, atol=1e-3)     # the JAX package's bars
+SPATIAL_TOL_REPLICATED = dict(rtol=1e-4, atol=1e-4)
+# the tiles' quantile bar: an ulp can flip a marginal outlier reset, which
+# var-ref then diffuses (tests/test_spatial_tile2d.py)
+SPATIAL_TILE_Q50, SPATIAL_TILE_Q95, SPATIAL_TILE_MAX = 5e-4, 5e-3, 0.05
+# a halo slack that starves the op-4 strips: scale 3's sampling reach
+# beyond the strip becomes -1 row (its var-ref warp halo 1 row)
+SPATIAL_STARVED_SLACK = -97
+SPATIAL_REPS = 4
+
+
+def spatial_phase(dev):
+    """The spatial forms on meshes of this card: the fine strips and the
+    tiles at op 4 4K, the replicate-coarse form at op 2 4K and its batch
+    form, captured against eager, against the unsharded path, K2's strip
+    entry counted and held against its plain version on the shards' own
+    inputs; a starved halo recovers.  Returns the launches of the counted
+    runs and K2's strip-entry row."""
+    import flowonthego_tpu_torch as port
+    from flowonthego_tpu_torch import parallel as par
+    from flowonthego_tpu_torch.config import pad_to_divisible
+    from flowonthego_tpu_torch.ops.cuda import dis_gn
+    from flowonthego_tpu_torch.ops.pyramid import pad_replicate
+    from flowonthego_tpu_torch.utils import graphs
+    from flowonthego_tpu_torch.utils.synth import synthetic_frames
+    launches = dict.fromkeys(ALL + ("gn_offset",), 0)
+    failed = []     # checks that failed; raised once every form has run
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    def check(ok, what):
+        if not ok:
+            log(f"  FAILED: {what}")
+            failed.append(what)
+
+    h, w, factor = SPATIAL_4K
+    cfg4 = port.operating_point(4, width=w)
+    cfg2 = port.operating_point(2, width=w)
+    top = (SPATIAL_OP4_ROWS - h) // 2
+    raw4 = synthetic_frames(7, 2, h, w, SPATIAL_OP4_MOTION, factor=factor)
+    op4 = [pad_replicate(torch.as_tensor(f, device=dev),
+                         (top, SPATIAL_OP4_ROWS - h - top, 0, 0))
+           for f in raw4]
+    pads2 = pad_to_divisible(w, h, cfg2.coarsest_scale)
+    raw2 = synthetic_frames(7, 3, h, w, STREAM_4K[3], factor=factor)
+    op2 = [pad_replicate(torch.as_tensor(f, device=dev), pads2) for f in raw2]
+    H4, H2 = op4[0].shape[0], op2[0].shape[0]
+    strips = par.make_mesh(n_space=2, devices=[dev] * 2)
+    tiles = par.make_tile_mesh(2, 2, devices=[dev] * 4)
+    log(f"spatial: op 4 {w}x{H4}: sharded scales on 2 strips "
+        f"{par.sharded_scale_levels(cfg4, H4, 2)}, on 2x2 tiles "
+        f"{par.tiled2d_scale_levels(cfg4, H4, w, 2, 2)}, on 4 strips "
+        f"{par.sharded_scale_levels(cfg4, H4, 4)} (scales "
+        f"{cfg4.coarsest_scale}..{cfg4.finest_scale}); op 2 {w}x{H2} on 4 "
+        f"strips: {par.sharded_scale_levels(cfg2, H2, 4)}")
+    n_sharded = {"strips": 2 * len(par.sharded_scale_levels(cfg4, H4, 2)),
+                 "tiles": 4 * len(par.tiled2d_scale_levels(cfg4, H4, w, 2,
+                                                           2))}
+
+    graphs.clear()
+    torch.cuda.synchronize()
+    unsharded = {}
+    t0 = time.perf_counter()
+    unsharded["op4"] = port.flow_full_padded(*op4, cfg4)
+    torch.cuda.synchronize()
+    log(f"  flow_full_padded op 4 {w}x{H4}: first call "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    unsharded["op2"] = port.flow_full_padded(*op2[:2], cfg2)
+    I0b, I1b = torch.stack(op2[:2]), torch.stack(op2[1:])
+    unsharded["batch"] = port.batched_flow(I0b, I1b, cfg2)
+
+    forms = {
+        "strips": (par.make_fine_spatial_flow(strips, cfg4, H4, w), op4,
+                   "op4"),
+        "tiles": (par.make_tile2d_flow(tiles, cfg4, H4, w), op4, "op4"),
+        "replicate-coarse 4 strips": (
+            par.make_spatial_flow(par.make_mesh(n_space=4, devices=[dev] * 4),
+                                  cfg2, H2, w), op2[:2], "op2"),
+        "batch 2x2": (
+            par.make_batch_spatial_flow(
+                par.make_mesh(n_data=2, n_space=2, devices=[dev] * 4), cfg2,
+                H2, w), (I0b, I1b), "batch")}
+    # K2's strip entry at the shapes the main path gives it: the inputs of
+    # every strip-entry call in one eager run of the strips and of the
+    # tiles (scales 2 and 3 on each shard, with its real offset), each
+    # held against the plain version; the row is timed on the largest
+    # (scale 2 on strip 0, whose row offset is positive)
+    errs, largest = [], None
+    for name in n_sharded:
+        fn, pair, _ = forms[name]
+        calls = strip_entry_calls(fn, pair)
+        check(len(calls) == n_sharded[name],
+              f"spatial {name}: {len(calls)} strip-entry calls in one run")
+        for args, kw in calls:
+            got = dis_gn.gn_scale_loop(*args, **kw)
+            ref = dis_gn.gn_scale_loop_plain(*args, **kw)
+            torch.cuda.synchronize()
+            n_patches = args[1].shape[1] * args[1].shape[2]
+            what = (f"K2 strip entry, {name}: {n_patches} patches, target "
+                    f"{tuple(args[0].shape[1:3])}, offset {kw['offset']}")
+            try:
+                err, text = check_gn(4, got, ref)
+            except AssertionError as e:
+                check(False, f"{what}: {e}")
+                continue
+            errs.append(err)
+            log(f"  {what}: {text}")
+            if largest is None or n_patches > largest[0]:
+                largest = (n_patches, args, kw, what)
+    _, args, kw, what = largest
+    row = kernel_row(
+        device_ms(lambda: dis_gn.gn_scale_loop(*args, **kw), 10),
+        cuda_ms(lambda: dis_gn.gn_scale_loop_plain(*args, **kw), 1, 1),
+        gn_bound_of(args, kw)[0], max_abs_err=max(errs))
+    log(f"  timed: {what}: {timing_text(row)}")
+    del calls, args, kw, largest
+
+    for name, (fn, pair, ref_key) in forms.items():
+        diag = name in n_sharded
+        graphs.clear()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        got, counts = counted(
+            f"spatial {name}, 3 calls (eager and recorded, then two replays)",
+            lambda: [fn(*pair) for _ in range(3)], ALL)
+        peak = torch.cuda.max_memory_allocated()
+        add(counts)
+        # a path's first call runs eagerly (and records); the two after it
+        # replay the graph
+        flows = [x[0] if diag else x for x in got]
+        ref_flow = flows[0]
+        check(all(torch.equal(f, ref_flow) for f in flows[1:]),
+              f"spatial {name}: captured differs from eager")
+        if diag:
+            viol = [int(x[1]) for x in got]
+            check(viol == [0] * 3, f"spatial {name}: violations {viol}")
+        # the eager call and two replays each launch the strip entry once
+        # per sharded scale and shard
+        check(counts["gn_offset"] == 3 * n_sharded.get(name, 0),
+              f"spatial {name}: K2 strip launches {counts['gn_offset']}")
+        log(f"spatial {name}: captured == eager bit for bit over 3 calls"
+            + (", violation count 0" if diag else "")
+            + f"; K2 strip launches {counts['gn_offset'] // 3} a call (the "
+            f"sharded scales x shards: {n_sharded.get(name, 0)}); allocator peak "
+            f"{(peak - before) / 2**20:.0f} MiB above the "
+            f"{before / 2**20:.0f} MiB held before the first call")
+        ref = unsharded[ref_key]
+        diff = (ref_flow - ref).abs()
+        text = (f"max |diff| {float(diff.max()):.3g} px, share of values "
+                f"beyond 1e-3 {float((diff > 1e-3).float().mean()):.3g}")
+        if name == "tiles":
+            q = torch.quantile(diff.flatten()[::7].float(),
+                               torch.tensor([0.5, 0.95], device=dev))
+            q50, q95 = (float(x) for x in q)
+            log(f"  vs flow_full_padded: q50 {q50:.3g}, q95 {q95:.3g}, "
+                f"{text} (bars {SPATIAL_TILE_Q50:g}, {SPATIAL_TILE_Q95:g}, "
+                f"max {SPATIAL_TILE_MAX:g})")
+            check(q50 < SPATIAL_TILE_Q50 and q95 < SPATIAL_TILE_Q95
+                  and float(diff.max()) < SPATIAL_TILE_MAX,
+                  f"spatial {name} vs flow_full_padded")
+        else:
+            tol = (SPATIAL_TOL_STRIPS if name == "strips"
+                   else SPATIAL_TOL_REPLICATED)
+            log(f"  vs {'batched_flow' if ref_key == 'batch' else 'flow_full_padded'}"
+                f": {text} (bar rtol {tol['rtol']:g}, atol {tol['atol']:g})")
+            check(torch.allclose(ref_flow, ref, **tol),
+                  f"spatial {name} vs the unsharded path")
+        if ref_key == "op4":
+            inner = ref_flow[top + 64:top + h - 64, 64:-64].reshape(-1, 2)
+            med = inner.median(dim=0).values.cpu().numpy()
+            log(f"  median flow {med.tolist()} vs motion "
+                f"{list(SPATIAL_OP4_MOTION)}")
+            check(np.abs(med - np.asarray(SPATIAL_OP4_MOTION)).max()
+                  <= SHIFT_TOL, f"spatial {name} median vs the motion")
+
+        # a path's first call: the eager run and the recording
+        graphs.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*pair)
+        torch.cuda.synchronize()
+        log(f"  {name}: a path's first call (the eager run and the "
+            f"recording) {(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+        # the one-card cost of the form, beside the unsharded path's
+        if ref_key == "batch":
+            base = lambda: port.batched_flow(I0b, I1b, cfg2)   # noqa: E731
+        else:
+            base = (lambda p=pair, c=(cfg4 if ref_key == "op4" else cfg2):
+                    port.flow_full_padded(*p, c))
+        base()
+        rows = {}
+        for form, f in (("captured", lambda: fn(*pair)),
+                        ("eager", lambda: _eager(fn, pair)),
+                        ("unsharded captured", base)):
+            wall, event, enqueue = chained_ms(
+                f, 2 if form == "eager" else SPATIAL_REPS)
+            rows[form] = event
+            text = (f"  {name} {form}: {wall:.3f} ms wall, {event:.3f} ms "
+                    f"between events, {enqueue:.3f} ms of host enqueue per "
+                    "call")
+            if form != "eager":     # eagerly, a host call per device event
+                names, dev_ms, host_n, graph_n = launch_profile(f, 2)
+                text += (f"; device {dev_ms:.3f} ms in "
+                         f"{sum(names.values())} events; host launch calls "
+                         f"{host_n:.0f}, of them graph launches {graph_n:.0f}")
+            log(text)
+        log(f"  {name}: captured / unsharded {rows['captured'] / rows['unsharded captured']:.3f}"
+            " (between events; one card holds every shard)")
+        graphs.clear()
+
+    # a starved halo: the count is above 0 and the recovering form returns
+    # the unsharded flow
+    fn = par.make_fine_spatial_flow_recovering(
+        strips, cfg4, H4, w, halo_slack=SPATIAL_STARVED_SLACK)
+    flow, viol = fn(*op4)
+    log(f"spatial strips, halo_slack {SPATIAL_STARVED_SLACK}: violation count "
+        f"{int(viol)}; the recovering form's flow == flow_full_padded's: "
+        f"{torch.equal(flow, unsharded['op4'])}")
+    check(int(viol) > 0, "a starved halo counts no violation")
+    check(torch.equal(flow, unsharded["op4"]), "recovered flow differs")
+    graphs.clear()
+    assert not failed, failed
+    return launches, row
+
+
+def strip_entry_calls(fn, pair):
+    """The inputs of every call to K2's strip entry in one eager run of
+    ``fn(*pair)``, cloned: [(args, kwargs)]."""
+    from flowonthego_tpu_torch.ops.cuda import dis_gn
+    calls = []
+    launch = dis_gn.gn_scale_loop
+
+    def recorder(*args, **kw):
+        if kw.get("offset") is not None:
+            calls.append((tuple(a.clone() if torch.is_tensor(a) else a
+                                for a in args), dict(kw)))
+        return launch(*args, **kw)
+
+    dis_gn.gn_scale_loop = recorder
+    try:
+        _eager(fn, pair)
+    finally:
+        dis_gn.gn_scale_loop = launch
+    return calls
+
+
+def _eager(fn, pair):
+    from flowonthego_tpu_torch.utils import graphs
+    with graphs.eager():
+        return fn(*pair)
+
+
+def native_frames():
+    """The native phase's frames: 5 seeded 1024x448 frames moving (8, 8)
+    px, as bytes."""
+    from flowonthego_tpu_torch.utils.synth import synthetic_frames
+    return [np.clip(f, 0, 255).astype(np.uint8) for f in
+            synthetic_frames(5, 5, 448, 1024, (8, 8))]
+
+
+def tools_phase(dev):
+    """The flow_stream script's twin over PPM frames on the card: its .flo
+    files equal stream_flow's flows."""
+    import tempfile
+
+    import flowonthego_tpu_torch as port
+    from flowonthego_tpu_torch.config import pad_to_divisible
+    from flowonthego_tpu_torch.tools import flow_stream
+    with tempfile.TemporaryDirectory() as d:
+        for k, f in enumerate(native_frames()):
+            port.save_image(os.path.join(d, f"frame_{k:03d}.ppm"), f)
+        out = os.path.join(d, "flo")
+        t0 = time.perf_counter()
+        assert flow_stream.main([d, "--flo", out, "--device", "cuda"]) == 0
+        ms = (time.perf_counter() - t0) * 1e3
+        loaded = [port.load_image(p) for p in flow_stream.frame_paths(d, 99)]
+        h, w = loaded[0].shape[:2]
+        cfg = port.operating_point(2, width=w)
+        pt, pb, pl, pr = pad_to_divisible(w, h, cfg.coarsest_scale)
+        want = list(port.stream_flow(
+            [np.pad(f, ((pt, pb), (pl, pr), (0, 0)), mode="edge")
+             for f in loaded], cfg))
+        for k, flow in enumerate(want):
+            got = port.read_flo(os.path.join(out, f"flow_{k + 1:04d}.flo"))
+            assert np.array_equal(got, flow[pt:pt + h, pl:pl + w]), k
+        log(f"flow_stream twin over {len(loaded)} PPM frames: {len(want)} "
+            f".flo files == stream_flow's flows bit for bit ({ms:.0f} ms for "
+            "the command)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -2056,6 +2416,10 @@ def main() -> int:
         launches[k] += n
     phase(native_phase)
     phase(device_list_phase)
+    spatial_launches, kernels["gn_offset"] = phase(spatial_phase)
+    for k, n in spatial_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    phase(tools_phase)
 
     src = "flowonthego_tpu_torch/csrc/"
     pallas = "flowonthego_tpu/ops/pallas/"
@@ -2077,6 +2441,8 @@ def main() -> int:
         meta[key + "_b4"] = (f"{name} (batch of {B})", source, replaces)
     meta["gn_bf16"] = ("gn_scale_loop (bf16 operands)", "dis_gn.cu",
                        "dis_gn.py:310")
+    meta["gn_offset"] = ("gn_scale_loop (strip offset)", "dis_gn.cu",
+                         "dis_gn.py:310")
     rows = []
     for key, (name, source, replaces) in meta.items():
         r = kernels[key]

@@ -54,6 +54,20 @@
 // Batch: B frames are one launch over B*P patches; patch k solves patch
 // k % P of frame k / P and reads that frame's padded level image.
 //
+// Strip offset (dis_gn_strip_kernel): the row-sharded and tile-sharded
+// forms (parallel/spatial_fine.py, spatial_tile2d.py) hand a shard's
+// patches a level image that is only the shard's strip or tile with its
+// halo, and a sample offset (off_x, off_y) that maps a global midpoint
+// into it.  Sampling reads at (mid_org + p) + offset, in that order of
+// additions; the window start, its wrap and its clamp apply to that
+// position, and the outlier norm and the midpoint box stay in global
+// coordinates.  In the JAX package this path reaches no Pallas kernel: a
+// sample_offset sends ops/dis.py's solve to XLA's general gather loop
+// (dis.py:458-465, 605-612; env_ok is false), whose function this is.
+// The offset is a second __global__ entry over the same body, so the
+// kernel of the unsharded path is the code it was, and a profile tells
+// the two apart by name.
+//
 // bf16 operands (the Pallas kernel's form, dis_gn.py:90-94): with
 // Load = __nv_bfloat16 the level image, template and gradients are read as
 // bf16 and upcast on load; every blend, reduction and carry stays float32.
@@ -94,6 +108,7 @@ struct GnArgs {
   float* cost_out;
   int n_patches, P, Hp, Wp, C, ps, padding, n_iters;
   float thresh, l_bound, ub_w, ub_h, mean_on;
+  float off_x, off_y;  // the strip offset (dis_gn_strip_kernel only)
 };
 
 // Every lane receives the same bits: partners add the same two values.
@@ -111,9 +126,9 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 // One warp, one patch: CTA p solves patch p of the batch.  PS > 0: ps = PS
 // and C = CH at compile time, the per-value state in registers; PS == 0:
 // the generic form, ps and C from the arguments, the state in dynamic
-// shared memory.
-template <typename Load, int PS, int CH>
-__global__ void __launch_bounds__(32, 16) dis_gn_kernel(const GnArgs a) {
+// shared memory.  STRIP: sample at (mid + p) + (off_x, off_y).
+template <typename Load, int PS, int CH, bool STRIP>
+__device__ __forceinline__ void gn_body(const GnArgs& a) {
   constexpr bool kFixed = PS > 0;
   constexpr int kV = kFixed ? (PS * PS * CH + 31) / 32 : 1;
   extern __shared__ float slab[];
@@ -207,7 +222,11 @@ __global__ void __launch_bounds__(32, 16) dis_gn_kernel(const GnArgs a) {
   const Load* win;
   float w_tl, w_tr, w_bl, w_br;
   auto window = [&](float px, float py) {
-    const float mx = mx0 + px, my = my0 + py;
+    float mx = mx0 + px, my = my0 + py;
+    if constexpr (STRIP) {
+      mx = mx + a.off_x;
+      my = my + a.off_y;
+    }
     const float fx = floorf(mx), fy = floorf(my);
     const float rx = mx - fx, ry = my - fy;
     int sy = (int)fy + off, sx = (int)fx + off;
@@ -287,37 +306,52 @@ __global__ void __launch_bounds__(32, 16) dis_gn_kernel(const GnArgs a) {
 }
 
 template <typename Load, int PS, int CH>
-int launch(const GnArgs& a, cudaStream_t stream) {
+__global__ void __launch_bounds__(32, 16) dis_gn_kernel(const GnArgs a) {
+  gn_body<Load, PS, CH, false>(a);
+}
+
+template <typename Load, int PS, int CH>
+__global__ void __launch_bounds__(32, 16) dis_gn_strip_kernel(const GnArgs a) {
+  gn_body<Load, PS, CH, true>(a);
+}
+
+template <typename Load, int PS, int CH>
+int launch(const GnArgs& a, bool offset, cudaStream_t stream) {
   size_t shared = 0;
   if (PS == 0) {  // the generic form's slab: [4][values per lane * 32]
     shared = (size_t)4 * ((a.ps * a.ps * a.C + 31) / 32) * 32 * sizeof(float);
     if (shared > (size_t)kMaxSharedBytes)
       return (int)cudaErrorInvalidConfiguration;
   }
-  dis_gn_kernel<Load, PS, CH><<<a.n_patches, 32, shared, stream>>>(a);
+  if (offset)
+    dis_gn_strip_kernel<Load, PS, CH><<<a.n_patches, 32, shared, stream>>>(a);
+  else
+    dis_gn_kernel<Load, PS, CH><<<a.n_patches, 32, shared, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename Load>
-int dispatch(const GnArgs& a, cudaStream_t stream) {
-  if (a.ps == 8 && a.C == 1) return launch<Load, 8, 1>(a, stream);
-  if (a.ps == 8 && a.C == 3) return launch<Load, 8, 3>(a, stream);
-  if (a.ps == 12 && a.C == 1) return launch<Load, 12, 1>(a, stream);
-  if (a.ps == 12 && a.C == 3) return launch<Load, 12, 3>(a, stream);
-  return launch<Load, 0, 0>(a, stream);
+int dispatch(const GnArgs& a, bool offset, cudaStream_t stream) {
+  if (a.ps == 8 && a.C == 1) return launch<Load, 8, 1>(a, offset, stream);
+  if (a.ps == 8 && a.C == 3) return launch<Load, 8, 3>(a, offset, stream);
+  if (a.ps == 12 && a.C == 1) return launch<Load, 12, 1>(a, offset, stream);
+  if (a.ps == 12 && a.C == 3) return launch<Load, 12, 3>(a, offset, stream);
+  return launch<Load, 0, 0>(a, offset, stream);
 }
 
 }  // namespace
 
 // bf16 != 0: I1, tmpl, tgx, tgy are __nv_bfloat16 and sums ([B*P, 4]
 // float32) is required; else they are float32 and sums is ignored.
+// offset != 0: the strip kernel, sampling at (mid + p) + (off_x, off_y).
 extern "C" int fot_dis_gn(const void* I1, int bf16, int B, int Hp, int Wp,
                           int C, const void* tmpl, const void* tgx,
                           const void* tgy, const void* sums, const void* H,
                           const void* mid, const void* pcur, const void* porg,
                           const void* started, int P, int ps, int padding,
                           int n_iters, float thresh, float l_bound,
-                          float ub_w, float ub_h, float mean_on, void* p_out,
+                          float ub_w, float ub_h, float mean_on, int offset,
+                          float off_x, float off_y, void* p_out,
                           void* cost_out, void* stream) {
   const long long n_patches = (long long)B * P;
   if (n_patches == 0) return 0;
@@ -350,6 +384,8 @@ extern "C" int fot_dis_gn(const void* I1, int bf16, int B, int Hp, int Wp,
   a.ub_w = ub_w;
   a.ub_h = ub_h;
   a.mean_on = mean_on;
-  return bf16 ? dispatch<__nv_bfloat16>(a, (cudaStream_t)stream)
-              : dispatch<float>(a, (cudaStream_t)stream);
+  a.off_x = off_x;
+  a.off_y = off_y;
+  return bf16 ? dispatch<__nv_bfloat16>(a, offset != 0, (cudaStream_t)stream)
+              : dispatch<float>(a, offset != 0, (cudaStream_t)stream);
 }

@@ -37,6 +37,15 @@ float32 state, as the JAX package computes them outside its kernel
 ``flowonthego_tpu/ops/dis.py:429-466, 559-622``, with the Pallas form's
 bf16 rounding of its operands in bf16 mode) for CPU tensors.
 
+Strip offset (``offset=(off_x, off_y)``): the spatial forms solve a
+shard's patches against the shard's strip (or tile) of the level image
+with its halo; sampling reads at ``(mid_org + p) + offset`` and the
+outlier and box tests stay global.  The JAX package runs that solve in
+XLA's general gather loop (``ops/dis.py`` with ``sample_offset``), not in
+its Pallas kernel; here it is K2's second entry,
+``dis_gn_strip_kernel``, over the same body, so the unsharded path's
+kernel is unchanged.
+
 Edge rules (as the TPU kernel): a patch that was never started (frozen at
 warm start) keeps p_cur and has cost 0; a patch that trips the outlier or
 bounds reset goes back to p_org, stops, and its final cost is sampled
@@ -51,9 +60,11 @@ from . import _build
 from ..interp import blend_windows, gather_windows, sample_patches_bilinear
 
 # Kernel launches since the last reset (read and reset by chip_smoke.py);
-# launches_bf16 counts those of them that ran the bf16 operand kernel.
+# launches_bf16 counts those of them that ran the bf16 operand kernel,
+# launches_offset those that ran the strip-offset entry.
 launches = 0
 launches_bf16 = 0
+launches_offset = 0
 
 _PATCH = (-3, -2, -1)
 
@@ -74,7 +85,7 @@ def gn_scale_loop_plain(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org,
                         p_cur, p_org, started, *, n_iters: int, padding: int,
                         thresh: float, l_bound: float, ub_w: float,
                         ub_h: float, mean_on: float, bf16: bool = False,
-                        count_iters: bool = False):
+                        offset=None, count_iters: bool = False):
     """Plain PyTorch version of the scale solve.
 
     I1_pad [B, Hp, Wp, C]; templates, tgrad_x, tgrad_y [B, n_h, n_w, ps,
@@ -87,7 +98,9 @@ def gn_scale_loop_plain(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org,
     constant terms are not).  Returns (p [B, n_h, n_w, 2], cost_px like
     templates), and with ``count_iters`` a third value: the iterations
     each patch ran [B, n_h, n_w] (0 if never started, k if it reset at
-    iteration k), the work a bound on these inputs counts.
+    iteration k), the work a bound on these inputs counts.  ``offset``
+    (off_x, off_y): sample at ``(mid_org + p) + offset`` (module
+    docstring).
     """
     ps = templates.shape[-3]
     N = templates[0, 0, 0].numel()
@@ -102,10 +115,15 @@ def gn_scale_loop_plain(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org,
     gxf = tgrad_x.reshape(*lead, N)
     gyf = tgrad_y.reshape(*lead, N)
 
-    def gn_step(p, active):
+    def sample_at(p):
+        """Where the samples of displacement p are read (x, y)."""
         mid = mid_org + p
-        win, rx, ry = gather_windows(I1_pad, mid[..., 0], mid[..., 1], ps,
-                                     padding)
+        if offset is None:
+            return mid[..., 0], mid[..., 1]
+        return mid[..., 0] + offset[0], mid[..., 1] + offset[1]
+
+    def gn_step(p, active):
+        win, rx, ry = gather_windows(I1_pad, *sample_at(p), ps, padding)
         S = blend_windows(win, rx, ry).reshape(*lead, N)
         m = S.sum(-1) / N * mean_on
         dpx = (S * gxf).sum(-1) - m * gx_sum - gxT
@@ -131,9 +149,7 @@ def gn_scale_loop_plain(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org,
             iters += active
         p, active = gn_step(p, active)
 
-    mid = mid_org + p
-    raw = sample_patches_bilinear(I1_pad, mid[..., 0], mid[..., 1], ps,
-                                  padding)
+    raw = sample_patches_bilinear(I1_pad, *sample_at(p), ps, padding)
     if mean_on:
         raw = raw - raw.mean(dim=_PATCH, keepdim=True)
     diff = raw - templates
@@ -152,14 +168,15 @@ def _check(name, x, shape, dtype=torch.float32):
 def gn_scale_loop(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org, p_cur,
                   p_org, started, *, n_iters: int, padding: int,
                   thresh: float, l_bound: float, ub_w: float, ub_h: float,
-                  mean_on: float, bf16: bool = False):
+                  mean_on: float, bf16: bool = False, offset=None):
     """The scale solve of :func:`gn_scale_loop_plain` — launches the
-    kernel (the bf16 one with ``bf16``) once for the whole batch for CUDA
-    tensors, runs the plain version for CPU tensors."""
-    global launches, launches_bf16
+    kernel (the bf16 one with ``bf16``, the strip entry with ``offset``)
+    once for the whole batch for CUDA tensors, runs the plain version for
+    CPU tensors."""
+    global launches, launches_bf16, launches_offset
     kw = dict(n_iters=n_iters, padding=padding, thresh=thresh,
               l_bound=l_bound, ub_w=ub_w, ub_h=ub_h, mean_on=mean_on,
-              bf16=bf16)
+              bf16=bf16, offset=offset)
     if not I1_pad.is_cuda:
         return gn_scale_loop_plain(I1_pad, templates, tgrad_x, tgrad_y, H,
                                    mid_org, p_cur, p_org, started, **kw)
@@ -208,9 +225,11 @@ def gn_scale_loop(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org, p_cur,
             gxc.data_ptr(), gyc.data_ptr(), sums_ptr, Hc.data_ptr(),
             midc.data_ptr(), pcc.data_ptr(), poc.data_ptr(), st.data_ptr(),
             P, ps, padding, n_iters, float(thresh), float(l_bound),
-            float(ub_w), float(ub_h), float(mean_on), p_out.data_ptr(),
-            cost.data_ptr(), _build.stream_handle(I1c))
+            float(ub_w), float(ub_h), float(mean_on), int(offset is not None),
+            *(0.0, 0.0) if offset is None else map(float, offset),
+            p_out.data_ptr(), cost.data_ptr(), _build.stream_handle(I1c))
     _build.check(err, "gn_scale_loop")
     launches += 1
     launches_bf16 += int(bf16)
+    launches_offset += int(offset is not None)
     return p_out, cost

@@ -95,13 +95,21 @@ def _fb_merge_scatter(state: PatchState, grid: PatchGrid, cfg: DISConfig,
                                     0.0).reshape(B, -1, 3) for wb in wbil],
                        dim=1).reshape(-1, 3)
     acc = torch.zeros((B * n + 1, 3), dtype=absw.dtype, device=absw.device)
+    return scatter_add(acc, idx, vals)[:B * n].reshape(B, out_h, out_w, 3)
+
+
+def scatter_add(acc: torch.Tensor, idx: torch.Tensor,
+                vals: torch.Tensor) -> torch.Tensor:
+    """``acc[idx[k]] += vals[k]`` in place, deterministically (see
+    :func:`_fb_merge_scatter`): a sorted ``index_put_(accumulate=True)``
+    on the card, ``index_add_`` (serial, in index order) on the CPU."""
     if acc.is_cuda:
         acc.index_put_((idx,), vals, accumulate=True)
     else:
         # index_put_ adds in parallel on the CPU when torch has several
         # threads; index_add_ adds serially, in index order
         acc.index_add_(0, idx, vals)
-    return acc[:B * n].reshape(B, out_h, out_w, 3)
+    return acc
 
 
 def overlap_add_canvas(contrib: torch.Tensor, ps: int, st: int) -> torch.Tensor:

@@ -115,15 +115,22 @@ def init_from_coarser(state: PatchState, coarse_flow: torch.Tensor,
 
 
 def _sample_residual(state: PatchState, I1_pad: torch.Tensor,
-                     grid: PatchGrid, cfg: DISConfig):
+                     grid: PatchGrid, cfg: DISConfig, sample_offset=None):
     """Resample the target patch at ``mid_org + p_cur``, mean-normalize,
     subtract the template and apply the cost's residual transform.
+
+    ``sample_offset`` (off_x, off_y), Python floats: the midpoints are
+    global and ``I1_pad`` is a shard's strip or tile; samples are read at
+    ``(mid_org + p_cur) + sample_offset``.
 
     Returns (diff, cost_px, cost): the transformed residual and its
     per-pixel cost, each like ``templates``, and the per-patch sum."""
     mid = state.mid_org + state.p_cur
-    raw = sample_patches_bilinear(I1_pad, mid[..., 0], mid[..., 1],
-                                  grid.patch_size, grid.padding)
+    mx, my = mid[..., 0], mid[..., 1]
+    if sample_offset is not None:
+        mx, my = mx + sample_offset[0], my + sample_offset[1]
+    raw = sample_patches_bilinear(I1_pad, mx, my, grid.patch_size,
+                                  grid.padding)
     if cfg.use_mean_normalization:
         raw = raw - raw.mean(dim=_PATCH, keepdim=True)
     diff = raw - state.templates
@@ -149,7 +156,8 @@ def _where(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
 
 
 def optimize_reference(state: PatchState, I1_pad: torch.Tensor,
-                       grid: PatchGrid, cfg: DISConfig) -> PatchState:
+                       grid: PatchGrid, cfg: DISConfig,
+                       sample_offset=None) -> PatchState:
     """The reference-form solve: the residual tensor is materialized every
     iteration, so any cost transform and the 4-clause convergence test
     apply.  The JAX package runs this form in XLA for l1/huber costs,
@@ -160,7 +168,8 @@ def optimize_reference(state: PatchState, I1_pad: torch.Tensor,
     ``grad_descent_iter`` trips of project -> outlier reset -> resample ->
     convergence test, every patch masked once converged.  Below
     ``min_iter`` (None: ``grad_descent_iter``) the dp/dr clauses cannot
-    stop a patch.  Every patch ends converged.
+    stop a patch.  Every patch ends converged.  ``sample_offset``: see
+    :func:`_sample_residual` (the tests stay global).
     """
     # values per patch, channel-generic (gray/gradmag inputs have C = 1)
     n_vals = float(np.prod(state.templates.shape[-3:]))
@@ -168,7 +177,8 @@ def optimize_reference(state: PatchState, I1_pad: torch.Tensor,
     min_iter = max_iter if cfg.min_iter is None else cfg.min_iter
 
     active0 = ~state.converged
-    diff, cost_px, cost = _sample_residual(state, I1_pad, grid, cfg)
+    diff, cost_px, cost = _sample_residual(state, I1_pad, grid, cfg,
+                                           sample_offset)
     mares = cost / n_vals
     state = state._replace(
         diff=_where(active0, diff, state.diff),
@@ -203,7 +213,8 @@ def optimize_reference(state: PatchState, I1_pad: torch.Tensor,
         p_new = _where(outlier, st.p_org, p_new)
         st = st._replace(p_cur=_where(active, p_new, st.p_cur))
 
-        diff, cost_px, cost = _sample_residual(st, I1_pad, grid, cfg)
+        diff, cost_px, cost = _sample_residual(st, I1_pad, grid, cfg,
+                                               sample_offset)
         mares = cost / n_vals
 
         # |delta_p|^2 of the solved step, before the reset; the first
@@ -229,7 +240,7 @@ def optimize_reference(state: PatchState, I1_pad: torch.Tensor,
 
 
 def optimize(state: PatchState, I1_pad: torch.Tensor, grid: PatchGrid,
-             cfg: DISConfig) -> PatchState:
+             cfg: DISConfig, sample_offset=None) -> PatchState:
     """Inverse search on one scale.
 
     As in the JAX package, ``res_thresh > 0``, a cost other than l2 and
@@ -239,11 +250,16 @@ def optimize(state: PatchState, I1_pad: torch.Tensor, grid: PatchGrid,
     with ``cfg.dtype="bfloat16"``, in the Pallas kernel's bf16 operand
     mode (module docstring).  ``state`` holds B frames and ``I1_pad`` is
     [B, Hp, Wp, C]: one solve for the whole batch.
+
+    ``sample_offset`` (off_x, off_y), Python floats: ``I1_pad`` is a
+    shard's strip or tile of the level and the samples are read at
+    ``(mid_org + p) + sample_offset``, the tests stay global (the spatial
+    forms, ``parallel/spatial_fine.py``); K2 takes it in its strip entry.
     """
     if (cfg.res_thresh > 0.0 or cfg.cost_fn != "l2"
             or (cfg.min_iter is not None
                 and cfg.min_iter < cfg.grad_descent_iter)):
-        return optimize_reference(state, I1_pad, grid, cfg)
+        return optimize_reference(state, I1_pad, grid, cfg, sample_offset)
     if cfg.dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown dtype {cfg.dtype!r} "
                          "(expected 'float32' or 'bfloat16')")
@@ -252,7 +268,7 @@ def optimize(state: PatchState, I1_pad: torch.Tensor, grid: PatchGrid,
               thresh=cfg.outlier_thresh, l_bound=grid.l_bound,
               ub_w=grid.u_bound_w, ub_h=grid.u_bound_h,
               mean_on=1.0 if cfg.use_mean_normalization else 0.0,
-              bf16=cfg.dtype == "bfloat16")
+              bf16=cfg.dtype == "bfloat16", offset=sample_offset)
     args = (I1_pad, state.templates, state.tgrad_x, state.tgrad_y, state.H,
             state.mid_org, state.p_cur, state.p_org, started)
     if use_kernel(cfg.gn_backend, I1_pad):

@@ -5,6 +5,9 @@
   ``jax.image.resize(method='linear', antialias=False)`` on upscales.
 * :func:`resize_full` — the same resize as a gather of the four taps
   (the form ``resize_matmul`` is held against).
+* :func:`resize_rows_strip` — rows [row_start, row_start + out_rows) of
+  the gather form, by scale factors (a spatial shard upsamples its own
+  rows of the flow, ``parallel/spatial.py``).
 * :func:`resize_linear_antialias` — the warm-start downsample of
   ``stream_flow``.  ``jax.image.resize(..., method="linear")`` antialiases
   on downsampling (a triangle filter widened by the scale factor);
@@ -43,11 +46,14 @@ def interp_matrix_on(out_len: int, in_len: int, device) -> torch.Tensor:
                            lambda: _interp_matrix(out_len, in_len))
 
 
-def _src_index(out_len: int, in_len: int, device):
-    """(i0, i1, frac) of the half-pixel, clamped bilinear resize along one
-    axis, computed on ``device`` in float32 as the JAX package does."""
-    j = torch.arange(out_len, dtype=torch.float32, device=device)
-    src = ((j + 0.5) / (out_len / in_len) - 0.5).clamp(0.0, in_len - 1.0)
+def _src_index(out_start: int, out_len: int, scale: float, in_len: int,
+               device):
+    """(i0, i1, frac) for output samples [out_start, out_start + out_len)
+    of the half-pixel, clamped bilinear resize by ``scale`` along one axis:
+    src = (dst + 0.5) / scale - 0.5, in float32 on ``device`` as the JAX
+    package computes it (no host-built tensor)."""
+    j = torch.arange(out_len, dtype=torch.float32, device=device) + out_start
+    src = ((j + 0.5) / scale - 0.5).clamp(0.0, float(in_len - 1))
     f = torch.floor(src)
     i0 = f.to(torch.int64)
     return i0, (i0 + 1).clamp(max=in_len - 1), src - f
@@ -58,17 +64,28 @@ def resize_full(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     dims), half-pixel centres, clamped taps, as a gather of the four taps;
     no antialiasing."""
     h, w = img.shape[-3], img.shape[-2]
-    y0, y1, fy = _src_index(out_h, h, img.device)
-    x0, x1, fx = _src_index(out_w, w, img.device)
-    fy = fy[:, None, None]
+    return resize_rows_strip(img, out_h / h, out_w / w, 0, out_h, out_w)
+
+
+def resize_rows_strip(img: torch.Tensor, scale_h: float, scale_w: float,
+                      row_start: int, out_rows: int,
+                      out_w: int) -> torch.Tensor:
+    """Rows [row_start, row_start + out_rows) of the bilinear resize of
+    [..., h, w, C] by (scale_h, scale_w), the four taps gathered and
+    blended in the JAX package's order; ``row_start`` is a Python int (a
+    shard's first row)."""
+    h, w = img.shape[-3], img.shape[-2]
+    y0, y1, fy = _src_index(row_start, out_rows, scale_h, h, img.device)
+    x0, x1, fx = _src_index(0, out_w, scale_w, w, img.device)
     fx = fx[None, :, None]
+    fy = fy[:, None, None]
     rows0 = img.index_select(-3, y0)
     rows1 = img.index_select(-3, y1)
-    top = (rows0.index_select(-2, x0) * (1.0 - fx)
+    top = (rows0.index_select(-2, x0) * (1 - fx)
            + rows0.index_select(-2, x1) * fx)
-    bot = (rows1.index_select(-2, x0) * (1.0 - fx)
+    bot = (rows1.index_select(-2, x0) * (1 - fx)
            + rows1.index_select(-2, x1) * fx)
-    return top * (1.0 - fy) + bot * fy
+    return top * (1 - fy) + bot * fy
 
 
 def resize_matmul(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

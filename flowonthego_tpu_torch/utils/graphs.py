@@ -75,6 +75,13 @@ ENTRIES = {
     "dis_flow_padded": None,           # batched_flow(full_res=False)
     "compute_disparity": None,         # compute_disparity
     "stream_step": None,               # stream_flow, MultiStream.push
+    "spatial_flow": None,              # the spatial forms (make_spatial_flow,
+                                       # make_batch_spatial_flow,
+                                       # make_fine_spatial_flow,
+                                       # make_tile2d_flow) on a mesh whose
+                                       # positions are all one device
+    "spatial_flow_devices": "the spatial forms on a mesh over several "
+                            "cards: a CUDA graph records one device's work",
     "stream_start": "runs once a stream: it writes the first frame's "
                     "pyramid into the step's tensors",
     "compute_flow_timed": "synchronises after every phase to time it",

@@ -747,3 +747,78 @@ def test_device_list_forms_on_one_card(cuda):
         assert torch.equal(a.push(frames), b.push(frames))
     assert set(port.device_memory_stats()["cuda:0"]) == {
         "bytes_in_use", "peak_bytes_in_use", "bytes_limit"}
+
+
+# ---------------------------------------------------------- spatial forms
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("ps,channels", [(8, 3), (12, 3), (8, 1), (10, 3)])
+def test_gn_kernel_strip_offset(cuda, ps, channels, bf16):
+    """K2's strip entry on a cut of the target: against its plain version
+    on the same cut (tolerances of test_gn_kernel), counted apart; where
+    the cut holds every window the patches read, the same as the kernel
+    without an offset on the whole target."""
+    cfg, grid, state, I1p = _level_state(cuda, 56, 128, True, channels,
+                                         patch_size=ps)
+    kw = dict(n_iters=cfg.grad_descent_iter, padding=grid.padding,
+              thresh=cfg.outlier_thresh, l_bound=grid.l_bound,
+              ub_w=grid.u_bound_w, ub_h=grid.u_bound_h, mean_on=1.0,
+              bf16=bf16)
+    block = (slice(None), slice(4, 9), slice(4, 24))   # patch rows, columns
+    args = [x[block].contiguous() for x in (
+        state.templates, state.tgrad_x, state.tgrad_y, state.H,
+        state.mid_org, state.p_cur, state.p_org, ~state.converged)]
+    r0, c0 = 2, 2
+    cut = I1p[:, r0:, c0:].contiguous()
+    n0, o0 = dis_gn.launches, dis_gn.launches_offset
+    got = dis_gn.gn_scale_loop(cut, *args, **kw, offset=(-c0, -r0))
+    assert (dis_gn.launches, dis_gn.launches_offset) == (n0 + 1, o0 + 1)
+    ref = dis_gn.gn_scale_loop_plain(cut, *args, **kw, offset=(-c0, -r0))
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-3, atol=1e-3)
+    whole = dis_gn.gn_scale_loop(I1p, *args, **kw)
+    assert dis_gn.launches_offset == o0 + 1
+    assert torch.equal(whole[0], got[0]) and torch.equal(whole[1], got[1])
+
+
+def test_captured_spatial_forms_equal_eager(cuda):
+    """The strip, tile and replicate-coarse forms on a one-card mesh (the
+    JAX package's test geometries): the captured call equals the eager
+    call bit for bit, K2's strip entry ran where a scale is sharded, and
+    the strips agree with the unsharded flow at the JAX package's bar."""
+    cfg = port.DISConfig(patch_size=8, patch_stride=0.4, coarsest_scale=2,
+                         finest_scale=1, grad_descent_iter=8,
+                         use_var_ref=True)
+    par = port.parallel
+    strips = par.make_mesh(n_space=4, devices=[cuda] * 4)
+    tiles = par.make_tile_mesh(2, 2, devices=[cuda] * 4)
+    assert par.sharded_scale_levels(cfg, 512, 4)
+    assert par.tiled2d_scale_levels(cfg, 160, 160, 2, 2)
+    forms = {"strips": (par.make_fine_spatial_flow(strips, cfg, 512, 64),
+                        (512, 64)),
+             "tiles": (par.make_tile2d_flow(tiles, cfg, 160, 160),
+                       (160, 160)),
+             "replicate": (par.make_spatial_flow(strips, cfg, 512, 64),
+                           (512, 64))}
+    for name, (fn, (H, W)) in forms.items():
+        frames = synthetic_frames(5, 2, H, W, (2, 1), factor=4)
+        I0, I1 = (torch.as_tensor(f, device=cuda) for f in frames)
+        graphs.clear()
+        o0 = dis_gn.launches_offset
+        with graphs.eager():
+            ref = fn(I0, I1)
+        assert (dis_gn.launches_offset > o0) == (name != "replicate"), name
+        got = [fn(I0, I1) for _ in range(3)]
+        assert [e for e, _ in graphs.cached_paths()] == ["spatial_flow"]
+        for out in got:
+            out, want = ((out, ref) if name == "replicate"
+                         else (out[0], ref[0]))
+            assert torch.equal(out, want), name
+            assert out.device.type == "cuda"
+        if name != "replicate":
+            assert all(int(v) == 0 for _, v in got), name
+        if name == "strips":
+            torch.testing.assert_close(
+                got[0][0], port.flow_full_padded(I0, I1, cfg), rtol=1e-3,
+                atol=1e-3)
+    graphs.clear()
