@@ -7,7 +7,8 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels (K1-K5) from ``flowonthego_tpu_torch/csrc``;
+  2. build the CUDA kernels (K1-K5, and G1-G4, the per-scale glue) from
+     ``flowonthego_tpu_torch/csrc``;
   3. the time of a kernel that does nothing (the floor under every
      launch); each kernel against its plain PyTorch version on the card,
      at the shapes the op-2, op-3 and op-4 paths give it, with CUDA-event
@@ -23,7 +24,18 @@ Phases (any failure raises and the script exits non-zero):
      the cluster entry with one CTA; a K3 or cluster launch that cannot
      fit must raise; K5 on a random flow and on a smooth one (two motions
      and a sub-pixel part, as the pipeline gives it), on a strided crop,
-     far outside the image and in its generic form;
+     far outside the image and in its generic form; then the glue
+     kernels (``glue_phase``): G1 (a pyramid level's borders and
+     gradients, also into a stream's fixed tensors), G2 (template
+     extraction and Hessians, mean normalisation on and off), G3 (densify,
+     squared and abs weights, with an fb merge's accumulator) and G4 (the
+     var-ref derivatives of a strided crop) against their plain versions
+     at op 4's scale 0, op 2's scales 3 and 5 and op 1's scale 3 of
+     1024x448, the 4K stream's finest scale and a 4x8 cut, C = 3 and 1,
+     one frame and four in one launch, timed at op 4's scale 0 with their
+     bounds: G1, G3 and G4 bit for bit, G2's windows bit for bit, its
+     templates within 1e-4 and its Hessians within 1e-5 of the largest
+     entry, its det == 0 bumps (flat and striped patches) exactly;
   4. the main paths at real size, each from scratch (no cached graph)
      with the wrappers' launch counters reset just before it and read
      just after, under ``torch.profiler``, whose device events say how
@@ -193,8 +205,12 @@ SPLIT_SHIFTS = ((2, 2), (16, 8))
 # kernels that must launch, kernels that must not).  The robust costs and
 # min_iter take the reference-form solve (no K2), as in the JAX package;
 # depth runs the pyramid (K1) and a 1-D solve with no refinement.
-ALL = ("pool", "gn", "varref", "varref_cluster", "varref_tiled", "warp")
+ALL = ("pool", "gn", "varref", "varref_cluster", "varref_tiled", "warp",
+       "level", "extract", "densify", "derivs")
 NO_GN = ALL[:1] + ALL[2:]
+# the var-ref's kernels: K3, K4's two routes, K5 and G4
+VARREF = ("varref", "varref_cluster", "varref_tiled", "warp", "derivs")
+NO_VARREF = tuple(k for k in ALL if k not in VARREF)
 CLI_RUNS = (
     ("fb", ["2", "--fb"], ALL, ()),
     ("cost huber", ["2", "--cost", "huber"], NO_GN, ("gn",)),
@@ -203,7 +219,8 @@ CLI_RUNS = (
     ("densify-weight abs", ["2", "--densify-weight", "abs"], ALL, ()),
     ("channels gray", ["2", "--channels", "gray"], ALL, ()),
     ("channels gradmag", ["2", "--channels", "gradmag"], ALL, ()),
-    ("mode depth", ["2", "--mode", "depth"], ("pool",), NO_GN[1:] + ("gn",)),
+    ("mode depth", ["2", "--mode", "depth"], ("pool", "level", "extract",
+                                              "densify"), VARREF + ("gn",)),
     ("13-param verbosity 2 fb",
      "5 3 12 8 0.4 1 1 10 10 5 3 1.6 2 --fb".split(), ALL, ()),
 )
@@ -388,10 +405,13 @@ def plain(cfg):
 
 
 def kernel_modules():
-    from flowonthego_tpu_torch.ops.cuda import (dis_gn, pool, varref_fused,
-                                                varref_tiled, warp)
+    from flowonthego_tpu_torch.ops.cuda import (densify, derivs, dis_gn,
+                                                extract, level, pool,
+                                                varref_fused, varref_tiled,
+                                                warp)
     return {"pool": pool, "gn": dis_gn, "varref": varref_fused,
-            "varref_tiled": varref_tiled, "warp": warp}
+            "varref_tiled": varref_tiled, "warp": warp, "level": level,
+            "extract": extract, "densify": densify, "derivs": derivs}
 
 
 # The kernels' names on the device, as a profile shows them (K2's bf16
@@ -399,7 +419,10 @@ def kernel_modules():
 KERNEL_NAMES = {"pool": "pool2x2_kernel", "gn": "dis_gn_kernel",
                 "varref": "varref_kernel",
                 "varref_cluster": "varref_cluster_kernel",
-                "varref_tiled": "varref_tiled_kernel", "warp": "warp_kernel"}
+                "varref_tiled": "varref_tiled_kernel", "warp": "warp_kernel",
+                "level": "glue_level_kernel", "extract": "glue_extract_kernel",
+                "densify": "glue_densify_kernel",
+                "derivs": "glue_derivs_kernel"}
 KERNEL_RE = {k: re.compile(rf"(?<![A-Za-z0-9_]){name}(?![A-Za-z0-9_])")
              for k, name in KERNEL_NAMES.items()}
 # K2's strip-offset entry (the spatial forms' sharded scales), counted
@@ -1005,6 +1028,194 @@ def kernel_phase(dev):
     return results
 
 
+# ------------------------------------------------------------------ glue
+
+# The glue kernels' levels (name, operating point, h, w): op 4's scale 0
+# of 1024x448 (timed), op 2's finest and coarsest scales of 1024x448, op
+# 1's finest scale of 1024x448 (ps 8, steps 5: the only geometry where
+# ps % steps != 0, G2's strided windows and a pixel under patches of
+# three steps in G3), the 4K op-2 stream's finest scale (5 of 3840x2176),
+# and a 4x8 cut (a field of at most 4 pixels in one direction: a second
+# derivative replicates the first derivative's edge, and the pyramid's
+# and densify's borders meet)
+GLUE_LEVELS = (("op 4 scale 0", 4, 448, 1024), ("op 2 scale 3", 2, 56, 128),
+               ("op 2 scale 5", 2, 14, 32), ("op 1 scale 3", 1, 56, 128),
+               ("4K op 2 scale 5", 2, 68, 120), ("a 4x8 cut", 2, 4, 8))
+# G2 against its plain version: the windows are copies (exact); the
+# templates subtract a mean of up to 432 values near 128 summed in another
+# order (an ulp of the sum is ~4e-3, 1e-5 of the mean); the Hessians are
+# such sums, held within 1e-5 of the largest entry (h01 cancels, so a
+# relative bound per entry is too strict), as in the CPU tests against JAX
+GLUE_TEMPLATE_ATOL = 1e-4
+GLUE_H_RTOL = 1e-5
+
+
+def glue_inputs(dev, op, h, w, C, n, seed):
+    """(cfg, level [n, h, w, C]) on the card: seeded smooth textures, each
+    with a flat block (flat patches, det == 0) and a block of vertical
+    stripes (gy == 0 < |gx|: det == 0 where H00 > 0)."""
+    from flowonthego_tpu_torch import operating_point
+    from flowonthego_tpu_torch.utils.synth import plant_stripes, smooth_texture
+    frames = np.stack([smooth_texture(seed + b, h, w, C, factor=4)
+                       for b in range(n)])
+    frames[:, :max(1, h // 3), :max(1, w // 4)] = 128.0
+    plant_stripes(frames)
+    return operating_point(op), torch.as_tensor(frames, device=dev)
+
+
+def glue_phase(dev):
+    """G1-G4 against their plain versions on the card at the paths' level
+    shapes, C = 3 and 1, one frame and B frames in one launch: G1, G3 and
+    G4 bit for bit, G2's windows bit for bit and its templates and
+    Hessians within their bars; each timed at op 4's scale 0 of 1024x448
+    with its bound.  Returns the rows' numbers (B = 1 and B = 4)."""
+    from flowonthego_tpu_torch.ops import densify as densify_mod
+    from flowonthego_tpu_torch.ops import patches, pyramid
+    from flowonthego_tpu_torch.ops.cuda import (bounds, densify, derivs,
+                                                extract, level)
+    from flowonthego_tpu_torch.ops.dis import PatchState
+    from flowonthego_tpu_torch.ops.patches import PatchGrid
+    g = torch.Generator().manual_seed(30)
+    results = {}
+    errs = collections.defaultdict(list)
+
+    def equal(got, ref, what):
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
+            f"{what} differs from its plain version"
+        return max(max_err(a, b) for a, b in zip(got, ref))
+
+    def rows(key, timed, fn, plain_fn, bound, reps, plain_reps):
+        if timed:
+            results[key] = kernel_row(device_ms(fn, reps),
+                                      cuda_ms(plain_fn, plain_reps), bound)
+            return ", " + timing_text(results[key])
+        return ""
+
+    for what, op, h, w in GLUE_LEVELS:
+        timed = what == GLUE_LEVELS[0][0]
+        for C in (3, 1):
+            for n in (1, B):
+                key = lambda k: k if n == 1 else k + "_b4"   # noqa: E731
+                timed_here = timed and C == 3
+                cfg, img = glue_inputs(dev, op, h, w, C, n, 30)
+                pad, ps = cfg.padding, cfg.patch_size
+                shape = f"{n}x{h}x{w}x{C}"
+                # G1: the level, and the stream paths' out= form
+                lvl = level.pyramid_level(img, pad)
+                ref = pyramid.pyramid_level_plain(img, pad)
+                buf = pyramid.PyramidLevel(*(torch.zeros_like(x)
+                                             for x in ref))
+                level.pyramid_level(img, pad, out=buf)
+                torch.cuda.synchronize()
+                errs[key("level")].append(equal(lvl, ref, f"G1 {what}"))
+                equal(buf, ref, f"G1 {what} (out=)")
+                line = f"G1 level {what} {shape} pad {pad}: bit-exact"
+                line += rows(key("level"), timed_here,
+                             lambda: level.pyramid_level(img, pad),
+                             lambda: pyramid.pyramid_level_plain(img, pad),
+                             bounds.level_bound(n, h, w, C, pad), 50, 10)
+                log(line)
+
+                # G2, mean normalisation on and (once) off
+                grid = PatchGrid.create(cfg, w, h)
+                for mean in ((True, False) if (C, n) == (3, 1) else (True,)):
+                    cm = dataclasses.replace(cfg, use_mean_normalization=mean)
+                    got = extract.extract_templates_and_hessians(*ref, grid,
+                                                                 cm)
+                    exp = patches.extract_templates_and_hessians_plain(
+                        *ref, grid, cm)
+                    torch.cuda.synchronize()
+                    equal(got[1:3], exp[1:3], f"G2 {what} windows")
+                    torch.testing.assert_close(got[0], exp[0], rtol=0,
+                                               atol=GLUE_TEMPLATE_ATOL)
+                    H, Hr = got[3], exp[3]
+                    torch.testing.assert_close(
+                        H, Hr, rtol=GLUE_H_RTOL,
+                        atol=GLUE_H_RTOL * float(Hr.abs().max()))
+                    # flat patches: h00 == 0, det == 0, both bump
+                    flat = Hr[..., 0] <= 1e-10
+                    assert torch.equal(H[flat][:, :2], Hr[flat][:, :2]), \
+                        f"G2 {what}: the det == 0 decisions differ"
+                    # striped patches: h01 == h11 == 0 < h00, det == 0, so
+                    # h11 is bumped (a rule on h00 alone would leave it 0)
+                    striped = ((Hr[..., 1] == 0) & (Hr[..., 2] <= 1e-10)
+                               & (Hr[..., 0] > 1e-10))
+                    assert (striped.any() or h < 14) and torch.equal(
+                        H[striped][:, 1:], Hr[striped][:, 1:]), \
+                        f"G2 {what}: the det == 0 decisions differ (stripes)"
+                    err = max_err(got[0], exp[0])
+                    errs[key("extract")].append(err)
+                    line = (f"G2 extract {what} {shape} ps {ps} steps "
+                            f"{grid.steps} ({grid.n_patches} patches a frame"
+                            f", mean normalisation {mean}): windows "
+                            f"bit-exact, templates max_abs_err {err:.3g}, H "
+                            f"max_abs_err {max_err(H, Hr):.3g} (largest "
+                            f"{float(Hr.abs().max()):.3g}), "
+                            f"{int(flat.sum())} flat and "
+                            f"{int(striped.sum())} striped patches bumped "
+                            "alike")
+                    if mean:
+                        line += rows(
+                            key("extract"), timed_here,
+                            lambda: extract.extract_templates_and_hessians(
+                                *ref, grid, cm),
+                            lambda: patches.extract_templates_and_hessians_plain(
+                                *ref, grid, cm),
+                            bounds.extract_bound(n, h + 2 * pad, w + 2 * pad,
+                                                 C, grid.n_patches, ps),
+                            20, 5)
+                    log(line)
+
+                # G3 on seeded patch flows and costs (the clamp at
+                # min_errval and large costs both taken), squared and abs
+                # weights, and with an fb merge's accumulator
+                P = (n, grid.n_h, grid.n_w)
+                p_cur = (torch.randn(P + (2,), generator=g) * 3).to(dev)
+                cost = (torch.rand(P + (ps, ps, C), generator=g) ** 2
+                        * 50).to(dev)
+                state = PatchState(p_cur, p_cur, None, None, None, None,
+                                   None, None, cost, None)
+                merge = torch.cat([torch.rand((n, h, w, 1), generator=g),
+                                   torch.randn((n, h, w, 2), generator=g)],
+                                  dim=-1).to(dev)
+                for weight, m in (("squared", None), ("abs", None),
+                                  ("squared", merge)):
+                    cw = dataclasses.replace(cfg, densify_weight=weight)
+                    got = densify.densify(state, grid, cw, m)
+                    exp = densify_mod.densify_plain(state, grid, cw, m)
+                    torch.cuda.synchronize()
+                    errs[key("densify")].append(
+                        equal((got,), (exp,), f"G3 {what} {weight}"))
+                line = (f"G3 densify {what} {shape}: squared, abs and with "
+                        "an fb merge bit-exact")
+                line += rows(key("densify"), timed_here,
+                             lambda: densify.densify(state, grid, cfg),
+                             lambda: densify_mod.densify_plain(state, grid,
+                                                               cfg),
+                             bounds.densify_bound(n, h, w, C, grid.n_patches,
+                                                  ps), 50, 10)
+                log(line)
+
+                # G4 on the level's crop (a strided view, as the var-ref
+                # gets it) and another texture as the warped frame
+                im1 = ref.image[:, pad:pad + h, pad:pad + w, :]
+                w_im2 = glue_inputs(dev, op, h, w, C, n, 40)[1]
+                got = derivs.derivatives(im1, w_im2)
+                exp = derivs.derivatives_plain(im1, w_im2)
+                torch.cuda.synchronize()
+                errs[key("derivs")].append(
+                    equal((got,), (exp,), f"G4 {what}"))
+                line = f"G4 derivs {what} {shape} (im1 strided): bit-exact"
+                line += rows(key("derivs"), timed_here,
+                             lambda: derivs.derivatives(im1, w_im2),
+                             lambda: derivs.derivatives_plain(im1, w_im2),
+                             bounds.derivs_bound(n, h, w, C), 50, 10)
+                log(line)
+    for k, e in errs.items():
+        results[k]["max_abs_err"] = max(e)
+    return results
+
+
 # ------------------------------------------------------------------ batch
 
 B = 4            # frames of a batch, streams of a MultiStream
@@ -1289,7 +1500,7 @@ def slice_phase(dev):
         lambda: [run_stream(frames_op3, cfg[3]) for _ in range(2)][-1], ALL)
     pair1, n_pair1 = counted("op 1 compute_flow 1024x436 x3",
                              lambda: pair_thrice(cfg[1], (i0, i1)),
-                             ("pool", "gn"), ALL[2:])
+                             NO_VARREF, VARREF)
     ms2 = timed_pair(cfg[2], 10, (i0, i1))[1]
     ms4 = timed_pair(cfg[4], 3, (i0, i1))[1]
     ms4s = timed_pair(cfg[4], 3, small)[1]
@@ -2404,6 +2615,7 @@ def main() -> int:
         return out
 
     kernels = phase(kernel_phase)
+    kernels.update(phase(glue_phase))
     kernels.update(phase(batch_kernel_phase))
     launches = phase(slice_phase)
     for k, n in phase(cli_phase).items():
@@ -2422,17 +2634,25 @@ def main() -> int:
     phase(tools_phase)
 
     src = "flowonthego_tpu_torch/csrc/"
-    pallas = "flowonthego_tpu/ops/pallas/"
+    jax_ops = "flowonthego_tpu/ops/"
     meta = {
-        "pool": ("pool2x2_flat", "pool.cu", "pool.py:204"),
-        "gn": ("gn_scale_loop", "dis_gn.cu", "dis_gn.py:310"),
+        "pool": ("pool2x2_flat", "pool.cu", "pallas/pool.py:204"),
+        "gn": ("gn_scale_loop", "dis_gn.cu", "pallas/dis_gn.py:310"),
         "varref": ("variational_refine_fused", "varref_fused.cu",
-                   "varref_fused.py:250"),
+                   "pallas/varref_fused.py:250"),
         "varref_cluster": ("variational_refine_tiled (cluster route)",
-                           "varref_tiled.cu", "varref_fused.py:327"),
+                           "varref_tiled.cu", "pallas/varref_fused.py:327"),
         "varref_tiled": ("variational_refine_tiled (grid route)",
-                         "varref_tiled.cu", "varref_fused.py:327"),
-        "warp": ("warp_image_banded", "warp.cu", "warp.py:121"),
+                         "varref_tiled.cu", "pallas/varref_fused.py:327"),
+        "warp": ("warp_image_banded", "warp.cu", "pallas/warp.py:121"),
+        # the glue: XLA fusions in the JAX package, no Pallas kernel; the
+        # JAX function each computes
+        "level": ("pyramid level (pad, gradients)", "level.cu",
+                  "pyramid.py:138"),
+        "extract": ("extract_templates_and_hessians", "extract.cu",
+                    "patches.py:119"),
+        "densify": ("densify", "densify.cu", "densify.py:139"),
+        "derivs": ("get_derivatives", "derivs.cu", "variational.py:301"),
     }
     # the batched rows (a batch of B frames, one launch per scale) and
     # K2's bf16 operand kernel
@@ -2440,15 +2660,15 @@ def main() -> int:
         name, source, replaces = meta[key]
         meta[key + "_b4"] = (f"{name} (batch of {B})", source, replaces)
     meta["gn_bf16"] = ("gn_scale_loop (bf16 operands)", "dis_gn.cu",
-                       "dis_gn.py:310")
+                       "pallas/dis_gn.py:310")
     meta["gn_offset"] = ("gn_scale_loop (strip offset)", "dis_gn.cu",
-                         "dis_gn.py:310")
+                         "pallas/dis_gn.py:310")
     rows = []
     for key, (name, source, replaces) in meta.items():
         r = kernels[key]
         assert launches[key] > 0, f"{name} was not launched on its paths"
         rows.append({"name": name, "route": "cuda", "source": src + source,
-                     "replaces": pallas + replaces,
+                     "replaces": jax_ops + replaces,
                      "launches": launches[key],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -51,6 +51,12 @@ SIGNATURES = {
                            _F, _F, _I, _I, _I, _P, _P, _P],
     "fot_empty_launch": [_P],
     "fot_warp": [_P, _L, _L, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "fot_level": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "fot_extract": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                    _P, _P, _P, _P, _P],
+    "fot_densify": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                    _I, _P, _P],
+    "fot_derivs": [_P, _L, _L, _P, _L, _L, _I, _I, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

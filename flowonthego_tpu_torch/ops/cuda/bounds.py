@@ -31,6 +31,18 @@ square root each count one):
   rounds make over them: wx, wy, mask, 8 C derivative planes, uu, vv.
 * K5, per pixel: coordinates, floor, weights and the in-bounds mask 12,
   and 11 a channel for the 4-tap blend.
+* G1, a pyramid level: 2 (the two central differences) per value of the
+  level; the border is copies.
+* G2, extraction: per window value the mean's add, its subtraction and
+  the three Hessian products and adds = 8; per patch the mean's divide,
+  the determinant (3), its test and the two bumps = 7.
+* G3, densify: per cost value its clamp (and square root under
+  ``densify_weight="abs"``); per patch pixel the C - 1 adds of the
+  channel sum, the reciprocal, w*u, w*v and the three canvas adds = C + 5;
+  per output pixel the test and two divides = 3 (+ 3 adds of the fb
+  merge).
+* G4, derivatives: per pixel and channel the mean (2), Iz (1) and seven
+  5-tap stencils of 5 = 38.
 """
 
 from __future__ import annotations
@@ -52,6 +64,12 @@ VARREF_SOR_FLOPS = 32
 VARREF_FINAL_FLOPS = 2
 WARP_PIXEL_FLOPS = 12
 WARP_CHANNEL_FLOPS = 11
+LEVEL_VALUE_FLOPS = 2
+EXTRACT_VALUE_FLOPS = 8
+EXTRACT_PATCH_FLOPS = 7
+DENSIFY_PIXEL_FLOPS = 3
+DENSIFY_MERGE_FLOPS = 3
+DERIVS_VALUE_FLOPS = 38
 
 
 class Bound(NamedTuple):
@@ -137,3 +155,43 @@ def warp_bound(B: int, h: int, w: int, C: int) -> Bound:
     n = B * h * w
     return bound(n * (2 * C + 3) * 4,
                  n * (WARP_PIXEL_FLOPS + WARP_CHANNEL_FLOPS * C))
+
+
+def level_bound(B: int, h: int, w: int, C: int, padding: int) -> Bound:
+    """G1 on a level [B, h, w, C] -> image, grad_x, grad_y [B, h + 2p,
+    w + 2p, C]."""
+    n = B * h * w * C
+    n_pad = B * (h + 2 * padding) * (w + 2 * padding) * C
+    return bound((n + 3 * n_pad) * 4, n * LEVEL_VALUE_FLOPS)
+
+
+def extract_bound(B: int, Hp: int, Wp: int, C: int, n_patches: int,
+                  ps: int) -> Bound:
+    """G2 on padded levels [B, Hp, Wp, C] x3 -> templates, gx, gy of
+    ``n_patches`` patches a frame, ps x ps x C each, and H [.., 3]."""
+    P = B * n_patches
+    N = ps * ps * C
+    return bound((3 * B * Hp * Wp * C + 3 * P * N + 3 * P) * 4,
+                 P * (N * EXTRACT_VALUE_FLOPS + EXTRACT_PATCH_FLOPS))
+
+
+def densify_bound(B: int, h: int, w: int, C: int, n_patches: int, ps: int,
+                  sqrt: bool = False, merge: bool = False) -> Bound:
+    """G3 on ``n_patches`` patches a frame (p [.., 2], costs [.., ps, ps,
+    C]) -> flows [B, h, w, 2]; ``sqrt``: the weight takes the costs'
+    square root; ``merge``: the fb merge's [B, h, w, 3] is added."""
+    P = B * n_patches
+    n_px = B * h * w
+    n_bytes = (P * 2 + P * ps * ps * C + n_px * 2
+               + (n_px * 3 if merge else 0)) * 4
+    n_flops = (P * ps * ps * C * (2 if sqrt else 1)
+               + P * ps * ps * (C + 5)
+               + n_px * (DENSIFY_PIXEL_FLOPS
+                         + (DENSIFY_MERGE_FLOPS if merge else 0)))
+    return bound(n_bytes, n_flops)
+
+
+def derivs_bound(B: int, h: int, w: int, C: int) -> Bound:
+    """G4 on images im1, w_im2 [B, h, w, C] -> dIs [B, 8, C, h, w]."""
+    n = B * h * w * C
+    return bound(n * (2 + 8) * 4, n * DERIVS_VALUE_FLOPS)

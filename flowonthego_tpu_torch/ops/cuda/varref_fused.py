@@ -5,8 +5,8 @@ Replaces ``flowonthego_tpu/ops/pallas/varref_fused.py``
 with ``csrc/varref_fused.cu``.  The loop runs ``level + 1`` rounds of
 smoothness, robust colour + gradient data term, sub-Laplacian and
 ``var_ref_iter`` red-black SOR sweeps; the warp (K5,
-:mod:`.warp`) and the image derivatives come first, in
-:func:`warp_and_derivs`, as on the TPU.
+:mod:`.warp`) and the image derivatives (G4, :mod:`.derivs`) come first,
+in :func:`warp_and_derivs`, as on the TPU.
 
 The resolver in ``ops/variational.py`` sends a field here when it is at
 or below its pixel threshold and its plan fits (the coarsest scales of
@@ -39,9 +39,9 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build, warp
+from . import _build, derivs, warp
 from ...config import use_kernel
-from ..variational import Derivatives, get_derivatives, refine_loop
+from ..variational import Derivatives, refine_loop
 
 # Kernel launches since the last reset (read and reset by chip_smoke.py).
 launches = 0
@@ -74,21 +74,15 @@ def fused_plan(h: int, w: int, C: int) -> FusedPlan:
 def warp_and_derivs(flow, im1, im2, cfg):
     """(wx, wy, mask [B, h, w], dIs [B, 8, C, h, w]) for flows [B, h, w,
     2] and images [B, h, w, C], with dIs = Ix, Iy, Iz, Ixx, Ixy, Iyy, Ixz,
-    Iyz channel-first.  The warp is K5 where ``cfg.varref_backend``
-    selects the kernels for ``flow``."""
+    Iyz channel-first.  The warp is K5 and the derivatives G4 where
+    ``cfg.varref_backend`` selects the kernels for ``flow``."""
     wx = flow[..., 0].float().contiguous()
     wy = flow[..., 1].float().contiguous()
     if use_kernel(cfg.varref_backend, flow):
         w_im2, mask = warp.warp_image(im2, wx, wy)
-    else:
-        w_im2, mask = warp.warp_image_plain(im2, wx, wy)
-    d = get_derivatives(im1, w_im2)
-    B, h, w, C = im1.shape
-    # one 4-D stack: PyTorch's CUDA cat copies input by input above four
-    # dims, eight launches where this is one
-    dIs = torch.stack([x.reshape(B, h * w, C).transpose(1, 2) for x in d],
-                      dim=1)
-    return wx, wy, mask, dIs.reshape(B, 8, C, h, w)
+        return wx, wy, mask, derivs.derivatives(im1, w_im2)
+    w_im2, mask = warp.warp_image_plain(im2, wx, wy)
+    return wx, wy, mask, derivs.derivatives_plain(im1, w_im2)
 
 
 def refine_inner_plain(wx, wy, mask, dIs, cfg, inner_iter: int):

@@ -13,6 +13,10 @@ positive.  Contributions outside the image are dropped (2-D clipping).
 The forward-backward merge (:func:`_fb_merge_scatter`) lands patches at
 optimized, data-dependent positions, so it is a real scatter-add; it
 accumulates in a fixed order (see there).
+
+On the card the weights, the overlap-add, the clip and the normalisation
+are one launch of the G3 kernel (:mod:`.cuda.densify`), a gather in the
+canvas's order of adds; the merge stays this module's scatter.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..config import DISConfig
+from ..config import DISConfig, use_kernel
 from .dis import PatchState
 from .patches import PatchGrid
 
@@ -146,7 +150,27 @@ def densify(state: PatchState, grid: PatchGrid, cfg: DISConfig,
     frame), so none reaches the next frame.
 
     ``compl_state`` optionally merges a complementary (opposite-direction)
-    grid's reversed flow: forward-backward consistency."""
+    grid's reversed flow: forward-backward consistency.  The merge's
+    scatter is plain PyTorch; the canvas and the normalisation are the G3
+    kernel (:mod:`.cuda.densify`) where ``cfg.gn_backend`` selects the
+    kernels for the state, and :func:`densify_plain` otherwise."""
+    merge = None
+    if compl_state is not None:
+        merge = _fb_merge_scatter(compl_state, grid, cfg, grid.height,
+                                  grid.width)
+    if use_kernel(cfg.gn_backend, state.p_cur):
+        from .cuda.densify import densify as kernel
+        return kernel(state._replace(p_cur=state.p_cur.contiguous(),
+                                     cost_px=state.cost_px.contiguous()),
+                      grid, cfg, None if merge is None else merge.contiguous())
+    return densify_plain(state, grid, cfg, merge)
+
+
+def densify_plain(state: PatchState, grid: PatchGrid, cfg: DISConfig,
+                  merge: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`densify` in plain PyTorch; ``merge``: the fb merge's
+    [B, H, W, 3] (weight, w*u, w*v) accumulator, added to the canvas
+    before the normalisation."""
     ps, st = grid.patch_size, grid.steps
     h, w = grid.height, grid.width
     r = -(-ps // st)
@@ -160,12 +184,11 @@ def densify(state: PatchState, grid: PatchGrid, cfg: DISConfig,
 
     canvas = overlap_add_canvas(contrib, ps, st)
     Yp, Xp = canvas.shape[1], canvas.shape[2]
-    top = margin + grid.offset_h - ps // 2
-    left = margin + grid.offset_w - ps // 2
+    top, left = grid.window_origin(margin)
     acc = F.pad(canvas, (0, 0, left, w + 2 * margin - left - Xp,
                          top, h + 2 * margin - top - Yp))
     acc = acc[:, margin:margin + h, margin:margin + w, :]
-    if compl_state is not None:
-        acc = acc + _fb_merge_scatter(compl_state, grid, cfg, h, w)
+    if merge is not None:
+        acc = acc + merge
     weight = acc[..., 0:1]
     return torch.where(weight > 0, acc[..., 1:3] / weight, 0.0)

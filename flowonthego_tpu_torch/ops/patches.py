@@ -10,6 +10,9 @@ Geometry:
 
 Patches are patch_size x patch_size, covering pixel rows
 [mid - ps/2, mid + ps/2).
+
+Extraction (windows, mean normalisation, Hessians) is one launch of the G2
+kernel on the card (:mod:`.cuda.extract`) and plain PyTorch otherwise.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..config import DISConfig
+from ..config import DISConfig, use_kernel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +53,14 @@ class PatchGrid:
     def n_patches(self) -> int:
         return self.n_w * self.n_h
 
+    def window_origin(self, margin: int | None = None) -> tuple[int, int]:
+        """(top, left): the row and column of patch (0, 0)'s window in a
+        level padded by ``margin`` (default: the grid's padding); patch
+        (y, x)'s lies ``steps`` * (y, x) further on."""
+        margin = self.padding if margin is None else margin
+        half = self.patch_size // 2
+        return margin + self.offset_h - half, margin + self.offset_w - half
+
     def midpoints(self) -> tuple[np.ndarray, np.ndarray]:
         """Integer midpoints (mx[n_h, n_w], my[n_h, n_w]) as float32 numpy."""
         mx = (np.arange(self.n_w) * self.steps + self.offset_w)[None, :]
@@ -77,8 +88,7 @@ def extract_windows(img_pad: torch.Tensor, grid: PatchGrid) -> torch.Tensor:
     window[b, y, x, r, c] = img_pad[b, pad + my - ps/2 + r, pad + mx - ps/2 + c]."""
     ps, st = grid.patch_size, grid.steps
     B, C = img_pad.shape[0], img_pad.shape[3]
-    top = grid.padding + grid.offset_h - ps // 2
-    left = grid.padding + grid.offset_w - ps // 2
+    top, left = grid.window_origin()
     rows = (grid.n_h - 1) * st + ps
     cols = (grid.n_w - 1) * st + ps
     region = img_pad[:, top:top + rows, left:left + cols, :]
@@ -108,8 +118,22 @@ def extract_windows(img_pad: torch.Tensor, grid: PatchGrid) -> torch.Tensor:
 def extract_templates_and_hessians(
         I0_pad: torch.Tensor, I0x_pad: torch.Tensor, I0y_pad: torch.Tensor,
         grid: PatchGrid, cfg: DISConfig):
+    """:func:`extract_templates_and_hessians_plain`'s result, from the G2
+    kernel (:mod:`.cuda.extract`) where ``cfg.gn_backend`` selects the
+    kernels for the levels, which it takes contiguous."""
+    if use_kernel(cfg.gn_backend, I0_pad):
+        from .cuda.extract import extract_templates_and_hessians as kernel
+        return kernel(I0_pad.contiguous(), I0x_pad.contiguous(),
+                      I0y_pad.contiguous(), grid, cfg)
+    return extract_templates_and_hessians_plain(I0_pad, I0x_pad, I0y_pad,
+                                                grid, cfg)
+
+
+def extract_templates_and_hessians_plain(
+        I0_pad: torch.Tensor, I0x_pad: torch.Tensor, I0y_pad: torch.Tensor,
+        grid: PatchGrid, cfg: DISConfig):
     """Mean-normalized templates, their gradients, and 2x2 GN Hessians of
-    padded levels [B, Hp, Wp, C].
+    padded levels [B, Hp, Wp, C] (plain PyTorch).
 
     * template = window(I0) - mean(window(I0)) over all ps*ps*C values
     * H = [[sum gx^2, sum gx gy], [sum gx gy, sum gy^2]]; where det == 0

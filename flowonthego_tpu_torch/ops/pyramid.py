@@ -13,6 +13,11 @@ level heights above the coarsest are even (H is divisible by
 2^(n_levels-1)), so a 2x2 window never spans two frames and the batch
 pools as stacked rows in one launch with no change to the kernel.
 
+Each kept level's borders and gradients are one launch of the G1 kernel
+(:func:`.cuda.level.pyramid_level`) for a CUDA tensor, and
+:func:`pyramid_level_plain` otherwise, chosen like the pool by
+``backend``.
+
 A stream's captured step keeps the carried pyramid in fixed tensors
 (:func:`pyramid_buffers`): ``build_pyramid(..., out=levels)`` writes each
 kept level straight into them, the same values by the same arithmetic,
@@ -94,6 +99,35 @@ def _downsample_half_flat(x: torch.Tensor, C: int, bias=None,
     return pool2x2_flat_plain(x, C, bias=bias)
 
 
+def pyramid_level_plain(img: torch.Tensor, padding: int,
+                        out: Optional[PyramidLevel] = None) -> PyramidLevel:
+    """A kept level of the frames ``img`` [B, h, w, C]: the image
+    replicate-padded by ``padding``, its central differences zero-padded
+    (plain PyTorch).  With ``out`` (a :func:`pyramid_buffers` level, its
+    gradients' border already zero) the level is written there."""
+    if out is None:
+        gx, gy = central_diff(img)
+        return PyramidLevel(image=pad_replicate(img, padding),
+                            grad_x=pad_constant(gx, padding),
+                            grad_y=pad_constant(gy, padding))
+    h, w, p = img.shape[1], img.shape[2], padding
+    central_diff(img, out=(out.grad_x[:, p:p + h, p:p + w, :],
+                           out.grad_y[:, p:p + h, p:p + w, :]))
+    pad_replicate(img, padding, out=out.image)
+    return out
+
+
+def pyramid_level(img: torch.Tensor, padding: int,
+                  out: Optional[PyramidLevel] = None,
+                  backend: str = "auto") -> PyramidLevel:
+    """:func:`pyramid_level_plain`'s level, from the G1 kernel where
+    ``backend`` selects the kernels for ``img``."""
+    if use_kernel(backend, img):
+        from .cuda.level import pyramid_level as kernel
+        return kernel(img, padding, out)
+    return pyramid_level_plain(img, padding, out)
+
+
 def downsample_half(img: torch.Tensor, backend: str = "auto") -> torch.Tensor:
     """x0.5 bilinear downsample == 2x2 average pool of [..., H, W, C]
     (even dims); leading frames stack as rows of one flat pool."""
@@ -117,7 +151,8 @@ def build_pyramid(img: torch.Tensor, n_levels: int, padding: int,
     fused into the first downsample's read.  Requires ``start_level >=
     1``; levels below ``start_level`` store the pre-bias image.
 
-    ``backend`` selects the pool like a config backend field.
+    ``backend`` selects the pool and the level kernel (G1) like a config
+    backend field.
 
     ``out`` (from :func:`pyramid_buffers`, same sizes): the levels from
     ``start_level`` on are written into its tensors and ``out`` is
@@ -143,25 +178,13 @@ def build_pyramid(img: torch.Tensor, n_levels: int, padding: int,
             cur = _downsample_half_flat(
                 cur, C, bias=ingest_bias if lvl == 1 else None,
                 backend=backend)
-        h, w = H >> lvl, W >> lvl
-        if out is not None:
-            if lvl >= start_level:
-                dst, p = out[lvl], padding
-                current = cur.reshape(B, h, w, C)
-                central_diff(current, out=(
-                    dst.grad_x[:, p:p + h, p:p + w, :],
-                    dst.grad_y[:, p:p + h, p:p + w, :]))
-                pad_replicate(current, padding, out=dst.image)
-            continue
+        current = cur.reshape(B, H >> lvl, W >> lvl, C)
         if lvl < start_level:
-            levels.append(PyramidLevel(image=cur.reshape(B, h, w, C),
-                                       grad_x=None, grad_y=None))
+            if out is None:
+                levels.append(PyramidLevel(image=current, grad_x=None,
+                                           grad_y=None))
             continue
-        current = cur.reshape(B, h, w, C)
-        gx, gy = central_diff(current)
-        levels.append(PyramidLevel(
-            image=pad_replicate(current, padding),
-            grad_x=pad_constant(gx, padding),
-            grad_y=pad_constant(gy, padding),
-        ))
+        levels.append(pyramid_level(current, padding,
+                                    None if out is None else out[lvl],
+                                    backend))
     return levels if out is None else out

@@ -48,8 +48,8 @@ from ..ops import densify as densify_mod
 from ..ops import dis as dis_mod
 from ..ops import variational as var_mod
 from ..ops.patches import PatchGrid, extract_templates_and_hessians
-from ..ops.pyramid import central_diff, downsample_half, pad_constant, \
-    pad_replicate
+from ..ops.pyramid import central_diff, downsample_half, pad_replicate, \
+    pyramid_level
 from ..ops.resize import resize_rows_strip
 from ..utils.device import device_constant
 from .halo import (all_gather, exchange_accumulate_rows, exchange_rows,
@@ -254,8 +254,9 @@ def merge_block(state: dis_mod.PatchState, grid: PatchGrid, cfg: DISConfig,
 def replicated_scale(s0, s1, warm, warm_bw, grid: PatchGrid, cfg: DISConfig,
                      sl: int, gather: Callable, crop: Callable):
     """A scale too coarse to shard: gather the shards' levels (and warm
-    starts), run the unsharded scale (extraction, K2, densify, var-ref by
-    K3/K4/K5) once per distinct device, and crop each shard's part.
+    starts), run the unsharded scale (the level by G1, extraction by G2,
+    K2, densify by G3, var-ref by K5, G4 and K3/K4) once per distinct
+    device, and crop each shard's part.
     Returns the shards' (flow, backward flow or None)."""
     pad = cfg.padding
     fb = cfg.use_fb_consistency
@@ -264,10 +265,9 @@ def replicated_scale(s0, s1, warm, warm_bw, grid: PatchGrid, cfg: DISConfig,
     warm_bw = None if warm_bw is None else gather(warm_bw)
 
     def dis_full(src, tgt, init):
-        gx0, gy0 = central_diff(src)
         st = dis_mod.init_state(*extract_templates_and_hessians(
-            pad_replicate(src, pad), pad_constant(gx0, pad),
-            pad_constant(gy0, pad), grid, cfg), grid)
+            *pyramid_level(src.contiguous(), pad, backend=pool_backend(cfg)),
+            grid, cfg), grid)
         if init is not None:
             st = dis_mod.init_from_coarser(st, init, grid)
         return dis_mod.optimize(st, pad_replicate(tgt, pad), grid, cfg)

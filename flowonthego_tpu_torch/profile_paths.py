@@ -11,9 +11,10 @@ around this script (``utils.profiling.trace``) shows the paths by name.
 
 For each path: the wall time per pair without the profiler (host clock,
 ending in a sync), then ``torch.profiler`` over the same calls: device
-time per pair split by kernel (K1-K5, the small PyTorch kernels of the
-glue, GEMMs, copies, the fb merge's sorted scatter), device launches per
-pair, and the busy share (device time over the unprofiled wall time).
+time per pair split by kernel (K1-K5, the glue kernels G1-G4, the small
+PyTorch kernels left, GEMMs, copies, the fb merge's sorted scatter),
+device launches per pair, and the busy share (device time over the
+unprofiled wall time).
 The inputs are the seeded 1024x436 scenes of ``chip_smoke.py``: the
 (16, 8)-px pair, a (2, 2)-px pair whose motion stays inside the
 op-3/op-4 outlier radius at every scale, a four-frame op-3 stream moving
@@ -41,7 +42,11 @@ CATEGORIES = (("dis_gn_kernel", "K2 gn"),
               ("varref_cluster_kernel", "K4 cluster"),
               ("varref_tiled_kernel", "K4 grid"),
               ("varref_kernel", "K3"), ("warp_kernel", "K5 warp"),
-              ("pool2x2_kernel", "K1 pool"), ("Memcpy", "copies"),
+              ("pool2x2_kernel", "K1 pool"),
+              ("glue_level_kernel", "G1 level"),
+              ("glue_extract_kernel", "G2 extract"),
+              ("glue_densify_kernel", "G3 densify"),
+              ("glue_derivs_kernel", "G4 derivs"), ("Memcpy", "copies"),
               ("memcpy", "copies"),     # CUDA's own copy kernels
               ("Memset", "copies"), ("gemm", "GEMM"),
               ("indexing_backward_kernel", "index_put sort+sum"),

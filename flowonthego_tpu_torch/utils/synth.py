@@ -49,6 +49,21 @@ def smooth_texture(seed: int, height: int, width: int, channels: int = 3,
     return (128.0 + 200.0 * tex).astype(np.float32)
 
 
+def plant_stripes(frames: np.ndarray, size: int = 20) -> np.ndarray:
+    """Overwrite the bottom-right block of each frame [..., h, w, C] (in
+    place; ``size`` x ``size``, at most half of each side) with vertical
+    stripes: constant along y, varying along x.  Inside it gy is exactly 0
+    and gx is not, so a patch whose window lies there has H01 == H11 == 0
+    < H00, and det == 0 (the Hessian's bump) at a patch that is not flat.
+    Returns ``frames``."""
+    h, w = frames.shape[-3], frames.shape[-2]
+    hs, ws = min(size, h // 2), min(size, w // 2)
+    x = np.arange(w - ws, w, dtype=np.float64)
+    stripes = (128.0 + 60.0 * np.sin(0.9 * x)).astype(np.float32)
+    frames[..., h - hs:, w - ws:, :] = stripes[:, None]
+    return frames
+
+
 def synthetic_frames(seed: int, n_frames: int, height: int, width: int,
                      shift: tuple[int, int], channels: int = 3,
                      factor: int = 16) -> list[np.ndarray]:

@@ -57,6 +57,34 @@ CASES = {
     "K5 448x1024x3": (
         lambda: bounds.warp_bound(1, 448, 1024, 3),
         458_752 * 9 * 4, 458_752 * 45, "bytes"),
+    # G1 at op 4's scale 0 (448x1024x3, padding 12 -> 472x1048x3): the
+    # level in, image and both gradients out; 2 operations a value
+    "G1 448x1024x3 pad 12": (
+        lambda: bounds.level_bound(1, 448, 1024, 3, 12),
+        (1_376_256 + 3 * 1_483_968) * 4, 2 * 1_376_256, "bytes"),
+    # G2 there: 51,300 patches of 12x12x3 = 432 values from three padded
+    # levels; three windows and H out; 8 a value, 7 a patch
+    "G2 op 4 scale 0": (
+        lambda: bounds.extract_bound(1, 472, 1048, 3, 51_300, 12),
+        (3 * 1_483_968 + 3 * 51_300 * 432 + 3 * 51_300) * 4,
+        51_300 * (432 * 8 + 7), "bytes"),
+    # G3 there: p (2 a patch) and the costs in, the flow out; a clamp a
+    # cost value, C + 5 = 8 a patch pixel, 3 an output pixel
+    "G3 op 4 scale 0": (
+        lambda: bounds.densify_bound(1, 448, 1024, 3, 51_300, 12),
+        (51_300 * 2 + 51_300 * 432 + 458_752 * 2) * 4,
+        51_300 * 432 + 51_300 * 144 * 8 + 458_752 * 3, "bytes"),
+    # ... with abs weights (a square root more a cost value) and an fb
+    # merge's [h, w, 3] in (3 adds more an output pixel)
+    "G3 op 4 scale 0 abs fb": (
+        lambda: bounds.densify_bound(1, 448, 1024, 3, 51_300, 12,
+                                     sqrt=True, merge=True),
+        (51_300 * 2 + 51_300 * 432 + 458_752 * 5) * 4,
+        2 * 51_300 * 432 + 51_300 * 144 * 8 + 458_752 * 6, "bytes"),
+    # G4 at 448x1024x3: two images in, eight planes out; 38 a value
+    "G4 448x1024x3": (
+        lambda: bounds.derivs_bound(1, 448, 1024, 3),
+        1_376_256 * 10 * 4, 1_376_256 * 38, "bytes"),
 }
 
 
@@ -109,6 +137,14 @@ def test_gn_counts_live_iterations():
      lambda: bounds.gn_bound(4, 448, 8, 3, 72, 144, 12)),
     ("K2 bf16", lambda: bounds.gn_bound(1, 448, 8, 3, 72, 144, 12, bf16=True),
      lambda: bounds.gn_bound(4, 448, 8, 3, 72, 144, 12, bf16=True)),
+    ("G1", lambda: bounds.level_bound(1, 56, 128, 3, 8),
+     lambda: bounds.level_bound(4, 56, 128, 3, 8)),
+    ("G2", lambda: bounds.extract_bound(1, 72, 144, 3, 448, 8),
+     lambda: bounds.extract_bound(4, 72, 144, 3, 448, 8)),
+    ("G3", lambda: bounds.densify_bound(1, 56, 128, 3, 448, 8, merge=True),
+     lambda: bounds.densify_bound(4, 56, 128, 3, 448, 8, merge=True)),
+    ("G4", lambda: bounds.derivs_bound(1, 56, 128, 3),
+     lambda: bounds.derivs_bound(4, 56, 128, 3)),
 ])
 def test_batch_counts_b_frames(name, one, batch):
     a, b = one(), batch()

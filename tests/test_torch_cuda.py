@@ -17,13 +17,17 @@ import torch
 
 import flowonthego_tpu_torch as port
 from flowonthego_tpu_torch.ops import dis as dis_mod
-from flowonthego_tpu_torch.ops.cuda import (dis_gn, pool, varref_fused,
+from flowonthego_tpu_torch.ops import densify as densify_mod
+from flowonthego_tpu_torch.ops import patches as patches_mod
+from flowonthego_tpu_torch.ops import pyramid as pyramid_mod
+from flowonthego_tpu_torch.ops.cuda import (densify, derivs, dis_gn, extract,
+                                            level, pool, varref_fused,
                                             varref_tiled, warp)
 from flowonthego_tpu_torch.ops.patches import (PatchGrid,
                                                extract_templates_and_hessians)
 from flowonthego_tpu_torch.ops.pyramid import build_pyramid
 from flowonthego_tpu_torch.utils import graphs
-from flowonthego_tpu_torch.utils.synth import synthetic_frames
+from flowonthego_tpu_torch.utils.synth import plant_stripes, synthetic_frames
 
 pytestmark = pytest.mark.cuda
 
@@ -399,11 +403,12 @@ def test_compute_flow_op4_runs_k4_k5(cuda):
 
 def test_compute_flow_runs_all_kernels(cuda):
     """Op 2 on 124x256 from scale 4 (fields of 128 to 8,192 px): K1, K2,
-    K3, both routes of K4 and K5."""
+    K3, both routes of K4 and K5, and the glue kernels G1-G4."""
     i0, i1 = synthetic_frames(3, 2, 124, 256, (2, 1), factor=4)
     cfg = dataclasses.replace(port.operating_point(2, width=256),
                               coarsest_scale=4)
-    mods = (pool, dis_gn, varref_fused, varref_tiled, warp)
+    mods = (pool, dis_gn, varref_fused, varref_tiled, warp, level, extract,
+            densify, derivs)
     counts = [m.launches for m in mods]
     n_cluster = varref_tiled.launches_cluster
     got = port.compute_flow(i0, i1, cfg, device=cuda)
@@ -822,3 +827,99 @@ def test_captured_spatial_forms_equal_eager(cuda):
                 got[0][0], port.flow_full_padded(I0, I1, cfg), rtol=1e-3,
                 atol=1e-3)
     graphs.clear()
+
+
+# ------------------------------------------------- the glue kernels G1-G4
+
+def _glue_level(cuda, n, h, w, C, op=2):
+    """(cfg, frames [n, h, w, C] on the card, their plain padded level)."""
+    frames = np.stack([synthetic_frames(7 + b, 1, h, w, (0, 0), channels=C,
+                                        factor=4)[0] for b in range(n)])
+    frames[:, :h // 3, :w // 4] = 128.0          # flat patches: det == 0
+    plant_stripes(frames)            # det == 0 where H00 > 0 (gy == 0)
+    cfg = port.operating_point(op)
+    img = torch.as_tensor(frames, device=cuda)
+    return cfg, img, pyramid_mod.pyramid_level_plain(img, cfg.padding)
+
+
+@pytest.mark.parametrize("n,C", [(1, 3), (2, 1), (4, 3)])
+def test_glue_level_kernel(cuda, n, C):
+    """G1 against its plain version, bit for bit, and into a stream's
+    fixed tensors."""
+    cfg, img, ref = _glue_level(cuda, n, 30, 44, C)
+    n0 = level.launches
+    got = level.pyramid_level(img, cfg.padding)
+    buf = pyramid_mod.PyramidLevel(*(torch.zeros_like(x) for x in ref))
+    level.pyramid_level(img, cfg.padding, out=buf)
+    assert level.launches == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert all(torch.equal(a, b) for a, b in zip(buf, ref))
+
+
+@pytest.mark.parametrize("mean", [True, False])
+@pytest.mark.parametrize("op,n,C", [(2, 1, 3), (4, 2, 3), (1, 2, 1)])
+def test_glue_extract_kernel(cuda, op, n, C, mean):
+    """G2 against its plain version: windows bit for bit, templates within
+    1e-4 and Hessians within 1e-5 of the largest entry (sums in another
+    order, as chip_smoke.py's bars), flat and striped patches (det == 0,
+    H00 == 0 and H00 > 0) bumped alike."""
+    cfg, img, lvl = _glue_level(cuda, n, 40, 56, C, op)
+    cfg = dataclasses.replace(cfg, use_mean_normalization=mean)
+    grid = PatchGrid.create(cfg, 56, 40)
+    n0 = extract.launches
+    got = extract.extract_templates_and_hessians(*lvl, grid, cfg)
+    assert extract.launches == n0 + 1
+    ref = patches_mod.extract_templates_and_hessians_plain(*lvl, grid, cfg)
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-4)
+    H = ref[3]
+    torch.testing.assert_close(got[3], H, rtol=1e-5,
+                               atol=1e-5 * float(H.abs().max()))
+    flat = H[..., 0] <= 1e-10
+    assert flat.any() and torch.equal(got[3][flat][:, :2], H[flat][:, :2])
+    striped = (H[..., 1] == 0) & (H[..., 2] <= 1e-10) & (H[..., 0] > 1e-10)
+    assert striped.any()
+    assert torch.equal(got[3][striped][:, 1:], H[striped][:, 1:])
+
+
+@pytest.mark.parametrize("weight,merge", [("squared", False), ("abs", False),
+                                          ("squared", True)])
+@pytest.mark.parametrize("op,n,C", [(2, 1, 3), (4, 2, 1), (1, 1, 3)])
+def test_glue_densify_kernel(cuda, op, n, C, weight, merge):
+    """G3 against its plain version, bit for bit: the canvas's order of
+    adds, PyTorch's order for the weights' channel sum, the fb merge's
+    accumulator added before the normalisation."""
+    cfg = dataclasses.replace(port.operating_point(op), densify_weight=weight)
+    h, w = 30, 44
+    grid = PatchGrid.create(cfg, w, h)
+    g = torch.Generator().manual_seed(5)
+    P = (n, grid.n_h, grid.n_w)
+    ps = grid.patch_size
+    p = (torch.randn(P + (2,), generator=g) * 3).to(cuda)
+    cost = (torch.rand(P + (ps, ps, C), generator=g) ** 2 * 50).to(cuda)
+    state = dis_mod.PatchState(p, p, None, None, None, None, None, None,
+                               cost, None)
+    m = (torch.cat([torch.rand((n, h, w, 1), generator=g),
+                    torch.randn((n, h, w, 2), generator=g)], dim=-1).to(cuda)
+         if merge else None)
+    n0 = densify.launches
+    got = densify.densify(state, grid, cfg, m)
+    assert densify.launches == n0 + 1
+    assert torch.equal(got, densify_mod.densify_plain(state, grid, cfg, m))
+
+
+@pytest.mark.parametrize("h,w", [(30, 44), (4, 8), (14, 32), (37, 5)])
+@pytest.mark.parametrize("n,C", [(1, 3), (2, 1)])
+def test_glue_derivs_kernel(cuda, n, C, h, w):
+    """G4 on a strided crop (as the var-ref takes its image) against its
+    plain version, bit for bit, down to fields of 4 and 5 pixels, where
+    the second derivatives reach the first derivatives' replicated edge."""
+    cfg, img, lvl = _glue_level(cuda, n, h, w, C)
+    p = cfg.padding
+    im1 = lvl.image[:, p:p + h, p:p + w, :]
+    assert not im1.is_contiguous()
+    w_im2 = _glue_level(cuda, n, h, w, C)[1].flip(1).contiguous()
+    n0 = derivs.launches
+    got = derivs.derivatives(im1, w_im2)
+    assert derivs.launches == n0 + 1
+    assert torch.equal(got, derivs.derivatives_plain(im1, w_im2))

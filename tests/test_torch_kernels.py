@@ -37,6 +37,7 @@ from flowonthego_tpu_torch.ops import resize as presize
 from flowonthego_tpu_torch.ops.cuda.pool import pool2x2_flat as port_pool
 from flowonthego_tpu_torch.ops.cuda.varref_fused import \
     variational_refine_fused as port_varref_fused
+from flowonthego_tpu_torch.utils.synth import plant_stripes
 
 torch.set_num_threads(1)
 
@@ -108,38 +109,74 @@ def test_build_pyramid_matches_jax(rng, dtype, start, bias):
 
 # ---------------------------------------------------------------- patches
 
-@pytest.mark.parametrize("op_point", [2, 1])   # grouped form, strided form
-def test_extract_matches_jax(rng, op_point):
-    """Windows and gradients are copies (exact).  Templates subtract a
-    mean of ps*ps*C fp32 values near 128, summed in another order (one
-    ulp of the ~2.5e4 sum is 2e-3, 1e-5 of the mean): <= 1e-4 abs.
-    Hessians are such sums too: within 1e-5 of the largest entry (h01 is
-    a signed sum that cancels, so a relative bound per entry is too
-    strict)."""
+# (operating point, channels, frames, mean normalisation): the grouped
+# window form (op 2, op 4) and the strided one (op 1)
+EXTRACT_CASES = {"2": (2, 3, 1, True), "1": (1, 3, 1, True),
+                 "4": (4, 3, 1, True), "2-gray-2frames": (2, 1, 2, True),
+                 "2-nomean-2frames": (2, 3, 2, False),
+                 "4-gray-2frames": (4, 1, 2, True),
+                 "4-nomean-2frames": (4, 3, 2, False),
+                 "4-gray-nomean": (4, 1, 1, False),
+                 "1-gray-nomean-2frames": (1, 1, 2, False)}
+
+
+@pytest.mark.parametrize("op_point,C,n,mean", list(EXTRACT_CASES.values()),
+                         ids=list(EXTRACT_CASES))
+def test_extract_matches_jax(rng, op_point, C, n, mean):
+    """Extraction of ``n`` frames at once, frame by frame against JAX
+    (the plain form of the G2 kernel).  Windows and gradients are copies
+    (exact).  Templates subtract a mean of ps*ps*C fp32 values near 128,
+    summed in another order: one ulp of op 2's ~2.5e4 sum is 2e-3, 1e-5
+    of the mean, so <= 1e-4 abs; op 4's 432 values (a sum near 5.5e4,
+    ulp 3.9e-3) are summed sequentially here and pairwise by XLA, whose
+    roundings drift apart: the largest template error read on this data
+    is 2.37e-4 (op 4, C = 3), 0.10 absolute on the sum or ~26 ulps of it,
+    so <= 4e-4 (0.17 on the sum, ~44 ulps).  Hessians are such sums too:
+    within 1e-5 of the largest entry (h01 is a signed sum that cancels,
+    so a relative bound per entry is too strict).  A flat block gives
+    patches with det == 0 and H00 == 0, a block of vertical stripes
+    patches with det == 0 and H00 > 0: both bumped alike."""
     from flowonthego_tpu.config import operating_point
-    jc = operating_point(op_point)
+    jc = dataclasses.replace(operating_point(op_point),
+                             use_mean_normalization=mean)
     pc = config_from_jax(dataclasses.asdict(jc))
     h, w = 40, 56
-    img = _smooth(rng, h, w, 3)[8:8 + h, 8:8 + w]
-    jpyr = jpyramid.build_pyramid(jnp.asarray(img), 1, jc.padding)[0]
-    ppyr = pyramid_from_numpy([tuple(np.asarray(x) for x in jpyr)])[0]
+    imgs = [_smooth(rng, h, w, C)[8:8 + h, 8:8 + w] for _ in range(n)]
+    for img in imgs:
+        img[:h // 2, :w // 3] = 128.0
+        plant_stripes(img)
+    jpyrs = [jpyramid.build_pyramid(jnp.asarray(img), 1, jc.padding)[0]
+             for img in imgs]
+    ppyr = pyramid_from_numpy([tuple(
+        np.stack([np.asarray(jp[k]) for jp in jpyrs]) for k in range(3))])[0]
     jg = jpatches.PatchGrid.create(jc, w, h)
     pg = ppatches.PatchGrid.create(pc, w, h)
     assert dataclasses.asdict(jg) == dataclasses.asdict(pg)
-    assert (pc.patch_size % pc.steps == 0) == (op_point == 2)
-    ref = jpatches.extract_templates_and_hessians(*jpyr, jg, jc)
+    assert (pc.patch_size % pc.steps == 0) == (op_point != 1)
     got = ppatches.extract_templates_and_hessians(*ppyr, pg, pc)
-    np.testing.assert_array_equal(
-        ppatches.extract_windows(ppyr.image, pg)[0].numpy(),
-        np.asarray(jpatches.extract_windows(jpyr.image, jg)))
-    got = [x[0] for x in got]
-    np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
-    np.testing.assert_array_equal(got[2].numpy(), np.asarray(ref[2]))
-    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]),
-                               rtol=0, atol=1e-4)
-    H = np.asarray(ref[3])
-    np.testing.assert_allclose(got[3].numpy(), H, rtol=0,
-                               atol=1e-5 * np.abs(H).max())
+    windows = ppatches.extract_windows(ppyr.image, pg)
+    for b, jpyr in enumerate(jpyrs):
+        ref = jpatches.extract_templates_and_hessians(*jpyr, jg, jc)
+        np.testing.assert_array_equal(
+            windows[b].numpy(),
+            np.asarray(jpatches.extract_windows(jpyr.image, jg)))
+        np.testing.assert_array_equal(got[1][b].numpy(), np.asarray(ref[1]))
+        np.testing.assert_array_equal(got[2][b].numpy(), np.asarray(ref[2]))
+        np.testing.assert_allclose(got[0][b].numpy(), np.asarray(ref[0]),
+                                   rtol=0,
+                                   atol=4e-4 if pc.patch_size == 12 else 1e-4)
+        H = np.asarray(ref[3])
+        np.testing.assert_allclose(got[3][b].numpy(), H, rtol=0,
+                                   atol=1e-5 * np.abs(H).max())
+        flat = H[..., 0] == np.float32(1e-10)
+        assert flat.any()
+        np.testing.assert_array_equal(got[3][b].numpy()[flat][:, :2],
+                                      H[flat][:, :2])
+        striped = (H[..., 1] == 0) & (H[..., 2] == np.float32(1e-10)) & (
+            H[..., 0] > 1e-10)
+        assert striped.any()
+        np.testing.assert_array_equal(got[3][b].numpy()[striped][:, 1:],
+                                      H[striped][:, 1:])
 
 
 # ---------------------------------------------------------------- K2 GN solve
@@ -186,10 +223,13 @@ def test_gn_solve_matches_pallas_oracle(rng, warm, gd_iter):
         assert not got.cost_px[0].numpy()[frozen].any()
 
     # densify of the same state: <= 1e-5 abs (weights are 1/max(2, cost),
-    # the flow a weighted mean of patch flows; reorder-only differences)
+    # the flow a weighted mean of patch flows; reorder-only differences).
+    # gn_backend "pallas" selects the card's kernels for densify too (G3),
+    # so the CPU run takes "auto", as for the solve above.
     jd = np.asarray(jdensify.densify(ref, grid, jc))
     pd = pdensify.densify(patch_state_from_numpy(
-        {k: np.asarray(v) for k, v in ref._asdict().items()}), pgrid, pc)
+        {k: np.asarray(v) for k, v in ref._asdict().items()}), pgrid,
+        dataclasses.replace(pc, gn_backend="auto"))
     np.testing.assert_allclose(pd[0].numpy(), jd, rtol=0, atol=1e-5)
 
 
