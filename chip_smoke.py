@@ -7,7 +7,8 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels (K1-K5, and G1-G4, the per-scale glue) from
+  2. build the CUDA kernels (K1-K5; G1-G4, the per-scale glue; G5, the
+     fb merge, and G6, the reference-form solve with its 1-D form) from
      ``flowonthego_tpu_torch/csrc``;
   3. the time of a kernel that does nothing (the floor under every
      launch); each kernel against its plain PyTorch version on the card,
@@ -35,7 +36,21 @@ Phases (any failure raises and the script exits non-zero):
      one frame and four in one launch, timed at op 4's scale 0 with their
      bounds: G1, G3 and G4 bit for bit, G2's windows bit for bit, its
      templates within 1e-4 and its Hessians within 1e-5 of the largest
-     entry, its det == 0 bumps (flat and striped patches) exactly;
+     entry, its det == 0 bumps (flat and striped patches) exactly; then
+     (``merge_solve_phase``) G5 bit for bit against the plain merge on
+     the op-2 and op-4 fb pairs' own merges at 1024x448 (the card's sorted
+     ``index_put_`` folds each cell in order; where it does not, G5 is
+     held to the in-order fold of the card's contributions on the CPU),
+     the 4K stream's finest scale, four frames in one launch, every patch
+     outside the frame, every patch on one cell, the abs weights and
+     C = 1, timed on the largest merge beside ``index_put_`` alone; G6
+     against its plain version at op 2's scale 3 under l1, huber, l1 with
+     ``min_iter`` 4 and ``res_thresh`` 5, C = 3 and 1, one frame and four,
+     cold and warm, with a strip offset, and at op 4's scale 1 under
+     huber, its 1-D form at cam_lr 0 and 1 (p within ``TOL_GN_P``, cost
+     and diff within ``TOL_GN_COST``, as x|x| under the robust costs, on
+     all but ``GN_FLIP_SHARE`` of the patches), each timed with its bound
+     on the trips its patches ran;
   4. the main paths at real size, each from scratch (no cached graph)
      with the wrappers' launch counters reset just before it and read
      just after, under ``torch.profiler``, whose device events say how
@@ -82,8 +97,11 @@ Phases (any failure raises and the script exits non-zero):
   9. the captured paths (``utils/graphs.py``: every entry point of phases
      4-8 already ran through its CUDA graph from its second call on) at
      full width, each counted as in phase 4: op 2, op 4 on the (2,
-     2) pair and op 2 with forward-backward consistency through
-     ``compute_flow`` at 1024x436, ``batched_flow`` of four, the op-2
+     2) pair, op 2 with forward-backward consistency (through G5, with no
+     device event of the plain merge's sorted scatter) and op 2 under
+     huber (G6, no K2) through ``compute_flow`` at 1024x436, op 2 depth
+     through ``compute_disparity`` (G6's 1-D form), the last three also
+     against the plain path, ``batched_flow`` of four, the op-2
      3840x2160 stream, the op-3 stream and a four-stream ``MultiStream``
      tick: the captured flow equals the eager flow bit for bit and two
      flows held at once do not alias; per call, eagerly and captured, the
@@ -130,8 +148,9 @@ per-kernel results (``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``,
 the main paths' runs of phases 4, 6, 9 and 12, from those runs'
 profiles; the batched and bf16 rows with those of phase 8; K4 as two rows,
 one for each route; K2's strip-offset entry as its own row, timed in
-phase 3 on the op-4 patches, launched in phase 12) and, last, the device
-line
+phase 3 on the op-4 patches, launched in phase 12; G6's 1-D form as its
+own row, launched by the depth runs of phases 6 and 9) and, last, the
+device line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 2 and
 prints no result.
 """
@@ -205,25 +224,39 @@ SPLIT_SHIFTS = ((2, 2), (16, 8))
 # kernels that must launch, kernels that must not).  The robust costs and
 # min_iter take the reference-form solve (no K2), as in the JAX package;
 # depth runs the pyramid (K1) and a 1-D solve with no refinement.
+# ALL: the kernels every l2 path runs; the fb merge (G5) runs with
+# forward-backward consistency, the reference-form solve (G6, "dis_ref")
+# in K2's place under the robust costs, min_iter and depth (its 1-D form
+# counted under "dis_ref" and, apart, "dis_ref_1d")
 ALL = ("pool", "gn", "varref", "varref_cluster", "varref_tiled", "warp",
        "level", "extract", "densify", "derivs")
+COUNTED = ALL + ("fb_merge", "dis_ref")
+FB = ALL + ("fb_merge",)
 NO_GN = ALL[:1] + ALL[2:]
+REF = NO_GN + ("dis_ref",)
 # the var-ref's kernels: K3, K4's two routes, K5 and G4
 VARREF = ("varref", "varref_cluster", "varref_tiled", "warp", "derivs")
 NO_VARREF = tuple(k for k in ALL if k not in VARREF)
+DEPTH = ("pool", "level", "extract", "densify", "dis_ref")
 CLI_RUNS = (
-    ("fb", ["2", "--fb"], ALL, ()),
-    ("cost huber", ["2", "--cost", "huber"], NO_GN, ("gn",)),
-    ("cost l1 min-iter 4", ["2", "--cost", "l1", "--min-iter", "4"], NO_GN,
-     ("gn",)),
-    ("densify-weight abs", ["2", "--densify-weight", "abs"], ALL, ()),
-    ("channels gray", ["2", "--channels", "gray"], ALL, ()),
-    ("channels gradmag", ["2", "--channels", "gradmag"], ALL, ()),
-    ("mode depth", ["2", "--mode", "depth"], ("pool", "level", "extract",
-                                              "densify"), VARREF + ("gn",)),
+    ("fb", ["2", "--fb"], FB, ("dis_ref",)),
+    ("cost huber", ["2", "--cost", "huber"], REF, ("gn", "fb_merge")),
+    ("cost l1 min-iter 4", ["2", "--cost", "l1", "--min-iter", "4"], REF,
+     ("gn", "fb_merge")),
+    ("densify-weight abs", ["2", "--densify-weight", "abs"], ALL,
+     ("fb_merge", "dis_ref")),
+    ("channels gray", ["2", "--channels", "gray"], ALL,
+     ("fb_merge", "dis_ref")),
+    ("channels gradmag", ["2", "--channels", "gradmag"], ALL,
+     ("fb_merge", "dis_ref")),
+    ("mode depth", ["2", "--mode", "depth"], DEPTH,
+     VARREF + ("gn", "fb_merge")),
     ("13-param verbosity 2 fb",
-     "5 3 12 8 0.4 1 1 10 10 5 3 1.6 2 --fb".split(), ALL, ()),
+     "5 3 12 8 0.4 1 1 10 10 5 3 1.6 2 --fb".split(), FB, ("dis_ref",)),
 )
+# a device event of the plain merge's sorted scatter: none may run on a
+# path through G5
+SORTED_SCATTER = ("indexing_backward_kernel", "RadixSort")
 DEPTH_SHIFT = (-16, 0)   # a horizontal pair: disparity <= 0 (cam 0)
 
 
@@ -406,28 +439,36 @@ def plain(cfg):
 
 def kernel_modules():
     from flowonthego_tpu_torch.ops.cuda import (densify, derivs, dis_gn,
-                                                extract, level, pool,
-                                                varref_fused, varref_tiled,
-                                                warp)
+                                                dis_ref, extract, fb_merge,
+                                                level, pool, varref_fused,
+                                                varref_tiled, warp)
     return {"pool": pool, "gn": dis_gn, "varref": varref_fused,
             "varref_tiled": varref_tiled, "warp": warp, "level": level,
-            "extract": extract, "densify": densify, "derivs": derivs}
+            "extract": extract, "densify": densify, "derivs": derivs,
+            "fb_merge": fb_merge, "dis_ref": dis_ref}
+
+
+def _name_re(name):
+    return re.compile(rf"(?<![A-Za-z0-9_]){name}(?![A-Za-z0-9_])")
 
 
 # The kernels' names on the device, as a profile shows them (K2's bf16
-# form is the same kernel compiled for __nv_bfloat16 loads).
+# form is the same kernel compiled for __nv_bfloat16 loads; G5 counts by
+# its second launch, one a call).
 KERNEL_NAMES = {"pool": "pool2x2_kernel", "gn": "dis_gn_kernel",
                 "varref": "varref_kernel",
                 "varref_cluster": "varref_cluster_kernel",
                 "varref_tiled": "varref_tiled_kernel", "warp": "warp_kernel",
                 "level": "glue_level_kernel", "extract": "glue_extract_kernel",
                 "densify": "glue_densify_kernel",
-                "derivs": "glue_derivs_kernel"}
-KERNEL_RE = {k: re.compile(rf"(?<![A-Za-z0-9_]){name}(?![A-Za-z0-9_])")
-             for k, name in KERNEL_NAMES.items()}
+                "derivs": "glue_derivs_kernel", "fb_merge": "fb_merge_kernel",
+                "dis_ref": "dis_ref_kernel"}
+KERNEL_RE = {k: _name_re(name) for k, name in KERNEL_NAMES.items()}
 # K2's strip-offset entry (the spatial forms' sharded scales), counted
-# under "gn" and, apart, under "gn_offset"
-GN_STRIP_RE = re.compile(r"(?<![A-Za-z0-9_])dis_gn_strip_kernel(?![A-Za-z0-9_])")
+# under "gn" and, apart, under "gn_offset"; G6's 1-D form likewise under
+# "dis_ref" and "dis_ref_1d"
+GN_STRIP_RE = _name_re("dis_gn_strip_kernel")
+REF_1D_RE = _name_re("dis_ref_1d_kernel")
 # host runtime calls that put work on the device
 LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset",
                 "cudaGraphLaunch")
@@ -437,7 +478,7 @@ LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset",
 # PyTorch's copy kernel where a side is strided: all are counted under
 # this name.
 THROW_AWAY = 32     # kernels a profile spends before what it measures
-PROFILE_TRIES = 4
+PROFILE_TRIES = 8
 COPY = "device-to-device copy"
 COPY_RE = re.compile(r"^Memcpy DtoD|^memcpy\d+|direct_copy_kernel_cuda")
 
@@ -449,18 +490,20 @@ def profiled(fn, before=None):
     launched one by one or replayed from a CUDA graph.
 
     The tracer sometimes loses the device events at the start of what it
-    records (a few, or some hundreds).  So the profile starts in a
-    warm-up step, and the recorded step begins with THROW_AWAY kernels
-    that no path runs (digamma): they are left out of the counts, and a
-    profile that does not show all of them is incomplete, is discarded
-    and taken again (``before()`` is called ahead of every attempt)."""
+    records (a few, or some hundreds), and sometimes shows the warm-up
+    step's in the recorded one.  So the profile starts in a warm-up step
+    of THROW_AWAY kernels that no path runs (lgamma), and the recorded
+    step begins with THROW_AWAY others (digamma): both are left out of the
+    counts, and a profile that does not show exactly THROW_AWAY digamma
+    kernels is incomplete, is discarded and taken again (``before()`` is
+    called ahead of every attempt)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     scratch = torch.ones(1, device="cuda")
 
-    def throw_away():
+    def throw_away(op):
         for _ in range(THROW_AWAY):
-            scratch.digamma_()
+            op()
         torch.cuda.synchronize()
 
     for _ in range(PROFILE_TRIES):
@@ -468,9 +511,9 @@ def profiled(fn, before=None):
             before()
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-            throw_away()
+            throw_away(scratch.lgamma_)
             prof.step()
-            throw_away()
+            throw_away(scratch.digamma_)
             out = fn()
             torch.cuda.synchronize()
         names = collections.Counter()
@@ -478,8 +521,8 @@ def profiled(fn, before=None):
         dev_us = 0.0
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
-                if "digamma" in e.name:
-                    thrown += 1
+                if "digamma" in e.name or "lgamma" in e.name:
+                    thrown += "digamma" in e.name
                     continue
                 names[COPY if COPY_RE.search(e.name) else e.name] += 1
                 dev_us += e.time_range.elapsed_us()
@@ -488,9 +531,8 @@ def profiled(fn, before=None):
                 graph_n += e.name.startswith("cudaGraphLaunch")
         if thrown == THROW_AWAY:
             return out, names, dev_us / 1e3, host_n - thrown, graph_n
-        log(f"  (the tracer lost {THROW_AWAY - thrown} of the {THROW_AWAY} "
-            "throw-away kernels that lead a profile: profile discarded, "
-            "taken again)")
+        log(f"  (the tracer showed {thrown} of the {THROW_AWAY} throw-away "
+            "kernels that lead a profile: profile discarded, taken again)")
     raise AssertionError(f"{PROFILE_TRIES} profiles in a row were incomplete")
 
 
@@ -500,16 +542,21 @@ def kernel_counts(names) -> dict:
     cluster route, "gn_bf16" K2's launches with bf16 operands and
     "gn_offset" those of its strip-offset entry (both counted under "gn"
     too)."""
-    counts = dict.fromkeys(ALL + ("gn_bf16", "gn_offset"), 0)
+    counts = dict.fromkeys(COUNTED + ("gn_bf16", "gn_offset",
+                                      "dis_ref_1d"), 0)
     for name, n in names.items():
         strip = GN_STRIP_RE.search(name) is not None
+        one_d = REF_1D_RE.search(name) is not None
         for k, pattern in KERNEL_RE.items():
-            if pattern.search(name) or (k == "gn" and strip):
+            if (pattern.search(name) or (k == "gn" and strip)
+                    or (k == "dis_ref" and one_d)):
                 counts[k] += n
                 if k == "gn" and "bfloat16" in name:
                     counts["gn_bf16"] += n
                 if k == "gn" and strip:
                     counts["gn_offset"] += n
+                if k == "dis_ref" and one_d:
+                    counts["dis_ref_1d"] += n
     return counts
 
 
@@ -520,6 +567,7 @@ def wrapper_counts(reset=False) -> dict:
     counts = {k: m.launches for k, m in wrappers.items()}
     counts["gn_bf16"] = wrappers["gn"].launches_bf16
     counts["gn_offset"] = wrappers["gn"].launches_offset
+    counts["dis_ref_1d"] = wrappers["dis_ref"].launches_1d
     counts["varref_cluster"] = wrappers["varref_tiled"].launches_cluster
     counts["varref_tiled"] -= counts["varref_cluster"]
     if reset:
@@ -527,6 +575,7 @@ def wrapper_counts(reset=False) -> dict:
             m.launches = 0
         wrappers["gn"].launches_bf16 = 0
         wrappers["gn"].launches_offset = 0
+        wrappers["dis_ref"].launches_1d = 0
         wrappers["varref_tiled"].launches_cluster = 0
     return counts
 
@@ -539,7 +588,9 @@ def counted(name, fn, expect, absent=()):
     device, and none in ``absent``.  A call that replays a CUDA graph
     calls no wrapper, so the device's count is the one kept: it is read
     from this run's device events by kernel name.  With "gn_bf16" in
-    ``expect`` every K2 launch must be a bf16 one, else none."""
+    ``expect`` every K2 launch must be a bf16 one, else none.  With
+    "fb_merge" in ``expect`` no event of the plain merge's sorted scatter
+    (``SORTED_SCATTER``) may run."""
     from flowonthego_tpu_torch.utils import graphs
 
     def from_scratch():
@@ -557,6 +608,10 @@ def counted(name, fn, expect, absent=()):
         assert wrapped[k] == 0 and counts[k] == 0, (name, k, counts, wrapped)
     assert counts["gn_bf16"] == (counts["gn"] if "gn_bf16" in expect
                                  else 0), (name, counts)
+    if "fb_merge" in expect:
+        sorted_scatter = {e: c for e, c in names.items()
+                          if any(f in e for f in SORTED_SCATTER)}
+        assert not sorted_scatter, (name, sorted_scatter)
     return out, counts
 
 
@@ -582,10 +637,13 @@ GN_FORM_SIZES = (8, 12, 6, 10)
 STRIP_CUT = (2, 3)
 
 
-def gn_inputs(dev, op, h, w, g, channels=3, n_frames=1, patch_size=None):
-    """K2's arguments at one scale of operating point ``op`` (with another
-    ``patch_size`` if given) for ``n_frames`` frames (frame b from seed
-    1 + b): (cfg, grid, {"cold"/"warm": positional args}, keyword args)."""
+def solve_inputs(dev, op, h, w, g, channels=3, n_frames=1, patch_size=None,
+                 shift=(1, 1)):
+    """One scale of operating point ``op`` (with another ``patch_size`` if
+    given) for ``n_frames`` seeded pairs moving ``shift`` (frame b from
+    seed 1 + b): (cfg, grid, {"cold"/"warm": PatchState}, the target
+    level [n_frames, Hp, Wp, C]); the warm start is a random coarser
+    flow (horizontal only where ``shift`` is)."""
     from flowonthego_tpu_torch import operating_point
     from flowonthego_tpu_torch.ops import dis as dis_mod
     from flowonthego_tpu_torch.ops.patches import (
@@ -595,7 +653,7 @@ def gn_inputs(dev, op, h, w, g, channels=3, n_frames=1, patch_size=None):
     cfg = operating_point(op)
     if patch_size is not None:
         cfg = dataclasses.replace(cfg, patch_size=patch_size)
-    pairs = [synthetic_frames(1 + b, 2, h, w, (1, 1), channels=channels,
+    pairs = [synthetic_frames(1 + b, 2, h, w, shift, channels=channels,
                               factor=4) for b in range(n_frames)]
     lvl0, lvl1 = (build_pyramid(torch.as_tensor(
         np.stack([p[k] for p in pairs]), device=dev), 1, cfg.padding)[0]
@@ -605,9 +663,19 @@ def gn_inputs(dev, op, h, w, g, channels=3, n_frames=1, patch_size=None):
         lvl0.image, lvl0.grad_x, lvl0.grad_y, grid, cfg), grid)
     coarse = (torch.randn((n_frames, h // 2, w // 2, 2), generator=g)
               * 2.0).to(dev)
+    if shift[1] == 0:
+        coarse[..., 1] = 0.0
     states = {"cold": cold,
               "warm": dis_mod.init_from_coarser(cold, coarse, grid)}
-    args = {name: (lvl1.image, st.templates, st.tgrad_x, st.tgrad_y, st.H,
+    return cfg, grid, states, lvl1.image
+
+
+def gn_inputs(dev, op, h, w, g, channels=3, n_frames=1, patch_size=None):
+    """K2's arguments at one scale (:func:`solve_inputs`): (cfg, grid,
+    {"cold"/"warm": positional args}, keyword args)."""
+    cfg, grid, states, I1 = solve_inputs(dev, op, h, w, g, channels,
+                                         n_frames, patch_size)
+    args = {name: (I1, st.templates, st.tgrad_x, st.tgrad_y, st.H,
                    st.mid_org, st.p_cur, st.p_org, ~st.converged)
             for name, st in states.items()}
     kw = dict(n_iters=cfg.grad_descent_iter, padding=grid.padding,
@@ -1216,6 +1284,341 @@ def glue_phase(dev):
     return results
 
 
+# ------------------------------------------------------------------ G5, G6
+
+# G6 at op 2's scale 3 of 1024x448 in the modes that take the
+# reference-form solve: (name, config fields)
+REF_MODES = (("l1", dict(cost_fn="l1")), ("huber", dict(cost_fn="huber")),
+             ("l1 min_iter 4", dict(cost_fn="l1", min_iter=4)),
+             ("l2 res_thresh 5", dict(res_thresh=5.0)))
+# the merge's pile-up: every patch lands on this cell of op 2's scale 3
+PILE_UP_CELL = (64, 20)
+
+
+def merge_calls(fn):
+    """The inputs of every G5 call in one eager run of ``fn()``, cloned:
+    [(state, grid, cfg, out_h, out_w)]."""
+    from flowonthego_tpu_torch.ops.cuda import fb_merge
+    calls = []
+    launch = fb_merge.fb_merge
+
+    def recorder(state, grid, cfg, out_h, out_w):
+        calls.append((state._replace(p_cur=state.p_cur.clone(),
+                                     mid_org=state.mid_org.clone(),
+                                     cost_px=state.cost_px.clone()),
+                      grid, cfg, out_h, out_w))
+        return launch(state, grid, cfg, out_h, out_w)
+
+    fb_merge.fb_merge = recorder
+    try:
+        from flowonthego_tpu_torch.utils import graphs
+        with graphs.eager():
+            fn()
+    finally:
+        fb_merge.fb_merge = launch
+    return calls
+
+
+def check_merge(state, grid, cfg, h, w, what):
+    """G5 against the plain merge on the card, bit for bit; where the
+    card's sorted ``index_put_`` does not fold in order, against the plain
+    merge's contributions computed on the card and folded in order on the
+    CPU (``index_add_``), bit for bit.  Returns (the accumulator, the
+    plain merge's max abs difference from it, the contributions that land,
+    text to log)."""
+    from flowonthego_tpu_torch.ops import densify as densify_mod
+    from flowonthego_tpu_torch.ops.cuda import fb_merge
+    got = fb_merge.fb_merge(state, grid, cfg, h, w)
+    again = fb_merge.fb_merge(state, grid, cfg, h, w)
+    ref = densify_mod.fb_merge_plain(state, grid, cfg, h, w)
+    idx, vals = densify_mod.fb_merge_contributions(state, grid, cfg, h, w)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got), f"G5 {what}: two runs differ"
+    B, n = got.shape[0], h * w
+    landed = int((idx < B * n).sum())
+    if torch.equal(got, ref):
+        return got, 0.0, landed, "bit-exact with the plain merge"
+    acc = torch.zeros((B * n + 1, 3))
+    acc.index_add_(0, idx.cpu(), vals.cpu())
+    fold = acc[:B * n].reshape(B, h, w, 3)
+    err = max_err(got, ref)
+    assert torch.equal(got.cpu(), fold), \
+        f"G5 {what}: differs from the in-order fold (index_put_ by {err:.3g})"
+    return got, err, landed, ("bit-exact with the in-order fold of the "
+                              f"card's contributions; index_put_ differs by "
+                              f"{err:.3g}")
+
+
+def check_ref(got, ref, cfg):
+    """G6's state against its plain version's: p within TOL_GN_P, cost_px
+    and diff within TOL_GN_COST (compared as x|x| under l1 and huber,
+    whose residual has an infinite slope at 0), on all but GN_FLIP_SHARE
+    of the patches.  Returns (p max_abs_err, text to log)."""
+    def sq(x):
+        return x if cfg.cost_fn == "l2" else x * x.abs()
+
+    assert got.converged.all()
+    off_p = share_off(got.p_cur, ref.p_cur, **TOL_GN_P)
+    off_c = share_off(sq(got.cost_px), sq(ref.cost_px), **TOL_GN_COST)
+    off_d = share_off(sq(got.diff), sq(ref.diff), **TOL_GN_COST)
+    err = max_err(got.p_cur, ref.p_cur)
+    text = (f"p max_abs_err {err:.3g}, cost max_abs_err "
+            f"{max_err(got.cost_px, ref.cost_px):.3g}; patches outside "
+            f"tolerance: p {off_p:.3g}, cost {off_c:.3g}, diff {off_d:.3g} "
+            f"(bound {GN_FLIP_SHARE:g})")
+    assert max(off_p, off_c, off_d) <= GN_FLIP_SHARE, text
+    return err, text
+
+
+def merge_solve_phase(dev):
+    """G5 and G6 (with its 1-D form) against their plain versions on the
+    card: G5 bit for bit on the five merges of the op-2 fb pair and the
+    eleven of the op-4 one at 1024x448, the 4K stream's finest scale,
+    four frames in one launch,
+    every patch outside the frame, every patch piled on one cell and the
+    abs weights; G6 within the flip-share rule at op 2's scale 3 in every
+    mode that takes it, C = 3 and 1, one frame and four, cold and warm,
+    with a strip offset, and at op 4's scale 1 under huber; its 1-D form
+    for cam_lr 0 and 1; its generic form (ps 6 and 10, the state in shared
+    memory), 2-D and 1-D, l1 and huber, C = 3 and 1.  Each timed with its bound, G5 beside
+    ``index_put_`` alone.  Returns the rows' numbers."""
+    import flowonthego_tpu_torch as port
+    from flowonthego_tpu_torch.models import stereo
+    from flowonthego_tpu_torch.ops import densify as densify_mod
+    from flowonthego_tpu_torch.ops import dis as dis_mod
+    from flowonthego_tpu_torch.ops.cuda import bounds, dis_ref, fb_merge
+    from flowonthego_tpu_torch.ops.patches import PatchGrid
+    from flowonthego_tpu_torch.utils.synth import synthetic_pair
+    g = torch.Generator().manual_seed(50)
+    results = {}
+
+    # ---- G5 on the op-2 fb pair's own five merges (timed on the
+    # largest), and op 4's eleven, down to its scale 0 (51,300 patches) ----
+    gold = np.load(GOLDEN[2])
+    seed, shift = int(gold["seed"]), tuple(int(s) for s in gold["shift"])
+    pair = tuple(torch.as_tensor(x, device=dev)
+                 for x in synthetic_pair(seed, 436, 1024, shift))
+    errs, largest = [], {}
+    for op, n_merges in ((2, 5), (4, 11)):
+        cfg_fb = dataclasses.replace(port.operating_point(op, width=1024),
+                                     use_fb_consistency=True)
+        calls = merge_calls(lambda: port.compute_flow(*pair, cfg_fb))
+        assert len(calls) == n_merges, (op, len(calls))
+        for k, (state, grid, cfg, h, w) in enumerate(calls):
+            got, err, landed, text = check_merge(state, grid, cfg, h, w,
+                                                 f"op {op} fb merge {k}")
+            errs.append(err)
+            n_all = 4 * grid.n_patches * grid.patch_size ** 2
+            log(f"G5 fb_merge op {op} fb pair 1024x448, merge {k}: {h}x{w}, "
+                f"{grid.n_patches} patches, {n_all} contributions, "
+                f"{n_all - landed} dropped: {text}")
+            if op not in largest or landed > largest[op][-1]:
+                largest[op] = (state, grid, cfg, h, w, landed)
+    state, grid, cfg, h, w, landed = largest[4]
+    log(f"G5 fb_merge op 4's largest merge ({h}x{w}, {grid.n_patches} "
+        f"patches, {landed} contributions land): "
+        f"{device_ms(lambda: fb_merge.fb_merge(state, grid, cfg, h, w), 5):.4f}"
+        " ms")
+    state, grid, cfg, h, w, landed = largest[2]
+    C = state.cost_px.shape[-1]
+    idx, vals = densify_mod.fb_merge_contributions(state, grid, cfg, h, w)
+    acc = torch.zeros((h * w + 1, 3), device=dev)
+    results["fb_merge"] = kernel_row(
+        device_ms(lambda: fb_merge.fb_merge(state, grid, cfg, h, w), 50),
+        cuda_ms(lambda: densify_mod.fb_merge_plain(state, grid, cfg, h, w),
+                10),
+        bounds.fb_merge_bound(1, grid.n_patches, grid.patch_size, C, h, w,
+                              landed),
+        library_ms=device_ms(
+            lambda: acc.index_put_((idx,), vals, accumulate=True), 20))
+    log(f"G5 fb_merge timed on the largest ({h}x{w}, {landed} "
+        f"contributions land): {timing_text(results['fb_merge'])} "
+        "(index_put_ alone, on the plain merge's indices and values)")
+
+    # ---- G5 on seeded states: the 4K finest scale, a batch of four, all
+    # outside, a pile-up, the abs weights ----
+    def seeded(op, h, w, n, C=3):
+        cfg = port.operating_point(op)
+        grid = PatchGrid.create(cfg, w, h)
+        lead = (n, grid.n_h, grid.n_w)
+        ps = grid.patch_size
+        mid = torch.as_tensor(np.stack(grid.midpoints(), -1),
+                              dtype=torch.float32, device=dev)
+        p = (torch.randn(lead + (2,), generator=g) * 3).to(dev)
+        cost = (torch.rand(lead + (ps, ps, C), generator=g) ** 2
+                * 50).to(dev)
+        st = dis_mod.PatchState(p, p, mid[None].expand(lead + (2,)), None,
+                                None, None, None, None, cost, None)
+        return cfg, grid, st
+
+    big = results["fb_merge"]
+    for what, op, h, w, n, change in (
+            ("4K op 2 scale 5", 2, 68, 120, 1, None),
+            (f"op 2 scale 3, B={B}", 2, 56, 128, B, None),
+            ("op 2 scale 3, every patch outside", 2, 56, 128, 2, "outside"),
+            ("op 2 scale 3, every patch on one cell", 2, 56, 128, 2,
+             "pile-up"),
+            ("op 2 scale 3, abs weights", 2, 56, 128, 1, "abs"),
+            ("op 2 scale 3, C=1", 2, 56, 128, 2, "gray")):
+        cfg, grid, st = seeded(op, h, w, n, 1 if change == "gray" else 3)
+        if change == "outside":
+            st = st._replace(p_cur=st.p_cur + 1e4)
+        elif change == "pile-up":
+            cell = torch.tensor(PILE_UP_CELL, dtype=torch.float32,
+                                device=dev)
+            frac = torch.rand(st.p_cur.shape, generator=g).to(dev) - 0.5
+            st = st._replace(p_cur=(cell - st.mid_org) + frac)
+        elif change == "abs":
+            cfg = dataclasses.replace(cfg, densify_weight="abs")
+        got, err, landed, text = check_merge(st, grid, cfg, h, w, what)
+        errs.append(err)
+        if change == "outside":
+            assert landed == 0 and not got.any(), what
+        log(f"G5 fb_merge {what} ({n}x{h}x{w}, {grid.n_patches} patches a "
+            f"frame, {landed} contributions land): {text}")
+        if change == "pile-up":
+            ms = device_ms(lambda: fb_merge.fb_merge(st, grid, cfg, h, w),
+                           5)
+            log(f"  the pile-up's time: {ms:.4f} ms (spread: "
+                f"{big['ms']:.4f} ms)")
+    big["max_abs_err"] = max(errs)
+
+    # ---- G6 at op 2's scale 3, every mode, C = 3 and 1, B = 1 and 4 ----
+    errs = []
+    for C in (3, 1):
+        for n in (1, B):
+            cfg0, grid, states, I1 = solve_inputs(dev, 2, 56, 128, g, C, n)
+            for mode, fields in REF_MODES:
+                cfg = dataclasses.replace(cfg0, **fields)
+                for start, st in states.items():
+                    got = dis_ref.optimize_reference(st, I1, grid, cfg)
+                    again = dis_ref.optimize_reference(st, I1, grid, cfg)
+                    ref = dis_mod.optimize_reference_plain(st, I1, grid, cfg)
+                    torch.cuda.synchronize()
+                    assert all(torch.equal(a, b) for a, b in
+                               zip(got, again)), "G6 differs between runs"
+                    err, text = check_ref(got, ref, cfg)
+                    errs.append(err)
+                    log(f"G6 dis_ref op 2 {n}x56x128x{C} ({grid.n_patches} "
+                        f"patches a frame, {start}) {mode}: {text}; two "
+                        "runs bit-identical")
+                    if (C, n, mode, start) == (3, 1, "huber", "warm"):
+                        timed = (st, I1, grid, cfg)
+    st, I1, grid, cfg = timed
+    ref, trips = dis_mod.optimize_reference_plain(st, I1, grid, cfg,
+                                                  count_iters=True)
+    b = bounds.ref_bound(1, grid.n_patches, grid.patch_size, 3,
+                         I1.shape[1], I1.shape[2], int(trips.sum()),
+                         int((~st.converged).sum()), cfg.cost_fn)
+    results["dis_ref"] = kernel_row(
+        device_ms(lambda: dis_ref.optimize_reference(st, I1, grid, cfg), 50),
+        cuda_ms(lambda: dis_mod.optimize_reference_plain(st, I1, grid, cfg),
+                5), b)
+    log(f"G6 dis_ref timed at op 2 56x128x3 huber warm ({int(trips.sum())} "
+        f"trips): {timing_text(results['dis_ref'])}")
+    # the strip offset: the target cut by STRIP_CUT, as K2's strip entry
+    r0, c0 = STRIP_CUT
+    cut = I1[:, r0:, c0:].contiguous()
+    off = (float(-c0), float(-r0))
+    got = dis_ref.optimize_reference(st, cut, grid, cfg, off)
+    ref = dis_mod.optimize_reference_plain(st, cut, grid, cfg, off)
+    torch.cuda.synchronize()
+    err, text = check_ref(got, ref, cfg)
+    errs.append(err)
+    log(f"G6 dis_ref op 2 56x128x3 huber warm, target cut by {STRIP_CUT}, "
+        f"offset {off}: {text}")
+    # a block of the grid's rows, as a spatial form's shard solves it: the
+    # block's patches, the global grid's box, the cut target and offset
+    blk = dis_mod.PatchState(*(x[:, 4:9] for x in st))
+    got = dis_mod.optimize_reference(blk, cut, grid, cfg, off)
+    ref = dis_mod.optimize_reference_plain(blk, cut, grid, cfg, off)
+    torch.cuda.synchronize()
+    err, text = check_ref(got, ref, cfg)
+    errs.append(err)
+    log(f"G6 dis_ref op 2 huber warm, grid rows 4-8 of {grid.n_h} as a "
+        f"block, the same offset: {text}")
+    # op 4's scale 1 under huber: 12,825 patches, 128 trips
+    cfg0, grid, states, I1 = solve_inputs(dev, 4, 224, 512, g)
+    cfg = dataclasses.replace(cfg0, cost_fn="huber")
+    st = states["warm"]
+    got = dis_ref.optimize_reference(st, I1, grid, cfg)
+    ref, trips = dis_mod.optimize_reference_plain(st, I1, grid, cfg,
+                                                  count_iters=True)
+    torch.cuda.synchronize()
+    _, text = check_ref(got, ref, cfg)
+    b4 = bounds.ref_bound(1, grid.n_patches, 12, 3, I1.shape[1], I1.shape[2],
+                          int(trips.sum()), int((~st.converged).sum()),
+                          "huber")
+    row4 = kernel_row(
+        device_ms(lambda: dis_ref.optimize_reference(st, I1, grid, cfg), 5),
+        cuda_ms(lambda: dis_mod.optimize_reference_plain(st, I1, grid, cfg),
+                1, 1), b4)
+    log(f"G6 dis_ref op 4 224x512x3 huber warm ({grid.n_patches} patches, "
+        f"{int(trips.sum())} trips): {text}; {timing_text(row4)}")
+    results["dis_ref"]["max_abs_err"] = max(errs)
+
+    # ---- G6's 1-D form (stereo), cam_lr 0 and 1 ----
+    errs = []
+    for cam_lr, C, n in ((0, 3, 1), (0, 1, B), (1, 3, 1), (1, 1, 1)):
+        sx = DEPTH_SHIFT[0] if cam_lr == 0 else -DEPTH_SHIFT[0]
+        cfg0, grid, states, I1 = solve_inputs(dev, 2, 56, 128, g, C, n,
+                                              shift=(sx // 8, 0))
+        cfg = dataclasses.replace(cfg0, use_var_ref=False)
+        for start, st in states.items():
+            got = dis_ref.optimize_1d(st, I1, grid, cfg, cam_lr)
+            ref = stereo.optimize_1d_plain(st, I1, grid, cfg, cam_lr)
+            torch.cuda.synchronize()
+            assert (got.p_cur[..., 1] == 0).all()
+            err, text = check_ref(got, ref, cfg)
+            errs.append(err)
+            log(f"G6 dis_ref 1-D op 2 {n}x56x128x{C} cam_lr {cam_lr} "
+                f"({start}): {text}")
+            if (cam_lr, C, n, start) == (0, 3, 1, "warm"):
+                timed = (st, I1, grid, cfg)
+    st, I1, grid, cfg = timed
+    ref, trips = stereo.optimize_1d_plain(st, I1, grid, cfg, 0,
+                                          count_iters=True)
+    b = bounds.ref_bound(1, grid.n_patches, grid.patch_size, 3,
+                         I1.shape[1], I1.shape[2], int(trips.sum()),
+                         int((~st.converged).sum()), cfg.cost_fn, one_d=True)
+    results["dis_ref_1d"] = kernel_row(
+        device_ms(lambda: dis_ref.optimize_1d(st, I1, grid, cfg, 0), 50),
+        cuda_ms(lambda: stereo.optimize_1d_plain(st, I1, grid, cfg, 0), 5),
+        b, max_abs_err=max(errs))
+    log(f"G6 dis_ref 1-D timed at op 2 56x128x3 cam_lr 0 warm "
+        f"({int(trips.sum())} trips): {timing_text(results['dis_ref_1d'])}")
+
+    # ---- G6's generic form: the patch sizes other than 8 and 12 (K2's
+    # generic sizes in GN_FORM_SIZES), 2-D and 1-D, l1 and huber ----
+    for ps in (6, 10):
+        for C in (3, 1):
+            for one_d in (False, True):
+                shift = (DEPTH_SHIFT[0] // 8, 0) if one_d else (1, 1)
+                cfg0, grid, states, I1 = solve_inputs(
+                    dev, 2, 56, 128, g, C, patch_size=ps, shift=shift)
+                for cost_fn in ("l1", "huber"):
+                    cfg = dataclasses.replace(cfg0, cost_fn=cost_fn)
+                    for start, st in states.items():
+                        if one_d:
+                            got = dis_ref.optimize_1d(st, I1, grid, cfg, 0)
+                            ref = stereo.optimize_1d_plain(st, I1, grid, cfg,
+                                                           0)
+                        else:
+                            got = dis_ref.optimize_reference(st, I1, grid,
+                                                             cfg)
+                            ref = dis_mod.optimize_reference_plain(
+                                st, I1, grid, cfg)
+                        torch.cuda.synchronize()
+                        err, text = check_ref(got, ref, cfg)
+                        row = results["dis_ref_1d" if one_d else "dis_ref"]
+                        row["max_abs_err"] = max(row["max_abs_err"], err)
+                        log(f"G6 dis_ref generic form ps {ps} "
+                            f"{'1-D ' if one_d else ''}op 2 56x128x{C} "
+                            f"({grid.n_patches} patches, {start}) "
+                            f"{cost_fn}: {text}")
+    return results
+
+
 # ------------------------------------------------------------------ batch
 
 B = 4            # frames of a batch, streams of a MultiStream
@@ -1810,7 +2213,7 @@ def cli_phase(dev):
 
     g = np.load(GOLDEN[2])
     seed, shift = int(g["seed"]), tuple(int(s) for s in g["shift"])
-    launches = dict.fromkeys(ALL, 0)
+    launches = dict.fromkeys(COUNTED + ("dis_ref_1d",), 0)
     with tempfile.TemporaryDirectory() as d:
         pairs = {}
         for tag, motion in (("flow", shift), ("depth", DEPTH_SHIFT)):
@@ -1890,7 +2293,7 @@ def cli_phase(dev):
         cmd = cli.parse_command(pairs["flow"]
                                 + [os.path.join(d, "fb_again.flo"), "2",
                                    "--fb"])
-        rc, counts = counted("CLI fb again", lambda: cli.run(cmd), ALL)
+        rc, counts = counted("CLI fb again", lambda: cli.run(cmd), FB)
         for k in launches:
             launches[k] += counts[k]
         again = torch.as_tensor(read_flo(cmd.out))
@@ -1961,7 +2364,7 @@ def graph_phase(dev):
     from flowonthego_tpu_torch.utils import graphs
     from flowonthego_tpu_torch.utils.synth import (synthetic_frames,
                                                    synthetic_pair)
-    launches = dict.fromkeys(ALL, 0)
+    launches = dict.fromkeys(COUNTED + ("dis_ref_1d",), 0)
     log("captured and eager entries (utils/graphs.ENTRIES):")
     log(graphs.table())
 
@@ -2018,6 +2421,15 @@ def graph_phase(dev):
     cfg2 = port.operating_point(2, width=w)
     cfg4 = port.operating_point(4, width=w)
     fb = dataclasses.replace(cfg2, use_fb_consistency=True)
+    huber = dataclasses.replace(cfg2, cost_fn="huber")
+    depth = dataclasses.replace(cfg2, use_var_ref=False)
+    stereo = tuple(torch.as_tensor(x, device=dev)
+                   for x in synthetic_pair(seed, h, w, DEPTH_SHIFT))
+
+    def as_flow(x):     # a disparity map as a flow with v = 0
+        return x if x.dim() == 3 else torch.stack([x, torch.zeros_like(x)],
+                                                  dim=-1)
+
     pads = pad_to_divisible(w, h, cfg2.coarsest_scale)
     pairs = [tuple(torch.as_tensor(x, device=dev)
                    for x in synthetic_pair(BATCH_SEED + b, h, w, s))
@@ -2025,15 +2437,30 @@ def graph_phase(dev):
     I0, I1 = (torch.stack([pad_replicate(p[k], pads) for p in pairs])
               for k in (0, 1))
     graphs.clear()
-    for name, fn, n, per in (
+    plain_only = ("fb_merge", "dis_ref")
+    # (name, call, calls timed, frames a call, kernels that must run and
+    # must not, the call on the plain path to hold it against or None)
+    for name, fn, n, per, expect, absent, plain_fn in (
             ("op 2 compute_flow 1024x436",
-             lambda: port.compute_flow(*pair, cfg2), 10, 1),
+             lambda: port.compute_flow(*pair, cfg2), 10, 1, ALL,
+             plain_only, None),
             (f"op 4 compute_flow 1024x436 {SMALL_SHIFT}",
-             lambda: port.compute_flow(*small, cfg4), 5, 1),
+             lambda: port.compute_flow(*small, cfg4), 5, 1, ALL,
+             plain_only, None),
             ("op 2 fb compute_flow 1024x436",
-             lambda: port.compute_flow(*pair, fb), 10, 1),
+             lambda: port.compute_flow(*pair, fb), 10, 1, FB, ("dis_ref",),
+             lambda: port.compute_flow(*pair, plain(fb))),
+            ("op 2 huber compute_flow 1024x436",
+             lambda: port.compute_flow(*pair, huber), 10, 1, REF,
+             ("gn", "fb_merge"),
+             lambda: port.compute_flow(*pair, plain(huber))),
+            (f"op 2 depth compute_disparity 1024x436 {DEPTH_SHIFT}",
+             lambda: port.compute_disparity(*stereo, depth), 10, 1, DEPTH,
+             VARREF + ("gn", "fb_merge"),
+             lambda: port.compute_disparity(*stereo, plain(depth))),
             (f"op 2 batched_flow B={B}",
-             lambda: port.batched_flow(I0, I1, cfg2), 10, B)):
+             lambda: port.batched_flow(I0, I1, cfg2), 10, B, ALL,
+             plain_only, None)):
         def eager_fn(fn=fn):
             with graphs.eager():
                 return fn()
@@ -2044,7 +2471,11 @@ def graph_phase(dev):
             f"{name}: the wrappers' counts differ from the device's"
         got, counts = counted(f"{name}, 3 calls (eager and recorded, then "
                               "two replays)",
-                              lambda: [fn() for _ in range(3)], ALL)
+                              lambda: [fn() for _ in range(3)], expect,
+                              absent)
+        if plain_fn is not None:
+            flow_band(as_flow(ref), as_flow(plain_fn()),
+                      f"{name} kernels vs plain path")
         add(counts)
         assert all(torch.equal(x, ref) for x in got), \
             f"{name}: captured differs from eager"
@@ -2616,6 +3047,7 @@ def main() -> int:
 
     kernels = phase(kernel_phase)
     kernels.update(phase(glue_phase))
+    kernels.update(phase(merge_solve_phase))
     kernels.update(phase(batch_kernel_phase))
     launches = phase(slice_phase)
     for k, n in phase(cli_phase).items():
@@ -2634,25 +3066,26 @@ def main() -> int:
     phase(tools_phase)
 
     src = "flowonthego_tpu_torch/csrc/"
-    jax_ops = "flowonthego_tpu/ops/"
+    jax_pkg = "flowonthego_tpu/"
     meta = {
-        "pool": ("pool2x2_flat", "pool.cu", "pallas/pool.py:204"),
-        "gn": ("gn_scale_loop", "dis_gn.cu", "pallas/dis_gn.py:310"),
+        "pool": ("pool2x2_flat", "pool.cu", "ops/pallas/pool.py:204"),
+        "gn": ("gn_scale_loop", "dis_gn.cu", "ops/pallas/dis_gn.py:310"),
         "varref": ("variational_refine_fused", "varref_fused.cu",
-                   "pallas/varref_fused.py:250"),
+                   "ops/pallas/varref_fused.py:250"),
         "varref_cluster": ("variational_refine_tiled (cluster route)",
-                           "varref_tiled.cu", "pallas/varref_fused.py:327"),
+                           "varref_tiled.cu",
+                           "ops/pallas/varref_fused.py:327"),
         "varref_tiled": ("variational_refine_tiled (grid route)",
-                         "varref_tiled.cu", "pallas/varref_fused.py:327"),
-        "warp": ("warp_image_banded", "warp.cu", "pallas/warp.py:121"),
+                         "varref_tiled.cu", "ops/pallas/varref_fused.py:327"),
+        "warp": ("warp_image_banded", "warp.cu", "ops/pallas/warp.py:121"),
         # the glue: XLA fusions in the JAX package, no Pallas kernel; the
         # JAX function each computes
         "level": ("pyramid level (pad, gradients)", "level.cu",
-                  "pyramid.py:138"),
+                  "ops/pyramid.py:138"),
         "extract": ("extract_templates_and_hessians", "extract.cu",
-                    "patches.py:119"),
-        "densify": ("densify", "densify.cu", "densify.py:139"),
-        "derivs": ("get_derivatives", "derivs.cu", "variational.py:301"),
+                    "ops/patches.py:119"),
+        "densify": ("densify", "densify.cu", "ops/densify.py:139"),
+        "derivs": ("get_derivatives", "derivs.cu", "ops/variational.py:301"),
     }
     # the batched rows (a batch of B frames, one launch per scale) and
     # K2's bf16 operand kernel
@@ -2660,15 +3093,22 @@ def main() -> int:
         name, source, replaces = meta[key]
         meta[key + "_b4"] = (f"{name} (batch of {B})", source, replaces)
     meta["gn_bf16"] = ("gn_scale_loop (bf16 operands)", "dis_gn.cu",
-                       "pallas/dis_gn.py:310")
+                       "ops/pallas/dis_gn.py:310")
     meta["gn_offset"] = ("gn_scale_loop (strip offset)", "dis_gn.cu",
-                         "pallas/dis_gn.py:310")
+                         "ops/pallas/dis_gn.py:310")
+    # the fb merge and the reference-form solve: XLA in the JAX package
+    meta["fb_merge"] = ("fb merge (_fb_merge_scatter)", "fb_merge.cu",
+                        "ops/densify.py:46")
+    meta["dis_ref"] = ("optimize_reference", "dis_ref.cu", "ops/dis.py:291")
+    meta["dis_ref_1d"] = ("optimize_reference (1-D form, stereo "
+                          "_optimize_1d)", "dis_ref.cu",
+                          "models/stereo.py:33")
     rows = []
     for key, (name, source, replaces) in meta.items():
         r = kernels[key]
         assert launches[key] > 0, f"{name} was not launched on its paths"
         rows.append({"name": name, "route": "cuda", "source": src + source,
-                     "replaces": jax_ops + replaces,
+                     "replaces": jax_pkg + replaces,
                      "launches": launches[key],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -18,9 +18,9 @@
 // compiler keeps those adds).  The channel sum of the weight takes
 // PyTorch's CUDA reduction order over a last dim of three floats, two
 // lanes: (e0 + e2) + e1.  So on the card the kernel equals the plain
-// version bit for bit.  The forward-backward merge's accumulator (a
-// sorted scatter, plain PyTorch) comes in as `add` and is added to the
-// canvas before the normalisation, as in the plain version.
+// version bit for bit.  The forward-backward merge's accumulator (G5,
+// fb_merge.cu) comes in as `add` and is added to the canvas before the
+// normalisation, as in the plain version.
 //
 // Bound: bytes (the per-pixel costs read once, the flow written once;
 // each cost value lands on exactly one pixel).  Neighbouring threads take
@@ -29,27 +29,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace {
+#include "pixel_weight.cuh"
 
-// w of one patch pixel from its C costs, in the plain version's order.
-__device__ __forceinline__ float pixel_weight(const float* __restrict__ e,
-                                              int C, float min_errval,
-                                              int use_sqrt) {
-  float t[3];
-  float sum = 0.0f;
-  for (int c = 0; c < C; ++c) {
-    float v = e[c];
-    if (use_sqrt) v = sqrtf(v);
-    v = v < min_errval ? min_errval : v;   // clamp(min=): NaN passes
-    if (C == 3) {
-      t[c] = v;
-    } else {
-      sum = c == 0 ? v : sum + v;
-    }
-  }
-  if (C == 3) sum = (t[0] + t[2]) + t[1];
-  return 1.0f / sum;
-}
+namespace {
 
 __global__ void glue_densify_kernel(
     const float* __restrict__ p, const float* __restrict__ cost,

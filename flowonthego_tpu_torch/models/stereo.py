@@ -7,7 +7,8 @@ sign-clamped: <= 0 when matching into the right image (``cam_lr == 0``),
 >= 0 into the left.  The output is a dense [H, W] disparity map.
 
 The pyramids go through K1; the 1-D solve is the JAX package's XLA loop
-(no Pallas kernel), here in plain PyTorch on the inputs' device.  On the
+(no Pallas kernel), here the G6 kernel's 1-D form on the card
+(:mod:`..ops.cuda.dis_ref`) and plain PyTorch on the CPU.  On the
 card ``compute_disparity`` runs the padding, ``stereo_disparity_padded``,
 the upsample and the crop as one CUDA graph per (shape, ``cfg``,
 ``cam_lr``, device) (``utils/graphs.py``).
@@ -21,7 +22,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import DISConfig, operating_point, pad_to_divisible, pool_backend
+from ..config import (DISConfig, operating_point, pad_to_divisible,
+                      pool_backend, use_kernel)
 from ..ops import dis as dis_mod
 from ..ops.densify import densify
 from ..ops.patches import PatchGrid, extract_templates_and_hessians
@@ -35,7 +37,27 @@ from .dis_flow import as_image, pin_fp32, upsample_flow_to_full, \
 def _optimize_1d(state: dis_mod.PatchState, I1_pad: torch.Tensor,
                  grid: PatchGrid, cfg: DISConfig,
                  cam_lr: int) -> dis_mod.PatchState:
-    """Fixed-trip 1-D inverse search with the disparity sign clamp."""
+    """Fixed-trip 1-D inverse search with the disparity sign clamp
+    (:func:`optimize_1d_plain`): the G6 kernel's 1-D form
+    (:mod:`..ops.cuda.dis_ref`) where ``cfg.gn_backend`` selects the
+    kernels for ``I1_pad``, the plain version otherwise."""
+    if use_kernel(cfg.gn_backend, I1_pad):
+        from ..ops.cuda import dis_ref
+        return dis_ref.optimize_1d(dis_mod.contiguous_state(state),
+                                   I1_pad.contiguous(), grid, cfg, cam_lr)
+    return optimize_1d_plain(state, I1_pad, grid, cfg, cam_lr)
+
+
+def optimize_1d_plain(state: dis_mod.PatchState, I1_pad: torch.Tensor,
+                      grid: PatchGrid, cfg: DISConfig, cam_lr: int,
+                      count_iters: bool = False):
+    """Fixed-trip 1-D inverse search with the disparity sign clamp, in
+    plain PyTorch: sample at the warm start, then ``grad_descent_iter``
+    trips of a scalar step dpx / H00, the sign clamp, an outlier and box
+    test on x (beyond it: back to ``p_org``, stop), a resample, and a stop
+    where the mean residual is at most ``res_thresh``; v is 0 from the
+    first trip on.  With ``count_iters`` it returns (state, trips [B, n_h,
+    n_w]): the trips each patch ran."""
     # values per patch, channel-generic (gray/gradmag inputs have C = 1)
     n_vals = float(np.prod(state.templates.shape[-3:]))
 
@@ -46,10 +68,14 @@ def _optimize_1d(state: dis_mod.PatchState, I1_pad: torch.Tensor,
         cost_px=dis_mod._where(active0, cost_px, state.cost_px),
         converged=state.converged
         | (active0 & (cost / n_vals <= cfg.res_thresh)))
+    trips = (torch.zeros(cost.shape, dtype=torch.int64, device=cost.device)
+             if count_iters else None)
 
     for _ in range(cfg.grad_descent_iter):
         st = state
         active = ~st.converged
+        if count_iters:
+            trips += active
         dpx = (st.tgrad_x * st.diff).sum(dim=(-3, -2, -1))
         delta = dpx / st.H[..., 0]          # scalar Gauss-Newton step
         d_new = st.p_cur[..., 0] - delta
@@ -73,7 +99,8 @@ def _optimize_1d(state: dis_mod.PatchState, I1_pad: torch.Tensor,
                             cost_px=dis_mod._where(active, cost_px,
                                                    st.cost_px),
                             converged=st.converged | done)
-    return state._replace(converged=torch.ones_like(state.converged))
+    state = state._replace(converged=torch.ones_like(state.converged))
+    return (state, trips) if count_iters else state
 
 
 def stereo_disparity_padded(I_left: torch.Tensor, I_right: torch.Tensor,

@@ -43,6 +43,17 @@ square root each count one):
   merge).
 * G4, derivatives: per pixel and channel the mean (2), Iz (1) and seven
   5-tap stencils of 5 = 38.
+* G5, the fb merge: per patch its landing point, cell, fraction and four
+  bilinear weights = 15; per patch pixel its weight (as G3's, C + 1
+  with the square roots apart) and -u w, -v w = 2; per contribution that
+  lands (a pixel and a corner, counted on the run's inputs) the three
+  products and three adds = 6.
+* G6, the reference-form solve, per value: a sample (4-tap blend 7, the
+  mean's add, its subtraction and the template's = 10), its residual
+  transform (l2 none, l1 4, pseudo-Huber 9) and cost (1) with its sum
+  (1); a projection's products and adds (2-D 4, 1-D 2).  Per patch and
+  trip the window, the step and the tests = 40.  Samples are one a
+  started patch plus one a trip; trips are those the patches really run.
 """
 
 from __future__ import annotations
@@ -70,6 +81,14 @@ EXTRACT_PATCH_FLOPS = 7
 DENSIFY_PIXEL_FLOPS = 3
 DENSIFY_MERGE_FLOPS = 3
 DERIVS_VALUE_FLOPS = 38
+MERGE_PATCH_FLOPS = 15
+MERGE_PIXEL_FLOPS = 2
+MERGE_CONTRIB_FLOPS = 6
+REF_SAMPLE_FLOPS = 10
+REF_TRANSFORM_FLOPS = {"l2": 0, "l1": 4, "huber": 9}
+REF_COST_FLOPS = 2
+REF_PROJECT_FLOPS = {False: 4, True: 2}
+REF_PATCH_TRIP_FLOPS = 40
 
 
 class Bound(NamedTuple):
@@ -195,3 +214,43 @@ def derivs_bound(B: int, h: int, w: int, C: int) -> Bound:
     """G4 on images im1, w_im2 [B, h, w, C] -> dIs [B, 8, C, h, w]."""
     n = B * h * w * C
     return bound(n * (2 + 8) * 4, n * DERIVS_VALUE_FLOPS)
+
+
+def fb_merge_bound(B: int, P: int, ps: int, C: int, h: int, w: int,
+                   n_contrib: int, sqrt: bool = False) -> Bound:
+    """G5 on B frames of P complementary patches (p, midpoints [.., 2],
+    costs [.., ps, ps, C]) -> the accumulator [B, h, w, 3];
+    ``n_contrib``: the (pixel, corner) contributions that land in the
+    frames on these inputs."""
+    n_px = B * P * ps * ps
+    n_bytes = (B * P * 2 * 2 + n_px * C + B * h * w * 3) * 4
+    n_flops = (B * P * MERGE_PATCH_FLOPS
+               + n_px * (C * (2 if sqrt else 1) + MERGE_PIXEL_FLOPS)
+               + n_contrib * MERGE_CONTRIB_FLOPS)
+    return bound(n_bytes, n_flops)
+
+
+def ref_bound(B: int, P: int, ps: int, C: int, Hp: int, Wp: int,
+              trips: int, n_started: int, cost_fn: str = "l2",
+              one_d: bool = False) -> Bound:
+    """G6 on B frames of P patches of ps x ps x C values against padded
+    level images [B, Hp, Wp, C]: ``n_started`` patches not converged on
+    entry, ``trips`` the trips all patches ran on these inputs.  Reads
+    the level; for a started patch its template and gradients (one
+    gradient in 1-D), H (H00 alone in 1-D), midpoint and p_org; for a
+    patch converged on entry its diff and cost, which it returns; for
+    every patch p and the converged flag.  Writes p, diff and cost."""
+    n_patches = B * P
+    N = ps * ps * C
+    n_bytes = (B * Hp * Wp * C * 4
+               + n_started * (N * (2 if one_d else 3)
+                              + (1 if one_d else 3) + 2 + 2) * 4
+               + (n_patches - n_started) * 2 * N * 4
+               + n_patches * 2 * 4 + n_patches
+               + n_patches * 2 * 4 + n_patches * 2 * N * 4)
+    per_sample = (REF_SAMPLE_FLOPS + REF_TRANSFORM_FLOPS[cost_fn]
+                  + REF_COST_FLOPS)
+    n_flops = ((n_started + trips) * N * per_sample
+               + trips * (N * REF_PROJECT_FLOPS[one_d]
+                          + REF_PATCH_TRIP_FLOPS))
+    return bound(n_bytes, n_flops)

@@ -9,9 +9,9 @@ pixel gathers the <= r^2 patch pixels that land on it (r = ceil(ps /
 steps)), with their weights 1 / sum_c max(min_errval, e_c), in the
 plain canvas's order of adds and with no atomics, then divides by the
 weight.  On the card it equals the plain version bit for bit.  The fb
-merge's scatter (``ops/densify._fb_merge_scatter``) stays plain
-PyTorch; its accumulator comes in as ``merge`` and is added before the
-normalisation, as in the plain version.  Bound by bytes: the per-pixel
+merge is a kernel of its own (G5, :mod:`.fb_merge`); its accumulator
+comes in as ``merge`` and is added before the normalisation, as in the
+plain version.  Bound by bytes: the per-pixel
 costs read once (each lands on one pixel), the flow written once.
 
 :func:`densify` launches the kernel for CUDA tensors and runs

@@ -10,13 +10,14 @@ Per-pixel weight absw = 1 / sum_c max(min_errval, cost_px[c]),
 accumulating (absw, absw*u, absw*v), then normalize where the weight is
 positive.  Contributions outside the image are dropped (2-D clipping).
 
-The forward-backward merge (:func:`_fb_merge_scatter`) lands patches at
+The forward-backward merge (:func:`fb_merge_plain`) lands patches at
 optimized, data-dependent positions, so it is a real scatter-add; it
 accumulates in a fixed order (see there).
 
 On the card the weights, the overlap-add, the clip and the normalisation
 are one launch of the G3 kernel (:mod:`.cuda.densify`), a gather in the
-canvas's order of adds; the merge stays this module's scatter.
+canvas's order of adds; the merge is the G5 kernel
+(:mod:`.cuda.fb_merge`), which keeps the merge's order of adds.
 """
 
 from __future__ import annotations
@@ -43,26 +44,24 @@ def _pixel_weights(state: PatchState, cfg: DISConfig) -> torch.Tensor:
 
 def _fb_merge_scatter(state: PatchState, grid: PatchGrid, cfg: DISConfig,
                       out_h: int, out_w: int) -> torch.Tensor:
-    """Complementary-grid merge: scatter the *reversed* backward flow.
+    """Complementary-grid merge: scatter the *reversed* backward flow into
+    a [B, out_h, out_w, 3] (weight, w*u, w*v) accumulator
+    (:func:`fb_merge_plain` says how).  The G5 kernel
+    (:mod:`.cuda.fb_merge`) where ``cfg.gn_backend`` selects the kernels
+    for the state, :func:`fb_merge_plain` otherwise."""
+    if use_kernel(cfg.gn_backend, state.p_cur):
+        from .cuda.fb_merge import fb_merge
+        return fb_merge(state._replace(p_cur=state.p_cur.contiguous(),
+                                       cost_px=state.cost_px.contiguous()),
+                        grid, cfg, out_h, out_w)
+    return fb_merge_plain(state, grid, cfg, out_h, out_w)
 
-    Each complementary patch lands at its optimized position ``mid_org +
-    p_cur`` (coordinates of the other frame); its per-pixel weights are
-    spread bilinearly over the 4 neighbour cells and its NEGATED flow is
-    accumulated.  A pixel counts only where all 4 cells lie inside
-    [1, w-1) x [1, h-1).  Returns a [B, out_h, out_w, 3] (weight, u, v)
-    accumulator.
 
-    Deterministic: one scatter-add for the whole batch takes each frame's
-    contributions in the JAX package's order (corners outer, patches in
-    grid order within a corner), frame after frame, each frame's cells
-    offset by b * out_h * out_w.  Frames never share a cell, so every cell
-    sees the contributions a single-pair merge gives it, in the same
-    order.  On the CPU ``index_add_`` adds serially in that order, as JAX
-    does.  On the card ``index_put_(accumulate=True)`` sorts the flat
-    indices stably and reduces each cell's run without atomics, so two
-    runs agree bit for bit; the run's sum may associate differently from
-    the CPU's.
-    """
+def fb_merge_contributions(state: PatchState, grid: PatchGrid,
+                           cfg: DISConfig, out_h: int, out_w: int):
+    """The merge's contributions: (idx [B*4*ps*ps*n], vals [.., 3]) in the
+    order of :func:`fb_merge_plain`'s fold; a dropped one has index
+    ``B * out_h * out_w`` (one row past the frames) and zero values."""
     ps = grid.patch_size
     B = state.p_cur.shape[0]
     pos = state.mid_org + state.p_cur                 # [B, n_h, n_w, 2]
@@ -98,14 +97,42 @@ def _fb_merge_scatter(state: PatchState, grid: PatchGrid, cfg: DISConfig,
     vals = torch.stack([torch.where(valid[..., None], wb[..., None] * base,
                                     0.0).reshape(B, -1, 3) for wb in wbil],
                        dim=1).reshape(-1, 3)
-    acc = torch.zeros((B * n + 1, 3), dtype=absw.dtype, device=absw.device)
+    return idx, vals
+
+
+def fb_merge_plain(state: PatchState, grid: PatchGrid, cfg: DISConfig,
+                   out_h: int, out_w: int) -> torch.Tensor:
+    """The merge in plain PyTorch (the JAX package's ``_fb_merge_scatter``).
+
+    Each complementary patch lands at its optimized position ``mid_org +
+    p_cur`` (coordinates of the other frame); its per-pixel weights are
+    spread bilinearly over the 4 neighbour cells and its NEGATED flow is
+    accumulated.  A pixel counts only where all 4 cells lie inside
+    [1, w-1) x [1, h-1).  Returns a [B, out_h, out_w, 3] (weight, u, v)
+    accumulator.
+
+    Deterministic: one scatter-add for the whole batch takes each frame's
+    contributions in the JAX package's order (corners outer, patches in
+    grid order within a corner), frame after frame, each frame's cells
+    offset by b * out_h * out_w.  Frames never share a cell, so every cell
+    sees the contributions a single-pair merge gives it, in the same
+    order, and for a fixed corner and patch at most one pixel lands on a
+    cell: each cell's sum is the left fold from +0.0 of its contributions
+    in that order.  On the CPU ``index_add_`` adds serially in that order,
+    as JAX does.  On the card ``index_put_(accumulate=True)`` sorts the
+    flat indices stably and folds each cell's run in sorted order, without
+    atomics, which is the same fold.
+    """
+    idx, vals = fb_merge_contributions(state, grid, cfg, out_h, out_w)
+    B, n = state.p_cur.shape[0], out_h * out_w
+    acc = torch.zeros((B * n + 1, 3), dtype=vals.dtype, device=vals.device)
     return scatter_add(acc, idx, vals)[:B * n].reshape(B, out_h, out_w, 3)
 
 
 def scatter_add(acc: torch.Tensor, idx: torch.Tensor,
                 vals: torch.Tensor) -> torch.Tensor:
     """``acc[idx[k]] += vals[k]`` in place, deterministically (see
-    :func:`_fb_merge_scatter`): a sorted ``index_put_(accumulate=True)``
+    :func:`fb_merge_plain`): a sorted ``index_put_(accumulate=True)``
     on the card, ``index_add_`` (serial, in index order) on the CPU."""
     if acc.is_cuda:
         acc.index_put_((idx,), vals, accumulate=True)
@@ -150,10 +177,11 @@ def densify(state: PatchState, grid: PatchGrid, cfg: DISConfig,
     frame), so none reaches the next frame.
 
     ``compl_state`` optionally merges a complementary (opposite-direction)
-    grid's reversed flow: forward-backward consistency.  The merge's
-    scatter is plain PyTorch; the canvas and the normalisation are the G3
-    kernel (:mod:`.cuda.densify`) where ``cfg.gn_backend`` selects the
-    kernels for the state, and :func:`densify_plain` otherwise."""
+    grid's reversed flow: forward-backward consistency.  The merge is the
+    G5 kernel and the canvas and the normalisation the G3 kernel
+    (:mod:`.cuda.fb_merge`, :mod:`.cuda.densify`) where ``cfg.gn_backend``
+    selects the kernels for the state, and :func:`fb_merge_plain` and
+    :func:`densify_plain` otherwise."""
     merge = None
     if compl_state is not None:
         merge = _fb_merge_scatter(compl_state, grid, cfg, grid.height,

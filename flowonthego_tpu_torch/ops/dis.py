@@ -11,7 +11,8 @@ step leaves the outlier radius or the midpoint box resets to ``p_org``
 :func:`.cuda.dis_gn.gn_scale_loop`: the K2 kernel on the card, the JAX
 package's reduction form in plain PyTorch otherwise.  The robust costs,
 the ``min_iter`` early exits and ``res_thresh > 0`` take
-:func:`optimize_reference`, as in the JAX package.
+:func:`optimize_reference`, as in the JAX package: the G6 kernel on the
+card (:mod:`.cuda.dis_ref`), :func:`optimize_reference_plain` otherwise.
 
 ``cfg.dtype="bfloat16"`` is the Pallas kernel's operand mode: the level
 image, the templates and their gradients are rounded to bf16 once per
@@ -155,21 +156,44 @@ def _where(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
     return torch.where(mask.reshape(mask.shape + (1,) * extra), a, b)
 
 
+def contiguous_state(state: PatchState) -> PatchState:
+    """``state`` in the kernels' layout: every per-patch field contiguous
+    (``mid_org`` may stay the grid's expanded constant)."""
+    return state._replace(**{
+        k: getattr(state, k).contiguous()
+        for k in PatchState._fields if k != "mid_org"})
+
+
 def optimize_reference(state: PatchState, I1_pad: torch.Tensor,
                        grid: PatchGrid, cfg: DISConfig,
                        sample_offset=None) -> PatchState:
-    """The reference-form solve: the residual tensor is materialized every
-    iteration, so any cost transform and the 4-clause convergence test
-    apply.  The JAX package runs this form in XLA for l1/huber costs,
-    ``min_iter`` early exits and ``res_thresh > 0``; it has no Pallas
-    kernel, so this plain PyTorch version is its port on the card too.
+    """The reference-form solve (:func:`optimize_reference_plain`): the
+    G6 kernel (:mod:`.cuda.dis_ref`) where ``cfg.gn_backend`` selects the
+    kernels for ``I1_pad``, the plain version otherwise."""
+    if use_kernel(cfg.gn_backend, I1_pad):
+        from .cuda import dis_ref
+        return dis_ref.optimize_reference(contiguous_state(state),
+                                          I1_pad.contiguous(), grid, cfg,
+                                          sample_offset)
+    return optimize_reference_plain(state, I1_pad, grid, cfg, sample_offset)
+
+
+def optimize_reference_plain(state: PatchState, I1_pad: torch.Tensor,
+                             grid: PatchGrid, cfg: DISConfig,
+                             sample_offset=None, count_iters: bool = False):
+    """The reference-form solve in plain PyTorch: the residual tensor is
+    materialized every iteration, so any cost transform and the 4-clause
+    convergence test apply.  The JAX package runs this form in XLA for
+    l1/huber costs, ``min_iter`` early exits and ``res_thresh > 0``.
 
     Order as the JAX loop: sample at the warm start first, then
     ``grad_descent_iter`` trips of project -> outlier reset -> resample ->
     convergence test, every patch masked once converged.  Below
     ``min_iter`` (None: ``grad_descent_iter``) the dp/dr clauses cannot
     stop a patch.  Every patch ends converged.  ``sample_offset``: see
-    :func:`_sample_residual` (the tests stay global).
+    :func:`_sample_residual` (the tests stay global).  With
+    ``count_iters`` it returns (state, trips [B, n_h, n_w]): the trips
+    each patch ran, the work a bound on these inputs counts.
     """
     # values per patch, channel-generic (gray/gradmag inputs have C = 1)
     n_vals = float(np.prod(state.templates.shape[-3:]))
@@ -187,10 +211,14 @@ def optimize_reference(state: PatchState, I1_pad: torch.Tensor,
     # the previous trip's mares and the first trip's |delta_p|^2
     mares_prev = mares
     dp_init = torch.full_like(mares, 1e-10)
+    trips = (torch.zeros(mares.shape, dtype=torch.int64, device=mares.device)
+             if count_iters else None)
 
     for cnt in range(1, max_iter + 1):
         st = state
         active = ~st.converged
+        if count_iters:
+            trips += active
         # projection: delta_p = H^-1 J^T diff
         dpx = (st.tgrad_x * st.diff).sum(dim=_PATCH)
         dpy = (st.tgrad_y * st.diff).sum(dim=_PATCH)
@@ -236,7 +264,8 @@ def optimize_reference(state: PatchState, I1_pad: torch.Tensor,
         state = st._replace(diff=_where(active, diff, st.diff),
                             cost_px=_where(active, cost_px, st.cost_px),
                             converged=st.converged | done_now)
-    return state._replace(converged=torch.ones_like(state.converged))
+    state = state._replace(converged=torch.ones_like(state.converged))
+    return (state, trips) if count_iters else state
 
 
 def optimize(state: PatchState, I1_pad: torch.Tensor, grid: PatchGrid,

@@ -11,8 +11,9 @@ around this script (``utils.profiling.trace``) shows the paths by name.
 
 For each path: the wall time per pair without the profiler (host clock,
 ending in a sync), then ``torch.profiler`` over the same calls: device
-time per pair split by kernel (K1-K5, the glue kernels G1-G4, the small
-PyTorch kernels left, GEMMs, copies, the fb merge's sorted scatter),
+time per pair split by kernel (K1-K5, the glue kernels G1-G4, the fb
+merge G5, the reference-form solve G6, the small PyTorch kernels left,
+GEMMs, copies, the plain fb merge's sorted scatter where it still runs),
 device launches per pair, and the busy share (device time over the
 unprofiled wall time).
 The inputs are the seeded 1024x436 scenes of ``chip_smoke.py``: the
@@ -46,7 +47,11 @@ CATEGORIES = (("dis_gn_kernel", "K2 gn"),
               ("glue_level_kernel", "G1 level"),
               ("glue_extract_kernel", "G2 extract"),
               ("glue_densify_kernel", "G3 densify"),
-              ("glue_derivs_kernel", "G4 derivs"), ("Memcpy", "copies"),
+              ("glue_derivs_kernel", "G4 derivs"),
+              ("fb_merge_bin_kernel", "G5 fb merge bins"),
+              ("fb_merge_kernel", "G5 fb merge cells"),
+              ("dis_ref_1d_kernel", "G6 dis_ref 1-D"),
+              ("dis_ref_kernel", "G6 dis_ref"), ("Memcpy", "copies"),
               ("memcpy", "copies"),     # CUDA's own copy kernels
               ("Memset", "copies"), ("gemm", "GEMM"),
               ("indexing_backward_kernel", "index_put sort+sum"),
@@ -64,26 +69,28 @@ def device_breakdown(fn, reps: int, skip: str = ""):
     """(total device ms, {category: (ms, launches)}) of ``reps`` calls;
     ``skip`` names an ``annotate`` range around the calls, whose span on
     the device timeline is no kernel.  The tracer sometimes loses the
-    device events at the start of what it records, so the profile starts
-    in a warm-up step and the recorded step begins with 32 throw-away
-    kernels that no path runs (digamma): they are left out, and a profile
-    that does not show all of them is taken again."""
+    device events at the start of what it records, and sometimes shows
+    the warm-up step's in the recorded one, so the profile starts in a
+    warm-up step of 32 throw-away kernels that no path runs (lgamma) and
+    the recorded step begins with 32 others (digamma): both are left out,
+    and a profile that does not show exactly 32 digamma kernels is taken
+    again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     scratch = torch.ones(1, device="cuda")
 
-    def throw_away():
+    def throw_away(op):
         for _ in range(32):
-            scratch.digamma_()
+            op()
         torch.cuda.synchronize()
 
-    for _ in range(4):
+    for _ in range(8):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-            throw_away()
+            throw_away(scratch.lgamma_)
             prof.step()
-            throw_away()
+            throw_away(scratch.digamma_)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -92,17 +99,17 @@ def device_breakdown(fn, reps: int, skip: str = ""):
         for e in prof.events():
             if e.device_type != DeviceType.CUDA or e.name == skip:
                 continue
-            if "digamma" in e.name:
-                thrown += 1
+            if "digamma" in e.name or "lgamma" in e.name:
+                thrown += "digamma" in e.name
                 continue
             row = per[category(e.name)]
             row[0] += e.time_range.elapsed_us() / 1e3
             row[1] += 1
         if thrown == 32:
             return sum(ms for ms, _ in per.values()), per
-        print(f"   (incomplete profile: {32 - thrown} of 32 throw-away "
-              "kernels lost; taken again)", flush=True)
-    raise RuntimeError("four profiles in a row were incomplete")
+        print(f"   (incomplete profile: {thrown} of 32 throw-away kernels "
+              "shown; taken again)", flush=True)
+    raise RuntimeError("eight profiles in a row were incomplete")
 
 
 def wall_ms(fn, reps: int) -> float:

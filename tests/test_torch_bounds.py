@@ -85,6 +85,33 @@ CASES = {
     "G4 448x1024x3": (
         lambda: bounds.derivs_bound(1, 448, 1024, 3),
         1_376_256 * 10 * 4, 1_376_256 * 38, "bytes"),
+    # G5 at op 2's scale 3 of 1024x448 (56x128, 448 patches of 8x8x3):
+    # p and midpoints 2 + 2 a patch, the costs, the accumulator out; 15 a
+    # patch, C + 2 = 5 a patch pixel, 6 for each of 100,000 contributions
+    "G5 op 2 scale 3": (
+        lambda: bounds.fb_merge_bound(1, 448, 8, 3, 56, 128, 100_000),
+        (448 * 4 + 448 * 64 * 3 + 56 * 128 * 3) * 4,
+        448 * 15 + 448 * 64 * 5 + 100_000 * 6, "bytes"),
+    # G6 there under pseudo-Huber, level 72x144x3, every patch started and
+    # running its 12 trips: the level, T, gx, gy, H, midpoints, p_org (7
+    # floats) a started patch, p (2 floats) and a flag a patch, p, diff,
+    # cost out (no entry diff and cost: no patch converged on entry); a
+    # sample 10 + 9 + 2 a value, a trip 4 a value and 40
+    "G6 op 2 scale 3 huber": (
+        lambda: bounds.ref_bound(1, 448, 8, 3, 72, 144, 448 * 12, 448,
+                                 "huber"),
+        124_416 + 448 * 192 * 4 * 3 + 448 * 28 + 448 * 8 + 448 + 448 * 8
+        + 448 * 2 * 192 * 4,
+        (448 + 5_376) * 192 * 21 + 5_376 * (192 * 4 + 40), "bytes"),
+    # its 1-D form under l2: one gradient and H00 in a started patch (400
+    # of them), the entry diff and cost of the 48 converged on entry;
+    # 1,000 trips; a sample 10 + 2 a value, a trip 2 a value and 40
+    "G6 1-D op 2 scale 3": (
+        lambda: bounds.ref_bound(1, 448, 8, 3, 72, 144, 1_000, 400,
+                                 one_d=True),
+        124_416 + 400 * (192 * 2 + 5) * 4 + 48 * 2 * 192 * 4 + 448 * 8
+        + 448 + 448 * 8 + 448 * 2 * 192 * 4,
+        1_400 * 192 * 12 + 1_000 * (192 * 2 + 40), "bytes"),
 }
 
 
@@ -145,6 +172,10 @@ def test_gn_counts_live_iterations():
      lambda: bounds.densify_bound(4, 56, 128, 3, 448, 8, merge=True)),
     ("G4", lambda: bounds.derivs_bound(1, 56, 128, 3),
      lambda: bounds.derivs_bound(4, 56, 128, 3)),
+    ("G5", lambda: bounds.fb_merge_bound(1, 448, 8, 3, 56, 128, 1_000),
+     lambda: bounds.fb_merge_bound(4, 448, 8, 3, 56, 128, 4_000)),
+    ("G6", lambda: bounds.ref_bound(1, 448, 8, 3, 72, 144, 500, 448, "l1"),
+     lambda: bounds.ref_bound(4, 448, 8, 3, 72, 144, 2_000, 1_792, "l1")),
 ])
 def test_batch_counts_b_frames(name, one, batch):
     a, b = one(), batch()

@@ -20,9 +20,10 @@ from flowonthego_tpu_torch.ops import dis as dis_mod
 from flowonthego_tpu_torch.ops import densify as densify_mod
 from flowonthego_tpu_torch.ops import patches as patches_mod
 from flowonthego_tpu_torch.ops import pyramid as pyramid_mod
-from flowonthego_tpu_torch.ops.cuda import (densify, derivs, dis_gn, extract,
-                                            level, pool, varref_fused,
-                                            varref_tiled, warp)
+from flowonthego_tpu_torch.models import stereo as stereo_mod
+from flowonthego_tpu_torch.ops.cuda import (densify, derivs, dis_gn, dis_ref,
+                                            extract, fb_merge, level, pool,
+                                            varref_fused, varref_tiled, warp)
 from flowonthego_tpu_torch.ops.patches import (PatchGrid,
                                                extract_templates_and_hessians)
 from flowonthego_tpu_torch.ops.pyramid import build_pyramid
@@ -923,3 +924,198 @@ def test_glue_derivs_kernel(cuda, n, C, h, w):
     got = derivs.derivatives(im1, w_im2)
     assert derivs.launches == n0 + 1
     assert torch.equal(got, derivs.derivatives_plain(im1, w_im2))
+
+
+# ------------------------------------------- G5 (fb merge), G6 (dis_ref)
+
+def _merge_state(device, case, n, C, h=56, w=128):
+    """A complementary state of ``n`` frames at op 2's geometry with
+    seeded flows and costs: scattered, every patch outside the frame, or
+    every patch piled on one cell."""
+    cfg = port.operating_point(2)
+    grid = PatchGrid.create(cfg, w, h)
+    g = torch.Generator().manual_seed(7)
+    lead = (n, grid.n_h, grid.n_w)
+    ps = grid.patch_size
+    mid = torch.as_tensor(np.stack(grid.midpoints(), -1),
+                          dtype=torch.float32)[None].expand(lead + (2,))
+    p = torch.randn(lead + (2,), generator=g) * 3
+    if case == "outside":
+        p = p + 1e4
+    elif case == "pile-up":
+        p = (torch.tensor([w / 2, h / 3]) - mid
+             + torch.rand(lead + (2,), generator=g) - 0.5)
+    cost = torch.rand(lead + (ps, ps, C), generator=g) ** 2 * 50
+    state = dis_mod.PatchState(p.to(device), None, mid.to(device), None,
+                               None, None, None, None, cost.to(device), None)
+    return cfg, grid, state
+
+
+@pytest.mark.parametrize("case,n,C,weight", [
+    ("scattered", 1, 3, "squared"), ("scattered", 4, 1, "squared"),
+    ("scattered", 2, 3, "abs"), ("outside", 2, 3, "squared"),
+    ("pile-up", 2, 3, "squared")])
+def test_fb_merge_kernel(cuda, case, n, C, weight):
+    """G5 against the plain merge (a stably sorted index_put_ that folds
+    each cell in order), bit for bit; one launch a call."""
+    cfg, grid, state = _merge_state(cuda, case, n, C)
+    cfg = dataclasses.replace(cfg, densify_weight=weight)
+    n0 = fb_merge.launches
+    got = fb_merge.fb_merge(state, grid, cfg, grid.height, grid.width)
+    assert fb_merge.launches == n0 + 1
+    ref = densify_mod.fb_merge_plain(state, grid, cfg, grid.height,
+                                     grid.width)
+    assert torch.equal(got, ref)
+    if case == "outside":
+        assert not got.any()
+
+
+def _ref_close(got, ref, cost_fn):
+    """G6 against its plain version: p within 1e-4, cost and diff within
+    1e-3 (as x|x| under the robust costs) on all but 1% of the patches
+    (an ulp of a reduction can flip a ratio test or an outlier reset)."""
+    def off(a, b, tol):
+        bad = (a - b).abs() > tol * (1 + b.abs())
+        return float(bad.reshape(*bad.shape[:3], -1).any(-1).float().mean())
+
+    def sq(x):
+        return x if cost_fn == "l2" else x * x.abs()
+
+    assert got.converged.all()
+    assert off(got.p_cur, ref.p_cur, 1e-4) <= 0.01
+    assert off(sq(got.cost_px), sq(ref.cost_px), 1e-3) <= 0.01
+    assert off(sq(got.diff), sq(ref.diff), 1e-3) <= 0.01
+
+
+@pytest.mark.parametrize("fields", [dict(cost_fn="l1"),
+                                    dict(cost_fn="huber"),
+                                    dict(cost_fn="l1", min_iter=4),
+                                    dict(res_thresh=5.0)])
+@pytest.mark.parametrize("warm,channels,n_frames,offset", [
+    (False, 3, 1, None), (True, 1, 2, None), (True, 3, 1, (-3.0, -2.0))])
+def test_dis_ref_kernel(cuda, fields, warm, channels, n_frames, offset):
+    """G6 through ``optimize`` (the modes that take the reference-form
+    solve) against the plain version, with a strip offset (the target cut
+    by (2, 3)); one launch, no K2."""
+    cfg, grid, state, I1p = _level_state(cuda, 56, 128, warm, channels,
+                                         n_frames)
+    cfg = dataclasses.replace(cfg, **fields)
+    if offset is not None:
+        I1p = I1p[:, 2:, 3:].contiguous()
+    n0, k0 = dis_ref.launches, dis_gn.launches
+    got = dis_mod.optimize(state, I1p, grid, cfg, offset)
+    assert dis_ref.launches == n0 + 1 and dis_gn.launches == k0
+    ref = dis_mod.optimize_reference_plain(state, I1p, grid, cfg, offset)
+    _ref_close(got, ref, cfg.cost_fn)
+    again = dis_ref.optimize_reference(state, I1p, grid, cfg, offset)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_dis_ref_kernel_on_a_block(cuda):
+    """G6 on a block of the grid's rows, as a spatial form's shard solves
+    it (its patches, the global grid's box, a strip of the target and
+    the offset into it), against the plain version."""
+    cfg, grid, state, I1p = _level_state(cuda, 56, 128, True)
+    cfg = dataclasses.replace(cfg, cost_fn="l1")
+    block = dis_mod.PatchState(*(x[:, 3:7] for x in state))
+    strip = I1p[:, 10:40].contiguous()
+    n0 = dis_ref.launches
+    got = dis_mod.optimize(block, strip, grid, cfg, (0.0, -10.0))
+    assert dis_ref.launches == n0 + 1 and got.p_cur.shape[1] == 4
+    _ref_close(got, dis_mod.optimize_reference_plain(
+        block, strip, grid, cfg, (0.0, -10.0)), cfg.cost_fn)
+
+
+@pytest.mark.parametrize("cam_lr,channels,n_frames", [(0, 3, 1), (1, 1, 2)])
+def test_dis_ref_1d_kernel(cuda, cam_lr, channels, n_frames):
+    """G6's 1-D form (stereo) against its plain version: v zero, the
+    sign clamp where p_org is 0."""
+    cfg, grid, state, I1p = _level_state(cuda, 56, 128, False, channels,
+                                         n_frames)
+    n0 = dis_ref.launches_1d
+    got = stereo_mod._optimize_1d(state, I1p, grid, cfg, cam_lr)
+    assert dis_ref.launches_1d == n0 + 1
+    ref = stereo_mod.optimize_1d_plain(state, I1p, grid, cfg, cam_lr)
+    _ref_close(got, ref, "l2")
+    assert (got.p_cur[..., 1] == 0).all()
+    d = got.p_cur[..., 0]
+    assert (d <= 0).all() if cam_lr == 0 else (d >= 0).all()
+
+
+@pytest.mark.parametrize("ps", [6, 10])
+@pytest.mark.parametrize("cost_fn", ["l1", "huber"])
+@pytest.mark.parametrize("channels", [3, 1])
+def test_dis_ref_generic_form(cuda, ps, cost_fn, channels):
+    """G6's generic form (a patch size other than 8 and 12: the state in
+    shared memory), 2-D from a warm start and 1-D from a cold one,
+    against the plain versions."""
+    cfg, grid, state, I1p = _level_state(cuda, 56, 128, True, channels,
+                                         patch_size=ps)
+    cfg = dataclasses.replace(cfg, cost_fn=cost_fn)
+    n0, k0 = dis_ref.launches, dis_ref.launches_1d
+    got = dis_ref.optimize_reference(state, I1p, grid, cfg)
+    _ref_close(got, dis_mod.optimize_reference_plain(state, I1p, grid, cfg),
+               cost_fn)
+    cfg, grid, state, I1p = _level_state(cuda, 56, 128, False, channels,
+                                         patch_size=ps)
+    cfg = dataclasses.replace(cfg, cost_fn=cost_fn)
+    got = dis_ref.optimize_1d(state, I1p, grid, cfg, 0)
+    _ref_close(got, stereo_mod.optimize_1d_plain(state, I1p, grid, cfg, 0),
+               cost_fn)
+    assert (dis_ref.launches, dis_ref.launches_1d) == (n0 + 2, k0 + 1)
+
+
+@pytest.mark.parametrize("mode", ["fb", "huber", "depth"])
+def test_captured_paths_through_g5_g6(cuda, mode):
+    """The fb, huber and depth paths launch G5 / G6 eagerly, and their
+    replayed graphs equal the eager call bit for bit."""
+    cfg = dataclasses.replace(port.operating_point(2, width=256),
+                              coarsest_scale=4)
+    shift = (-2, 0) if mode == "depth" else (2, 1)
+    i0, i1 = (torch.as_tensor(x, device=cuda) for x in
+              synthetic_frames(3, 2, 124, 256, shift, factor=4))
+    if mode == "depth":
+        cfg = dataclasses.replace(cfg, use_var_ref=False)
+        fn = lambda: port.compute_disparity(i0, i1, cfg)  # noqa: E731
+        mod = dis_ref
+    else:
+        cfg = dataclasses.replace(cfg, **(
+            dict(use_fb_consistency=True) if mode == "fb"
+            else dict(cost_fn="huber")))
+        fn = lambda: port.compute_flow(i0, i1, cfg)  # noqa: E731
+        mod = fb_merge if mode == "fb" else dis_ref
+    n0 = mod.launches
+    ref, got, _ = _eager_then_captured(fn)
+    assert mod.launches > n0
+    assert all(torch.equal(g, ref) for g in got)
+
+
+def test_g5_g6_raise_on_what_they_cannot_take(cuda):
+    """No quiet plain version on the card: a wrong dtype, mixed devices,
+    tensors on the CPU and a patch beyond the kernel's 1024 values
+    raise."""
+    cfg, grid, state = _merge_state(cuda, "scattered", 1, 3)
+    with pytest.raises(ValueError):
+        fb_merge.fb_merge(state._replace(cost_px=state.cost_px.double()),
+                          grid, cfg, grid.height, grid.width)
+    with pytest.raises(ValueError):
+        fb_merge.fb_merge(state._replace(mid_org=state.mid_org.cpu()),
+                          grid, cfg, grid.height, grid.width)
+    with pytest.raises(ValueError):
+        fb_merge.fb_merge(dis_mod.PatchState(*(
+            None if x is None else x.cpu() for x in state)),
+            grid, cfg, grid.height, grid.width)
+    cfg, grid, st, I1p = _level_state(cuda, 56, 128, False)
+    cfg = dataclasses.replace(cfg, cost_fn="huber")
+    with pytest.raises(ValueError):
+        dis_ref.optimize_reference(st._replace(H=st.H.cpu()), I1p, grid, cfg)
+    with pytest.raises(ValueError):
+        dis_ref.optimize_reference(dis_mod.PatchState(*(
+            x.cpu() for x in st)), I1p.cpu(), grid, cfg)
+    with pytest.raises(ValueError):
+        stereo_mod._optimize_1d(st._replace(p_cur=st.p_cur.double()), I1p,
+                                grid, cfg, 0)
+    cfg, grid, st, I1p = _level_state(cuda, 56, 128, False, patch_size=20)
+    with pytest.raises(ValueError, match="1024"):
+        dis_ref.optimize_reference(st, I1p, grid,
+                                   dataclasses.replace(cfg, cost_fn="l1"))

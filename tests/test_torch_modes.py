@@ -48,13 +48,16 @@ def _numpy_state(state):
 
 # ------------------------------------------------ reference-form solve
 
+@pytest.mark.parametrize("entry", ["optimize", "optimize_reference_plain"])
 @pytest.mark.parametrize("warm", [False, True])
 @pytest.mark.parametrize("mode", [dict(cost_fn="l1"), dict(cost_fn="huber"),
                                   dict(min_iter=2), dict(res_thresh=20.0)])
-def test_optimize_reference_matches_jax(rng, mode, warm):
+def test_optimize_reference_matches_jax(rng, mode, warm, entry):
     """p atol 1e-4, cost_px rtol/atol 1e-3, as the K2 test: the same
     values summed in another order.  The warm start freezes some patches
-    at once and sends others through the outlier reset.
+    at once and sends others through the outlier reset.  ``entry``: the
+    public solve (which sends these modes to ``optimize_reference``, and
+    CPU tensors on to its plain version) or the plain version itself.
 
     The robust costs store a transformed residual whose slope is infinite
     at 0 (l1: sign(d) sqrt|d|) or which cancels to 0 below |d| ~ 1e-3
@@ -74,8 +77,8 @@ def test_optimize_reference_matches_jax(rng, mode, warm):
     ref = jdis.optimize(jstate, I1p, grid, jc)
 
     pc = config_from_jax(dataclasses.asdict(jc))
-    got = pdis.optimize(_numpy_state(jstate), _t(I1p)[None],
-                        ppatches.PatchGrid.create(pc, 64, 48), pc)
+    got = getattr(pdis, entry)(_numpy_state(jstate), _t(I1p)[None],
+                               ppatches.PatchGrid.create(pc, 64, 48), pc)
     robust = jc.cost_fn != "l2"
     np.testing.assert_allclose(got.p_cur[0].numpy(), np.asarray(ref.p_cur),
                                rtol=1e-4, atol=1e-3 if robust else 1e-4)
