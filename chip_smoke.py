@@ -34,7 +34,9 @@ Phases (any failure raises and the script exits non-zero):
      at op 4's scale 0, op 2's scales 3 and 5 and op 1's scale 3 of
      1024x448, the 4K stream's finest scale and a 4x8 cut, C = 3 and 1,
      one frame and four in one launch, timed at op 4's scale 0 with their
-     bounds: G1, G3 and G4 bit for bit, G2's windows bit for bit, its
+     bounds (G3 also at every level, with and without a merge, and at
+     448x1030, where op 4's last chunk of patch columns ends inside the
+     patches' reach): G1, G3 and G4 bit for bit, G2's windows bit for bit, its
      templates within 1e-4 and its Hessians within 1e-5 of the largest
      entry, its det == 0 bumps (flat and striped patches) exactly; then
      (``merge_solve_phase``) G5 bit for bit against the plain merge on
@@ -42,8 +44,11 @@ Phases (any failure raises and the script exits non-zero):
      ``index_put_`` folds each cell in order; where it does not, G5 is
      held to the in-order fold of the card's contributions on the CPU),
      the 4K stream's finest scale, four frames in one launch, every patch
-     outside the frame, every patch on one cell, the abs weights and
-     C = 1, timed on the largest merge beside ``index_put_`` alone; G6
+     outside the frame, every patch on one cell (op 2's scale 3, and op
+     4's scale 2, whose tile takes its candidates in windows), the abs
+     weights and C = 1, timed on the op-2 pair's largest merge and at op
+     4's scale 0 with its bound, beside ``index_put_`` alone, split into
+     its sort and cell launches; G6
      against its plain version at op 2's scale 3 under l1, huber, l1 with
      ``min_iter`` 4 and ``res_thresh`` 5, C = 3 and 1, one frame and four,
      cold and warm, with a strip offset, and at op 4's scale 1 under
@@ -97,8 +102,8 @@ Phases (any failure raises and the script exits non-zero):
   9. the captured paths (``utils/graphs.py``: every entry point of phases
      4-8 already ran through its CUDA graph from its second call on) at
      full width, each counted as in phase 4: op 2, op 4 on the (2,
-     2) pair, op 2 with forward-backward consistency (through G5, with no
-     device event of the plain merge's sorted scatter) and op 2 under
+     2) pair, op 2 and op 4 with forward-backward consistency (through G5,
+     with no device event of the plain merge's sorted scatter), op 2 under
      huber (G6, no K2) through ``compute_flow`` at 1024x436, op 2 depth
      through ``compute_disparity`` (G6's 1-D form), the last three also
      against the plain path, ``batched_flow`` of four, the op-2
@@ -454,14 +459,16 @@ def _name_re(name):
 
 # The kernels' names on the device, as a profile shows them (K2's bf16
 # form is the same kernel compiled for __nv_bfloat16 loads; G5 counts by
-# its second launch, one a call).
+# its cell launch, one a call: a tile a CTA, or a warp a cell on a small
+# frame).
 KERNEL_NAMES = {"pool": "pool2x2_kernel", "gn": "dis_gn_kernel",
                 "varref": "varref_kernel",
                 "varref_cluster": "varref_cluster_kernel",
                 "varref_tiled": "varref_tiled_kernel", "warp": "warp_kernel",
                 "level": "glue_level_kernel", "extract": "glue_extract_kernel",
                 "densify": "glue_densify_kernel",
-                "derivs": "glue_derivs_kernel", "fb_merge": "fb_merge_kernel",
+                "derivs": "glue_derivs_kernel",
+                "fb_merge": "fb_merge_(?:warp_)?kernel",
                 "dis_ref": "dis_ref_kernel"}
 KERNEL_RE = {k: _name_re(name) for k, name in KERNEL_NAMES.items()}
 # K2's strip-offset entry (the spatial forms' sharded scales), counted
@@ -483,7 +490,7 @@ COPY = "device-to-device copy"
 COPY_RE = re.compile(r"^Memcpy DtoD|^memcpy\d+|direct_copy_kernel_cuda")
 
 
-def profiled(fn, before=None):
+def profiled(fn, before=None, ms_by_name=None):
     """Run ``fn`` under ``torch.profiler`` to a sync: (result, Counter of
     the device events' names, device ms, the host's launch calls, of which
     graph launches).  The device events are what ran on the card, whether
@@ -496,7 +503,8 @@ def profiled(fn, before=None):
     step begins with THROW_AWAY others (digamma): both are left out of the
     counts, and a profile that does not show exactly THROW_AWAY digamma
     kernels is incomplete, is discarded and taken again (``before()`` is
-    called ahead of every attempt)."""
+    called ahead of every attempt).  ``ms_by_name``, a dict, gets the
+    complete profile's device ms by event name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     scratch = torch.ones(1, device="cuda")
@@ -517,6 +525,7 @@ def profiled(fn, before=None):
             out = fn()
             torch.cuda.synchronize()
         names = collections.Counter()
+        by_name = collections.Counter()
         host_n = graph_n = thrown = 0
         dev_us = 0.0
         for e in prof.events():
@@ -526,10 +535,13 @@ def profiled(fn, before=None):
                     continue
                 names[COPY if COPY_RE.search(e.name) else e.name] += 1
                 dev_us += e.time_range.elapsed_us()
+                by_name[e.name] += e.time_range.elapsed_us() / 1e3
             elif e.name.startswith(LAUNCH_CALLS):
                 host_n += 1
                 graph_n += e.name.startswith("cudaGraphLaunch")
         if thrown == THROW_AWAY:
+            if ms_by_name is not None:
+                ms_by_name.update(by_name)
             return out, names, dev_us / 1e3, host_n - thrown, graph_n
         log(f"  (the tracer showed {thrown} of the {THROW_AWAY} throw-away "
             "kernels that lead a profile: profile discarded, taken again)")
@@ -1114,6 +1126,9 @@ GLUE_LEVELS = (("op 4 scale 0", 4, 448, 1024), ("op 2 scale 3", 2, 56, 128),
 # order (an ulp of the sum is ~4e-3, 1e-5 of the mean); the Hessians are
 # such sums, held within 1e-5 of the largest entry (h01 cancels, so a
 # relative bound per entry is too strict), as in the CPU tests against JAX
+# G3's chunk-edge shape: op 4 at 448x1030, whose last chunk of patch
+# columns ends inside the patches' reach
+G3_EDGE_HW = (448, 1030)
 GLUE_TEMPLATE_ATOL = 1e-4
 GLUE_H_RTOL = 1e-5
 
@@ -1137,6 +1152,7 @@ def glue_phase(dev):
     G4 bit for bit, G2's windows bit for bit and its templates and
     Hessians within their bars; each timed at op 4's scale 0 of 1024x448
     with its bound.  Returns the rows' numbers (B = 1 and B = 4)."""
+    from flowonthego_tpu_torch import operating_point
     from flowonthego_tpu_torch.ops import densify as densify_mod
     from flowonthego_tpu_torch.ops import patches, pyramid
     from flowonthego_tpu_torch.ops.cuda import (bounds, densify, derivs,
@@ -1254,8 +1270,15 @@ def glue_phase(dev):
                     torch.cuda.synchronize()
                     errs[key("densify")].append(
                         equal((got,), (exp,), f"G3 {what} {weight}"))
-                line = (f"G3 densify {what} {shape}: squared, abs and with "
-                        "an fb merge bit-exact")
+                plan = densify.densify_plan(grid, n)
+                alone, merged = (device_ms(
+                    lambda m=m: densify.densify(state, grid, cfg, m), 50)
+                    for m in (None, merge))
+                line = (f"G3 densify {what} {shape} (bands {plan.n_bands}, "
+                        f"chunks {plan.n_chunks} of {plan.nc} columns, "
+                        f"{plan.shared_bytes} B shared): squared, abs and "
+                        f"with an fb merge bit-exact; device ms {alone:.4f}"
+                        f", with the merge {merged:.4f}")
                 line += rows(key("densify"), timed_here,
                              lambda: densify.densify(state, grid, cfg),
                              lambda: densify_mod.densify_plain(state, grid,
@@ -1279,6 +1302,33 @@ def glue_phase(dev):
                              lambda: derivs.derivatives_plain(im1, w_im2),
                              bounds.derivs_bound(n, h, w, C), 50, 10)
                 log(line)
+    # G3 where the last chunk ends inside the patches' reach: op 4 at
+    # 1030 columns (345 patch columns, chunks of 25)
+    h, w = G3_EDGE_HW
+    for C in (3, 1):
+        for n in (1, B):
+            cfg = operating_point(4)
+            grid = PatchGrid.create(cfg, w, h)
+            plan = densify.densify_plan(grid, n)
+            assert grid.n_w % plan.nc and plan.n_chunks > 1, plan
+            ps = grid.patch_size
+            P = (n, grid.n_h, grid.n_w)
+            p_cur = (torch.randn(P + (2,), generator=g) * 3).to(dev)
+            cost = (torch.rand(P + (ps, ps, C), generator=g) ** 2
+                    * 50).to(dev)
+            state = PatchState(p_cur, p_cur, None, None, None, None, None,
+                               None, cost, None)
+            merge = torch.cat([torch.rand((n, h, w, 1), generator=g),
+                               torch.randn((n, h, w, 2), generator=g)],
+                              dim=-1).to(dev)
+            for m in (None, merge):
+                got = densify.densify(state, grid, cfg, m)
+                exp = densify_mod.densify_plain(state, grid, cfg, m)
+                torch.cuda.synchronize()
+                equal((got,), (exp,), "G3 at the chunk edge")
+            log(f"G3 densify op 4 {n}x{h}x{w}x{C} ({grid.n_w} patch columns"
+                f" in {plan.n_chunks} chunks of {plan.nc}): with and without"
+                " an fb merge bit-exact")
     for k, e in errs.items():
         results[k]["max_abs_err"] = max(e)
     return results
@@ -1293,6 +1343,19 @@ REF_MODES = (("l1", dict(cost_fn="l1")), ("huber", dict(cost_fn="huber")),
              ("l2 res_thresh 5", dict(res_thresh=5.0)))
 # the merge's pile-up: every patch lands on this cell of op 2's scale 3
 PILE_UP_CELL = (64, 20)
+
+
+def merge_split(fn, reps=5):
+    """Device ms a call of G5's sort launches ("bins": every kernel whose
+    name holds fb_merge_bin) and of its cell launch, from a profile of
+    ``reps`` calls."""
+    by_name = {}
+    profiled(lambda: [fn() for _ in range(reps)], ms_by_name=by_name)
+    split = collections.Counter()
+    for name, ms in by_name.items():
+        if "fb_merge" in name:
+            split["bins" if "fb_merge_bin" in name else "cells"] += ms / reps
+    return {k: round(v, 5) for k, v in split.items()}
 
 
 def merge_calls(fn):
@@ -1414,26 +1477,30 @@ def merge_solve_phase(dev):
                 f"{n_all - landed} dropped: {text}")
             if op not in largest or landed > largest[op][-1]:
                 largest[op] = (state, grid, cfg, h, w, landed)
-    state, grid, cfg, h, w, landed = largest[4]
-    log(f"G5 fb_merge op 4's largest merge ({h}x{w}, {grid.n_patches} "
-        f"patches, {landed} contributions land): "
-        f"{device_ms(lambda: fb_merge.fb_merge(state, grid, cfg, h, w), 5):.4f}"
-        " ms")
-    state, grid, cfg, h, w, landed = largest[2]
-    C = state.cost_px.shape[-1]
-    idx, vals = densify_mod.fb_merge_contributions(state, grid, cfg, h, w)
-    acc = torch.zeros((h * w + 1, 3), device=dev)
-    results["fb_merge"] = kernel_row(
-        device_ms(lambda: fb_merge.fb_merge(state, grid, cfg, h, w), 50),
-        cuda_ms(lambda: densify_mod.fb_merge_plain(state, grid, cfg, h, w),
-                10),
-        bounds.fb_merge_bound(1, grid.n_patches, grid.patch_size, C, h, w,
-                              landed),
-        library_ms=device_ms(
-            lambda: acc.index_put_((idx,), vals, accumulate=True), 20))
-    log(f"G5 fb_merge timed on the largest ({h}x{w}, {landed} "
-        f"contributions land): {timing_text(results['fb_merge'])} "
-        "(index_put_ alone, on the plain merge's indices and values)")
+    for op, key, reps in ((2, "fb_merge", 50), (4, "fb_merge_op4", 20)):
+        state, grid, cfg, h, w, landed = largest[op]
+        C = state.cost_px.shape[-1]
+        idx, vals = densify_mod.fb_merge_contributions(state, grid, cfg, h,
+                                                       w)
+        acc = torch.zeros((h * w + 1, 3), device=dev)
+        run = lambda: fb_merge.fb_merge(state, grid, cfg, h, w)  # noqa
+        results[key] = kernel_row(
+            device_ms(run, reps),
+            cuda_ms(lambda: densify_mod.fb_merge_plain(state, grid, cfg, h,
+                                                       w), 10 // (op - 1)),
+            bounds.fb_merge_bound(1, grid.n_patches, grid.patch_size, C, h,
+                                  w, landed),
+            library_ms=device_ms(
+                lambda: acc.index_put_((idx,), vals, accumulate=True),
+                20 // (op - 1)))
+        plan = fb_merge.merge_plan(1, grid.n_patches, grid.patch_size, h, w)
+        log(f"G5 fb_merge timed on op {op}'s largest merge ({h}x{w}, "
+            f"{grid.n_patches} patches, {landed} contributions land; "
+            f"{plan.n_chunks} sort chunks, {plan.passes} radix passes, "
+            f"{plan.tiles_x}x{plan.tiles_y} tiles): "
+            f"{timing_text(results[key])} (index_put_ alone, on the plain "
+            "merge's indices and values); device ms by launch: "
+            f"{merge_split(run)}")
 
     # ---- G5 on seeded states: the 4K finest scale, a batch of four, all
     # outside, a pile-up, the abs weights ----
@@ -1459,13 +1526,18 @@ def merge_solve_phase(dev):
             ("op 2 scale 3, every patch on one cell", 2, 56, 128, 2,
              "pile-up"),
             ("op 2 scale 3, abs weights", 2, 56, 128, 1, "abs"),
-            ("op 2 scale 3, C=1", 2, 56, 128, 2, "gray")):
+            ("op 2 scale 3, C=1", 2, 56, 128, 2, "gray"),
+            ("op 4 scale 2, every patch on one cell (windows of patches)",
+             4, 112, 256, 1, "pile-up"),
+            ("op 4 scale 4, a warp a cell", 4, 28, 64, 2, None),
+            ("op 4 scale 4, every patch on one cell (a warp's list walk)",
+             4, 28, 64, 1, "pile-up")):
         cfg, grid, st = seeded(op, h, w, n, 1 if change == "gray" else 3)
         if change == "outside":
             st = st._replace(p_cur=st.p_cur + 1e4)
         elif change == "pile-up":
-            cell = torch.tensor(PILE_UP_CELL, dtype=torch.float32,
-                                device=dev)
+            cell = torch.tensor(PILE_UP_CELL if op == 2 else (w / 2, h / 3),
+                                dtype=torch.float32, device=dev)
             frac = torch.rand(st.p_cur.shape, generator=g).to(dev) - 0.5
             st = st._replace(p_cur=(cell - st.mid_org) + frac)
         elif change == "abs":
@@ -1481,6 +1553,7 @@ def merge_solve_phase(dev):
                            5)
             log(f"  the pile-up's time: {ms:.4f} ms (spread: "
                 f"{big['ms']:.4f} ms)")
+    results["fb_merge_op4"]["max_abs_err"] = max(errs)
     big["max_abs_err"] = max(errs)
 
     # ---- G6 at op 2's scale 3, every mode, C = 3 and 1, B = 1 and 4 ----
@@ -2421,6 +2494,7 @@ def graph_phase(dev):
     cfg2 = port.operating_point(2, width=w)
     cfg4 = port.operating_point(4, width=w)
     fb = dataclasses.replace(cfg2, use_fb_consistency=True)
+    fb4 = dataclasses.replace(cfg4, use_fb_consistency=True)
     huber = dataclasses.replace(cfg2, cost_fn="huber")
     depth = dataclasses.replace(cfg2, use_var_ref=False)
     stereo = tuple(torch.as_tensor(x, device=dev)
@@ -2450,6 +2524,9 @@ def graph_phase(dev):
             ("op 2 fb compute_flow 1024x436",
              lambda: port.compute_flow(*pair, fb), 10, 1, FB, ("dis_ref",),
              lambda: port.compute_flow(*pair, plain(fb))),
+            ("op 4 fb compute_flow 1024x436",
+             lambda: port.compute_flow(*pair, fb4), 5, 1, FB, ("dis_ref",),
+             None),
             ("op 2 huber compute_flow 1024x436",
              lambda: port.compute_flow(*pair, huber), 10, 1, REF,
              ("gn", "fb_merge"),
@@ -3099,6 +3176,10 @@ def main() -> int:
     # the fb merge and the reference-form solve: XLA in the JAX package
     meta["fb_merge"] = ("fb merge (_fb_merge_scatter)", "fb_merge.cu",
                         "ops/densify.py:46")
+    # the same kernel timed at op 4's scale 0 (51,300 patches)
+    meta["fb_merge_op4"] = ("fb merge (_fb_merge_scatter), op 4 scale 0",
+                            "fb_merge.cu", "ops/densify.py:46")
+    launches["fb_merge_op4"] = launches["fb_merge"]
     meta["dis_ref"] = ("optimize_reference", "dis_ref.cu", "ops/dis.py:291")
     meta["dis_ref_1d"] = ("optimize_reference (1-D form, stereo "
                           "_optimize_1d)", "dis_ref.cu",

@@ -27,4 +27,20 @@ __device__ __forceinline__ float pixel_weight(const float* __restrict__ e,
   return 1.0f / sum;
 }
 
+// The same weight from the pixel's first C <= 3 costs already loaded
+// (e1, e2 unused below C = 2, 3), so that a thread can issue the loads
+// of several pixels before it computes their weights.
+__device__ __forceinline__ float pixel_weight3(float e0, float e1, float e2,
+                                               int C, float min_errval,
+                                               int use_sqrt) {
+  auto clamp = [&](float v) {
+    if (use_sqrt) v = sqrtf(v);
+    return v < min_errval ? min_errval : v;   // clamp(min=): NaN passes
+  };
+  const float v0 = clamp(e0);
+  if (C == 3) return 1.0f / ((v0 + clamp(e2)) + clamp(e1));
+  if (C == 2) return 1.0f / (v0 + clamp(e1));
+  return 1.0f / v0;
+}
+
 }  // namespace

@@ -55,10 +55,10 @@ SIGNATURES = {
     "fot_extract": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                     _P, _P, _P, _P, _P],
     "fot_densify": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                    _I, _P, _P],
+                    _I, _I, _I, _I, _I, _I, _L, _P, _P],
     "fot_derivs": [_P, _L, _L, _P, _L, _L, _I, _I, _I, _I, _P, _P],
     "fot_fb_merge": [_P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
-                     _I, _P, _P, _P, _P],
+                     _I, _I, _I, _I, _P, _P, _P, _P],
     "fot_dis_ref": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _L, _P, _P, _P,
                     _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
                     _F, _F, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P],

@@ -21,10 +21,11 @@ The inputs are the seeded 1024x436 scenes of ``chip_smoke.py``: the
 op-3/op-4 outlier radius at every scale, a four-frame op-3 stream moving
 (12, -6) px per frame, and a horizontal (-16, 0)-px pair for depth.
 Besides op 1, 3 and 4, op 2 runs as the command line's modes run it:
-plain, with forward-backward consistency, with the pseudo-Huber cost
-(the reference-form solve), on gray input (C = 1), as stereo depth and
-with K2's bf16 operands (op 4 too); and batched: ``batched_flow`` on four pairs (each moving its own motion)
-and a four-stream ``MultiStream`` tick, counted per frame.
+plain, with forward-backward consistency (op 4 too), with the
+pseudo-Huber cost (the reference-form solve), on gray input (C = 1), as
+stereo depth and with K2's bf16 operands (op 4 too); and batched:
+``batched_flow`` on four pairs (each moving its own motion) and a
+four-stream ``MultiStream`` tick, counted per frame.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import torch
 
 # device-kernel name fragment -> the row it is counted under, first match
 CATEGORIES = (("dis_gn_kernel", "K2 gn"),
+              ("fb_merge_warp_kernel", "G5 fb merge cells"),   # not K5
               ("varref_cluster_kernel", "K4 cluster"),
               ("varref_tiled_kernel", "K4 grid"),
               ("varref_kernel", "K3"), ("warp_kernel", "K5 warp"),
@@ -48,7 +50,7 @@ CATEGORIES = (("dis_gn_kernel", "K2 gn"),
               ("glue_extract_kernel", "G2 extract"),
               ("glue_densify_kernel", "G3 densify"),
               ("glue_derivs_kernel", "G4 derivs"),
-              ("fb_merge_bin_kernel", "G5 fb merge bins"),
+              ("fb_merge_bin", "G5 fb merge bins"),   # the sort's launches
               ("fb_merge_kernel", "G5 fb merge cells"),
               ("dis_ref_1d_kernel", "G6 dis_ref 1-D"),
               ("dis_ref_kernel", "G6 dis_ref"), ("Memcpy", "copies"),
@@ -204,6 +206,9 @@ def run(args) -> int:
     report("op 1 pair (16, 8)", pair(1, (16, 8)), args.reps)
     report("op 4 pair (16, 8)", pair(4, (16, 8)), args.reps)
     report("op 4 pair (2, 2)", pair(4, (2, 2)), args.reps)
+    report("op 4 fb pair (16, 8)", lambda: port.compute_flow(
+        *pairs[(16, 8)], dataclasses.replace(cfg[4], use_fb_consistency=True)),
+        args.reps)
     report("op 2 bf16 pair (16, 8)", lambda: port.compute_flow(
         *pairs[(16, 8)], op2(dtype="bfloat16")), args.reps)
     report("op 4 bf16 pair (2, 2)", lambda: port.compute_flow(

@@ -885,13 +885,18 @@ def test_glue_extract_kernel(cuda, op, n, C, mean):
 
 @pytest.mark.parametrize("weight,merge", [("squared", False), ("abs", False),
                                           ("squared", True)])
-@pytest.mark.parametrize("op,n,C", [(2, 1, 3), (4, 2, 1), (1, 1, 3)])
-def test_glue_densify_kernel(cuda, op, n, C, weight, merge):
+@pytest.mark.parametrize("op,n,C,h,w", [
+    (2, 1, 3, 30, 44), (4, 2, 1, 30, 44), (1, 1, 3, 30, 44),
+    (4, 1, 3, 448, 1024),     # op 4's scale 0
+    (4, 2, 3, 448, 1030),     # the last chunk ends inside a patch's reach
+    (1, 1, 1, 56, 128)])      # op 1's scale 3: ps % steps != 0
+def test_glue_densify_kernel(cuda, op, n, C, h, w, weight, merge):
     """G3 against its plain version, bit for bit: the canvas's order of
     adds, PyTorch's order for the weights' channel sum, the fb merge's
-    accumulator added before the normalisation."""
+    accumulator added before the normalisation; bands and chunks at op
+    4's scale 0, a width whose chunks do not divide the patch columns and
+    op 1's strided geometry."""
     cfg = dataclasses.replace(port.operating_point(op), densify_weight=weight)
-    h, w = 30, 44
     grid = PatchGrid.create(cfg, w, h)
     g = torch.Generator().manual_seed(5)
     P = (n, grid.n_h, grid.n_w)
@@ -907,6 +912,32 @@ def test_glue_densify_kernel(cuda, op, n, C, weight, merge):
     got = densify.densify(state, grid, cfg, m)
     assert densify.launches == n0 + 1
     assert torch.equal(got, densify_mod.densify_plain(state, grid, cfg, m))
+
+
+@pytest.mark.parametrize("ps,stride,C", [(10, 0.6, 3), (6, 0.5, 1)])
+def test_glue_densify_kernel_generic_form(cuda, ps, stride, C):
+    """G3's generic instantiation (a geometry no operating point has, ps
+    and steps read at run time; 10 px every 4 leaves ps % steps != 0)
+    against its plain version, bit for bit, with an fb merge's
+    accumulator, two frames, at a width whose chunks end inside the
+    patches' reach."""
+    cfg = dataclasses.replace(port.operating_point(2), patch_size=ps,
+                              patch_stride=stride)
+    h, w = 64, 200
+    grid = PatchGrid.create(cfg, w, h)
+    assert (grid.patch_size, grid.steps) not in ((8, 4), (8, 5), (12, 3))
+    assert densify.densify_plan(grid, 2).n_chunks > 1
+    g = torch.Generator().manual_seed(6)
+    P = (2, grid.n_h, grid.n_w)
+    p = (torch.randn(P + (2,), generator=g) * 3).to(cuda)
+    cost = (torch.rand(P + (ps, ps, C), generator=g) ** 2 * 50).to(cuda)
+    state = dis_mod.PatchState(p, p, None, None, None, None, None, None,
+                               cost, None)
+    m = torch.cat([torch.rand((2, h, w, 1), generator=g),
+                   torch.randn((2, h, w, 2), generator=g)], dim=-1).to(cuda)
+    for merge in (None, m):
+        assert torch.equal(densify.densify(state, grid, cfg, merge),
+                           densify_mod.densify_plain(state, grid, cfg, merge))
 
 
 @pytest.mark.parametrize("h,w", [(30, 44), (4, 8), (14, 32), (37, 5)])
@@ -928,11 +959,11 @@ def test_glue_derivs_kernel(cuda, n, C, h, w):
 
 # ------------------------------------------- G5 (fb merge), G6 (dis_ref)
 
-def _merge_state(device, case, n, C, h=56, w=128):
-    """A complementary state of ``n`` frames at op 2's geometry with
+def _merge_state(device, case, n, C, h=56, w=128, op=2):
+    """A complementary state of ``n`` frames at op ``op``'s geometry with
     seeded flows and costs: scattered, every patch outside the frame, or
     every patch piled on one cell."""
-    cfg = port.operating_point(2)
+    cfg = port.operating_point(op)
     grid = PatchGrid.create(cfg, w, h)
     g = torch.Generator().manual_seed(7)
     lead = (n, grid.n_h, grid.n_w)
@@ -951,14 +982,30 @@ def _merge_state(device, case, n, C, h=56, w=128):
     return cfg, grid, state
 
 
-@pytest.mark.parametrize("case,n,C,weight", [
-    ("scattered", 1, 3, "squared"), ("scattered", 4, 1, "squared"),
-    ("scattered", 2, 3, "abs"), ("outside", 2, 3, "squared"),
-    ("pile-up", 2, 3, "squared")])
-def test_fb_merge_kernel(cuda, case, n, C, weight):
+MERGE_SHAPES = {"op 2 scale 3": (2, 56, 128), "op 4 scale 0": (4, 448, 1024),
+                "op 4 scale 2": (4, 112, 256), "op 4 scale 4": (4, 28, 64)}
+
+
+@pytest.mark.parametrize("case,n,C,weight,shape", [
+    ("scattered", 1, 3, "squared", "op 2 scale 3"),
+    ("scattered", 4, 1, "squared", "op 2 scale 3"),
+    ("scattered", 2, 3, "abs", "op 2 scale 3"),
+    ("outside", 2, 3, "squared", "op 2 scale 3"),
+    ("pile-up", 2, 3, "squared", "op 2 scale 3"),
+    ("scattered", 1, 3, "squared", "op 4 scale 0"),   # 51 sort chunks
+    ("scattered", 2, 1, "abs", "op 4 scale 0"),
+    ("pile-up", 1, 3, "squared", "op 4 scale 2"),     # windows of patches
+    ("scattered", 2, 3, "squared", "op 4 scale 4"),   # a warp a cell
+    ("pile-up", 1, 3, "squared", "op 4 scale 4")])    # its lists' walk
+def test_fb_merge_kernel(cuda, case, n, C, weight, shape):
     """G5 against the plain merge (a stably sorted index_put_ that folds
-    each cell in order), bit for bit; one launch a call."""
-    cfg, grid, state = _merge_state(cuda, case, n, C)
+    each cell in order), bit for bit; one call counted.  Op 2's frames
+    sort in one CTA; op 4's scale 0 in chunks over two radix passes; op
+    4's scale-2 pile-up gives a tile 3,268 candidates, taken in
+    windows; op 4's scale 4 (28x64) takes a warp a cell, its pile-up
+    more hits a corner than a warp sorts."""
+    op, h, w = MERGE_SHAPES[shape]
+    cfg, grid, state = _merge_state(cuda, case, n, C, h, w, op)
     cfg = dataclasses.replace(cfg, densify_weight=weight)
     n0 = fb_merge.launches
     got = fb_merge.fb_merge(state, grid, cfg, grid.height, grid.width)
@@ -1065,25 +1112,30 @@ def test_dis_ref_generic_form(cuda, ps, cost_fn, channels):
     assert (dis_ref.launches, dis_ref.launches_1d) == (n0 + 2, k0 + 1)
 
 
-@pytest.mark.parametrize("mode", ["fb", "huber", "depth"])
+@pytest.mark.parametrize("mode", ["fb", "huber", "depth", "op 4 fb"])
 def test_captured_paths_through_g5_g6(cuda, mode):
     """The fb, huber and depth paths launch G5 / G6 eagerly, and their
-    replayed graphs equal the eager call bit for bit."""
+    replayed graphs equal the eager call bit for bit; op 4's fb pair at
+    1024x436 (G5's chunked sort at scales 0-1) too."""
     cfg = dataclasses.replace(port.operating_point(2, width=256),
                               coarsest_scale=4)
     shift = (-2, 0) if mode == "depth" else (2, 1)
     i0, i1 = (torch.as_tensor(x, device=cuda) for x in
               synthetic_frames(3, 2, 124, 256, shift, factor=4))
+    if mode == "op 4 fb":
+        cfg = port.operating_point(4, width=1024)
+        i0, i1 = (torch.as_tensor(x, device=cuda) for x in
+                  synthetic_frames(3, 2, 436, 1024, (16, 8), factor=4))
     if mode == "depth":
         cfg = dataclasses.replace(cfg, use_var_ref=False)
         fn = lambda: port.compute_disparity(i0, i1, cfg)  # noqa: E731
         mod = dis_ref
     else:
         cfg = dataclasses.replace(cfg, **(
-            dict(use_fb_consistency=True) if mode == "fb"
+            dict(use_fb_consistency=True) if "fb" in mode
             else dict(cost_fn="huber")))
         fn = lambda: port.compute_flow(i0, i1, cfg)  # noqa: E731
-        mod = fb_merge if mode == "fb" else dis_ref
+        mod = fb_merge if "fb" in mode else dis_ref
     n0 = mod.launches
     ref, got, _ = _eager_then_captured(fn)
     assert mod.launches > n0

@@ -251,10 +251,14 @@ def _wrapper_calls():
         return lambda: extract.extract_templates_and_hessians(
             _card(a), b, c, grid, cfg)
 
-    def de(pc, c, merge=None):
+    def de(pc, c, merge=None, grid=grid):
         return lambda: densify.densify(st._replace(p_cur=_card(pc),
                                                    cost_px=c), grid, cfg,
                                        merge)
+
+    # 40 px patches every px: one column's CTA would need more shared
+    # memory than a CTA has, so the plan refuses it
+    wide = dataclasses.replace(grid, patch_size=40, steps=1, n_h=h, n_w=w)
 
     def dv(a, b):
         return lambda: derivs.derivatives(_card(a), b)
@@ -271,7 +275,9 @@ def _wrapper_calls():
         "densify": (de(p, cost), [
             de(p.double(), cost), de(p, cost.transpose(1, 2)),
             de(p, cost.to("meta")),
-            de(p, cost, torch.zeros((1, h, w, 3), device="meta"))]),
+            de(p, cost, torch.zeros((1, h, w, 3), device="meta")),
+            de(torch.zeros((1, h, w, 2)), torch.rand((1, h, w, 40, 40, 3)),
+               grid=wide)]),
         "derivs": (dv(crop, img), [
             dv(crop.double(), img), dv(crop, img[..., :1].expand_as(img)),
             dv(crop, img.to("meta"))]),
@@ -280,8 +286,9 @@ def _wrapper_calls():
 
 @pytest.mark.parametrize("name", sorted(GLUE))
 def test_wrapper_checks_come_before_the_build(monkeypatch, name):
-    """A wrong dtype, a layout the kernel cannot take or mixed devices
-    raise ValueError from the wrapper's checks before the kernel library
+    """A wrong dtype, a layout the kernel cannot take, mixed devices or
+    (G3) a geometry its launch plan refuses raise ValueError from the
+    wrapper's checks before the kernel library
     is built or loaded; good arguments pass the checks and reach the
     build (refused here: there is no card)."""
     def refuse():

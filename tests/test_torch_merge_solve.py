@@ -261,13 +261,13 @@ def _solve_state():
 def _wrapper_calls():
     """For each wrapper: (call on good arguments, [calls on bad ones]):
     a wrong dtype, a wrong layout, a wrong shape, mixed devices, tensors
-    that all lie on the CPU."""
+    that all lie on the CPU, a geometry the launch plan refuses."""
     cfg, grid, img, st = _solve_state()
     h, w = grid.height, grid.width
     meta = torch.empty(st.templates.shape, device="meta")
     cost = torch.rand(st.cost_px.shape)
 
-    def mg(state, out_h=h, out_w=w):
+    def mg(state, out_h=h, out_w=w, grid=grid):
         s = state._replace(p_cur=_card(state.p_cur))
         return lambda: fb_merge.fb_merge(s, grid, cfg, out_h, out_w)
 
@@ -285,6 +285,10 @@ def _wrapper_calls():
             mg(good._replace(cost_px=cost.transpose(3, 4))),
             mg(good._replace(cost_px=cost[..., :2, :, :])),
             mg(good._replace(cost_px=cost.to("meta"))),
+            # patches wider than a cell tile (32 px): the plan refuses
+            mg(good._replace(cost_px=torch.rand(cost.shape[:3]
+                                                + (40, 40, 3))),
+               grid=dataclasses.replace(grid, patch_size=40)),
             lambda: fb_merge.fb_merge(good, grid, cfg, h, w)]),
         "dis_ref": (ref(st), [
             ref(st._replace(templates=st.templates.double())),
