@@ -51,7 +51,7 @@ Phases (any failure raises and the script exits non-zero):
      its sort and cell launches; G6
      against its plain version at op 2's scale 3 under l1, huber, l1 with
      ``min_iter`` 4 and ``res_thresh`` 5, C = 3 and 1, one frame and four,
-     cold and warm, with a strip offset, and at op 4's scale 1 under
+     cold and warm, with a strip offset, and at op 4's scales 1 and 0 under
      huber, its 1-D form at cam_lr 0 and 1 (p within ``TOL_GN_P``, cost
      and diff within ``TOL_GN_COST``, as x|x| under the robust costs, on
      all but ``GN_FLIP_SHARE`` of the patches), each timed with its bound
@@ -1441,7 +1441,8 @@ def merge_solve_phase(dev):
     every patch outside the frame, every patch piled on one cell and the
     abs weights; G6 within the flip-share rule at op 2's scale 3 in every
     mode that takes it, C = 3 and 1, one frame and four, cold and warm,
-    with a strip offset, and at op 4's scale 1 under huber; its 1-D form
+    with a strip offset, and at op 4's scales 1 and 0 under huber (scale 0,
+    51,300 patches, two runs bit-identical and timed); its 1-D form
     for cam_lr 0 and 1; its generic form (ps 6 and 10, the state in shared
     memory), 2-D and 1-D, l1 and huber, C = 3 and 1.  Each timed with its bound, G5 beside
     ``index_put_`` alone.  Returns the rows' numbers."""
@@ -1628,7 +1629,32 @@ def merge_solve_phase(dev):
                 1, 1), b4)
     log(f"G6 dis_ref op 4 224x512x3 huber warm ({grid.n_patches} patches, "
         f"{int(trips.sum())} trips): {text}; {timing_text(row4)}")
+    # op 4's scale 0 under huber (448x1024, 51,300 patches): the largest
+    # solve an op-4 huber pair launches, the kernels line's own row
+    cfg0, grid, states, I1 = solve_inputs(dev, 4, 448, 1024, g)
+    cfg = dataclasses.replace(cfg0, cost_fn="huber")
+    st = states["warm"]
+    got = dis_ref.optimize_reference(st, I1, grid, cfg)
+    again = dis_ref.optimize_reference(st, I1, grid, cfg)
+    ref, trips = dis_mod.optimize_reference_plain(st, I1, grid, cfg,
+                                                  count_iters=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        "G6 differs between runs at op 4's scale 0"
+    err, text = check_ref(got, ref, cfg)
+    errs.append(err)
+    b0 = bounds.ref_bound(1, grid.n_patches, 12, 3, I1.shape[1], I1.shape[2],
+                          int(trips.sum()), int((~st.converged).sum()),
+                          "huber")
+    results["dis_ref_op4"] = kernel_row(
+        device_ms(lambda: dis_ref.optimize_reference(st, I1, grid, cfg), 5),
+        cuda_ms(lambda: dis_mod.optimize_reference_plain(st, I1, grid, cfg),
+                1, 1), b0)
+    log(f"G6 dis_ref op 4 448x1024x3 huber warm ({grid.n_patches} patches, "
+        f"{int(trips.sum())} trips): {text}; two runs bit-identical; "
+        f"{timing_text(results['dis_ref_op4'])}")
     results["dis_ref"]["max_abs_err"] = max(errs)
+    results["dis_ref_op4"]["max_abs_err"] = max(errs)
 
     # ---- G6's 1-D form (stereo), cam_lr 0 and 1 ----
     errs = []
@@ -3181,6 +3207,10 @@ def main() -> int:
                             "fb_merge.cu", "ops/densify.py:46")
     launches["fb_merge_op4"] = launches["fb_merge"]
     meta["dis_ref"] = ("optimize_reference", "dis_ref.cu", "ops/dis.py:291")
+    # the same kernel timed at op 4's scale 0 under huber (51,300 patches)
+    meta["dis_ref_op4"] = ("optimize_reference, op 4 scale 0 (huber)",
+                           "dis_ref.cu", "ops/dis.py:291")
+    launches["dis_ref_op4"] = launches["dis_ref"]
     meta["dis_ref_1d"] = ("optimize_reference (1-D form, stereo "
                           "_optimize_1d)", "dis_ref.cu",
                           "models/stereo.py:33")

@@ -60,8 +60,10 @@ SIGNATURES = {
     "fot_fb_merge": [_P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
                      _I, _I, _I, _I, _P, _P, _P, _P],
     "fot_dis_ref": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _L, _P, _P, _P,
-                    _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
-                    _F, _F, _F, _F, _F, _F, _F, _F, _P, _P, _P, _P],
+                    _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                    _F,
+                    _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P,
+                    _P, _P],
 }
 
 _lock = threading.Lock()

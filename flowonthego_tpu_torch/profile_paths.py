@@ -22,8 +22,9 @@ op-3/op-4 outlier radius at every scale, a four-frame op-3 stream moving
 (12, -6) px per frame, and a horizontal (-16, 0)-px pair for depth.
 Besides op 1, 3 and 4, op 2 runs as the command line's modes run it:
 plain, with forward-backward consistency (op 4 too), with the
-pseudo-Huber cost (the reference-form solve), on gray input (C = 1), as
-stereo depth and with K2's bf16 operands (op 4 too); and batched:
+pseudo-Huber cost (the reference-form solve; op 4 too, on the (2, 2) and
+(16, 8) pairs), on gray input (C = 1), as stereo depth and with K2's
+bf16 operands (op 4 too); and batched:
 ``batched_flow`` on four pairs (each moving its own motion) and a
 four-stream ``MultiStream`` tick, counted per frame.
 """
@@ -209,6 +210,10 @@ def run(args) -> int:
     report("op 4 fb pair (16, 8)", lambda: port.compute_flow(
         *pairs[(16, 8)], dataclasses.replace(cfg[4], use_fb_consistency=True)),
         args.reps)
+    for shift in ((2, 2), (16, 8)):
+        report(f"op 4 huber pair {shift}", lambda s=shift: port.compute_flow(
+            *pairs[s], dataclasses.replace(cfg[4], cost_fn="huber")),
+            args.reps)
     report("op 2 bf16 pair (16, 8)", lambda: port.compute_flow(
         *pairs[(16, 8)], op2(dtype="bfloat16")), args.reps)
     report("op 4 bf16 pair (2, 2)", lambda: port.compute_flow(

@@ -52,12 +52,16 @@ def test_pool_kernel(cuda, dtype, bias):
     torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-4)
 
 
-def _level_state(device, h, w, warm, channels=3, n_frames=1, patch_size=8):
+def _level_state(device, h, w, warm, channels=3, n_frames=1, patch_size=8,
+                 op=2):
     """A level's patch state of ``n_frames`` frames (frame b from seed
-    1 + b) and the padded target levels [B, Hp, Wp, C]."""
+    1 + b) and the padded target levels [B, Hp, Wp, C], at operating
+    point ``op`` (its patch size where it is not 2)."""
     pairs = [synthetic_frames(1 + b, 2, h, w, (1, 1), channels=channels,
                               factor=4) for b in range(n_frames)]
-    cfg = dataclasses.replace(port.operating_point(2), patch_size=patch_size)
+    cfg = port.operating_point(op)
+    if op == 2:
+        cfg = dataclasses.replace(cfg, patch_size=patch_size)
     lvl0, lvl1 = (build_pyramid(torch.as_tensor(np.stack([p[k] for p in pairs]),
                                                 device=device), 1,
                                 cfg.padding)[0]
@@ -1110,6 +1114,54 @@ def test_dis_ref_generic_form(cuda, ps, cost_fn, channels):
     _ref_close(got, stereo_mod.optimize_1d_plain(state, I1p, grid, cfg, 0),
                cost_fn)
     assert (dis_ref.launches, dis_ref.launches_1d) == (n0 + 2, k0 + 1)
+
+
+@pytest.mark.parametrize("shape,cost_fn", [("op 2 scale 3", "huber"),
+                                           ("op 2 scale 3", "l1"),
+                                           ("op 4 scale 1", "huber")])
+def test_dis_ref_one_pass_trip(cuda, shape, cost_fn):
+    """G6's one-pass trip at the paths' shapes from a warm start: op 2's
+    scale 3 (448 patches, 12 trips) and op 4's scale 1 (12,825 patches,
+    up to 128 trips), against the plain version under the flip-share
+    rule; one launch, two runs bit-identical."""
+    op, h, w = {"op 2 scale 3": (2, 56, 128), "op 4 scale 1": (4, 224, 512)}[
+        shape]
+    cfg, grid, state, I1p = _level_state(cuda, h, w, True, op=op)
+    cfg = dataclasses.replace(cfg, cost_fn=cost_fn)
+    n0 = dis_ref.launches
+    got = dis_ref.optimize_reference(state, I1p, grid, cfg)
+    assert dis_ref.launches == n0 + 1
+    again = dis_ref.optimize_reference(state, I1p, grid, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _ref_close(got, dis_mod.optimize_reference_plain(state, I1p, grid, cfg),
+               cost_fn)
+
+
+@pytest.mark.parametrize("channels", [3, 1])
+@pytest.mark.parametrize("mode", ["huber", "l1", "l1 min_iter 4",
+                                  "l2 res_thresh 5", "1-D cam_lr 0",
+                                  "1-D cam_lr 1"])
+def test_dis_ref_is_its_numpy_replay(cuda, mode, channels):
+    """G6 gives the bits of ``tests/ref_replay.py``'s numpy replay of its
+    arithmetic (the CPU tests' stand-in for the kernel) at op 2's scale 3:
+    2-D from a warm start, 1-D from a cold one."""
+    from ref_replay import replay
+    one_d = mode.startswith("1-D")
+    cfg, grid, state, I1p = _level_state(cuda, 56, 128, not one_d, channels)
+    fields = {"huber": dict(cost_fn="huber"), "l1": dict(cost_fn="l1"),
+              "l1 min_iter 4": dict(cost_fn="l1", min_iter=4),
+              "l2 res_thresh 5": dict(res_thresh=5.0)}.get(mode, {})
+    cfg = dataclasses.replace(cfg, **fields)
+    cam_lr = int(mode[-1]) if one_d else 0
+    if one_d:
+        got = dis_ref.optimize_1d(state, I1p, grid, cfg, cam_lr)
+    else:
+        got = dis_ref.optimize_reference(state, I1p, grid, cfg)
+    want = replay(state, I1p, grid, cfg, one_d, cam_lr)
+    for name, a, b in zip(("p", "diff", "cost_px"),
+                          (got.p_cur, got.diff, got.cost_px), want):
+        assert np.array_equal(a.cpu().numpy().view(np.uint32),
+                              np.ascontiguousarray(b).view(np.uint32)), name
 
 
 @pytest.mark.parametrize("mode", ["fb", "huber", "depth", "op 4 fb"])
