@@ -33,7 +33,6 @@ GPU unless the caller names a device (``utils/device.py``).
 
 from __future__ import annotations
 
-import contextlib
 import time
 from typing import Optional
 
@@ -47,7 +46,7 @@ from ..ops import variational as var_mod
 from ..ops.patches import PatchGrid, extract_templates_and_hessians
 from ..ops.pyramid import build_pyramid, pad_replicate
 from ..ops.resize import resize_matmul
-from ..utils import graphs
+from ..utils import graphs, profiling
 from ..utils.device import resolve_device
 from ..utils.timing import PhaseTimer
 
@@ -81,8 +80,9 @@ def dis_flow_padded(I0: torch.Tensor, I1: torch.Tensor, cfg: DISConfig,
         raise ValueError(f"image {H}x{W} not divisible by 2^{cfg.coarsest_scale}")
     n_levels = cfg.coarsest_scale + 1
     kw = dict(start_level=cfg.finest_scale, backend=pool_backend(cfg))
-    pyr0 = build_pyramid(I0, n_levels, cfg.padding, **kw)
-    pyr1 = build_pyramid(I1, n_levels, cfg.padding, **kw)
+    with profiling.span("pyramid"):
+        pyr0 = build_pyramid(I0, n_levels, cfg.padding, **kw)
+        pyr1 = build_pyramid(I1, n_levels, cfg.padding, **kw)
     return dis_flow_from_pyramids(pyr0, pyr1, cfg, init_flow=init_flow,
                                   level_offset=level_offset)
 
@@ -99,56 +99,55 @@ def dis_flow_from_pyramids(pyr0, pyr1, cfg: DISConfig,
     :func:`dis_flow_padded`); video streaming builds each frame's pyramid
     once and uses it for two pairs.
 
-    With a ``timer``, each phase of a scale runs under ``timer.phase`` (so
-    it ends with a device sync) and ``printer`` gets the reference's line
-    ``TIME (Sc: %i, #p:%6i, pconst, pinit, poptim, cflow, tvopt, total)``
-    per scale."""
+    Each scale is the device span ``scale <sl>`` and each of its five
+    phases a leaf inside it (``utils/profiling``).  With a ``timer``, the
+    phases feed it (each ends with a device sync) and ``printer`` gets
+    the reference's line ``TIME (Sc: %i, #p:%6i, pconst, pinit, poptim,
+    cflow, tvopt, total)`` per scale."""
     lvl_c = pyr0[cfg.coarsest_scale]
     H = lvl_c.image.shape[1] - 2 * cfg.padding << cfg.coarsest_scale
     W = lvl_c.image.shape[2] - 2 * cfg.padding << cfg.coarsest_scale
-    phase = timer.phase if timer is not None else (
-        lambda name: contextlib.nullcontext())
+    span = profiling.span
+
+    # Forward-backward consistency: the complementary I1->I0 grid is
+    # optimized beside the forward one, each densification merges the
+    # other's reversed flow, and the backward chain (warm-started only from
+    # its own coarser flow) stops at the finest scale, where nothing reads
+    # it.  Both directions run inside the same phase.
+    fb = cfg.use_fb_consistency
 
     def make_state(lvl, grid):
         templates, gx, gy, Hs = extract_templates_and_hessians(
             lvl.image, lvl.grad_x, lvl.grad_y, grid, cfg)
         return dis_mod.init_state(templates, gx, gy, Hs, grid)
 
-    # Forward-backward consistency: the complementary I1->I0 grid is
-    # optimized beside the forward one, each densification merges the
-    # other's reversed flow, and the backward chain (warm-started only from
-    # its own coarser flow) stops at the finest scale, where nothing reads
-    # it.  Under a timer both directions run inside the same phase.
-    fb = cfg.use_fb_consistency
-    flow = None
-    flow_bw = None
-    for sl in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
+    def one_scale(sl, flow, flow_bw):
         w_sl, h_sl = W >> sl, H >> sl
         grid = PatchGrid.create(cfg, w_sl, h_sl)
         lvl0, lvl1 = pyr0[sl], pyr1[sl]
         go_bw = fb and sl > cfg.finest_scale
 
-        with phase("extract"):
+        with span("extract"):
             state = make_state(lvl0, grid)
             state_bw = make_state(lvl1, grid) if fb else None
-        with phase("coarse"):
+        with span("coarse"):
             warm = flow if flow is not None else init_flow
             if warm is not None:
                 state = dis_mod.init_from_coarser(state, warm, grid)
             if fb and flow_bw is not None:
                 state_bw = dis_mod.init_from_coarser(state_bw, flow_bw, grid)
-        with phase("opti"):
+        with span("opti"):
             state = dis_mod.optimize(state, lvl1.image, grid, cfg)
             if fb:
                 state_bw = dis_mod.optimize(state_bw, lvl0.image, grid, cfg)
-        with phase("aggregate"):
+        with span("aggregate"):
             flow = densify_mod.densify(state, grid, cfg, compl_state=state_bw)
             if go_bw:
                 flow_bw = densify_mod.densify(state_bw, grid, cfg,
                                               compl_state=state)
 
         if cfg.use_var_ref:
-            with phase("var_ref"):
+            with span("var_ref"):
                 p = cfg.padding
                 im1 = lvl0.image[:, p:p + h_sl, p:p + w_sl, :]
                 im2 = lvl1.image[:, p:p + h_sl, p:p + w_sl, :]
@@ -158,12 +157,20 @@ def dis_flow_from_pyramids(pyr0, pyr1, cfg: DISConfig,
                 if go_bw:
                     flow_bw = var_mod.variational_refine_auto(
                         flow_bw, im2, im1, cfg, level)
-        if timer is not None:
-            ms = [timer.last.get(name, 0.0) for name in _SCALE_PHASES]
-            printer(f"TIME (Sc: {sl}, #p:{grid.n_patches:6d}, pconst, pinit, "
-                    "poptim, cflow, tvopt, total): "
-                    + " ".join(f"{t:8.2f}" for t in ms)
-                    + f" -> {sum(ms):8.2f} ms.")
+        return flow, flow_bw, grid
+
+    flow = None
+    flow_bw = None
+    with profiling.phases(timer):
+        for sl in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
+            with profiling.scale(sl):
+                flow, flow_bw, grid = one_scale(sl, flow, flow_bw)
+            if timer is not None:
+                ms = [timer.last.get(name, 0.0) for name in _SCALE_PHASES]
+                printer(f"TIME (Sc: {sl}, #p:{grid.n_patches:6d}, pconst, "
+                        "pinit, poptim, cflow, tvopt, total): "
+                        + " ".join(f"{t:8.2f}" for t in ms)
+                        + f" -> {sum(ms):8.2f} ms.")
     return flow
 
 
@@ -202,12 +209,17 @@ def _flow_padded(I0, I1, cfg: DISConfig, full_res: bool,
     """:func:`flow_padded`, eagerly (what a capture records)."""
     h, w = I0.shape[1], I0.shape[2]
     if any(pads):
-        I0, I1 = pad_replicate(I0, pads), pad_replicate(I1, pads)
+        with profiling.span("pad"):
+            I0, I1 = pad_replicate(I0, pads), pad_replicate(I1, pads)
     flow = dis_flow_padded(I0, I1, cfg)
     if not full_res:
         return flow
-    flow = upsample_flow_to_full(flow, cfg, I0.shape[1], I0.shape[2])
-    return flow[:, pads[0]:pads[0] + h, pads[2]:pads[2] + w, :]
+    with profiling.span("upsample"):
+        flow = upsample_flow_to_full(flow, cfg, I0.shape[1], I0.shape[2])
+    if not any(pads):
+        return flow
+    with profiling.span("pad"):
+        return flow[:, pads[0]:pads[0] + h, pads[2]:pads[2] + w, :]
 
 
 def flow_full_padded(I0: torch.Tensor, I1: torch.Tensor,
@@ -240,12 +252,16 @@ def validate_image_pair(I0, I1, what: str = "image") -> None:
 
 def as_image(x, device) -> torch.Tensor:
     """A numpy array or tensor as a float32 tensor on ``device`` (the
-    entry points choose it with :func:`..utils.device.resolve_device`)."""
-    if isinstance(x, torch.Tensor):
-        t = x.to(device)
-    else:
-        t = torch.as_tensor(np.asarray(x), device=device)
-    return t.float()
+    entry points choose it with :func:`..utils.device.resolve_device`):
+    the host span ``ingest`` of a traced call, its own dtype crossing to
+    the card, if it does (``utils/profiling``)."""
+    with profiling.host_span("ingest"):
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x)
+            profiling.moved(x.nbytes, "cpu", device)
+            return torch.as_tensor(x, device=device).float()
+        profiling.moved(x.nbytes, x.device, device)
+        return x.to(device).float()
 
 
 def compute_flow(I0, I1, cfg: Optional[DISConfig] = None, op_point: int = 2,
@@ -261,14 +277,15 @@ def compute_flow(I0, I1, cfg: Optional[DISConfig] = None, op_point: int = 2,
     """
     validate_image_pair(I0, I1)
     device = resolve_device(device, I0, I1)
-    I0 = as_image(I0, device)
-    I1 = as_image(I1, device)
-    h, w = I0.shape[0], I0.shape[1]
-    if cfg is None:
-        cfg = operating_point(op_point, width=w)
-    pin_fp32()
-    pads = pad_to_divisible(w, h, cfg.coarsest_scale)
-    return flow_padded(I0[None], I1[None], cfg, pads=pads)[0]
+    with profiling.call():
+        I0 = as_image(I0, device)
+        I1 = as_image(I1, device)
+        h, w = I0.shape[0], I0.shape[1]
+        if cfg is None:
+            cfg = operating_point(op_point, width=w)
+        pin_fp32()
+        pads = pad_to_divisible(w, h, cfg.coarsest_scale)
+        return flow_padded(I0[None], I1[None], cfg, pads=pads)[0]
 
 
 def compute_flow_timed(I0, I1, cfg: Optional[DISConfig] = None,
@@ -298,19 +315,22 @@ def compute_flow_timed(I0, I1, cfg: Optional[DISConfig] = None,
     timer = PhaseTimer(I0p.device)
 
     t_all = time.perf_counter()
-    with timer.phase("pyramid"):
-        kw = dict(start_level=cfg.finest_scale, backend=pool_backend(cfg))
-        pyr0 = build_pyramid(I0p, cfg.coarsest_scale + 1, cfg.padding, **kw)
-        pyr1 = build_pyramid(I1p, cfg.coarsest_scale + 1, cfg.padding, **kw)
-    printer(f"TIME (Pyramide+Gradients) (ms): "
-            f"{timer.totals['pyramid']:.3f}")
-    flow = dis_flow_from_pyramids(pyr0, pyr1, cfg, timer=timer,
-                                  printer=printer)
-    with timer.phase("upsample"):
-        flow = upsample_flow_to_full(flow[0], cfg, I0p.shape[1],
-                                     I0p.shape[2])
-        pt, _, pl, _ = pads
-        flow = flow[pt:pt + h, pl:pl + w, :]
+    with profiling.phases(timer):
+        with profiling.span("pyramid"):
+            kw = dict(start_level=cfg.finest_scale, backend=pool_backend(cfg))
+            pyr0 = build_pyramid(I0p, cfg.coarsest_scale + 1, cfg.padding,
+                                 **kw)
+            pyr1 = build_pyramid(I1p, cfg.coarsest_scale + 1, cfg.padding,
+                                 **kw)
+        printer(f"TIME (Pyramide+Gradients) (ms): "
+                f"{timer.totals['pyramid']:.3f}")
+        flow = dis_flow_from_pyramids(pyr0, pyr1, cfg, timer=timer,
+                                      printer=printer)
+        with profiling.span("upsample"):
+            flow = upsample_flow_to_full(flow[0], cfg, I0p.shape[1],
+                                         I0p.shape[2])
+            pt, _, pl, _ = pads
+            flow = flow[pt:pt + h, pl:pl + w, :]
     printer(f"TIME (O.Flow Run-Time   ) (ms): "
             f"{(time.perf_counter() - t_all) * 1000.0:.3f}")
     printer(timer.report())

@@ -33,7 +33,7 @@ from ..models.dis_flow import (as_image, dis_flow_from_pyramids, flow_padded,
                                pin_fp32, upsample_flow_to_full)
 from ..ops.pyramid import build_pyramid, pyramid_buffers
 from ..ops.resize import resize_linear_antialias
-from ..utils import graphs
+from ..utils import graphs, profiling
 from ..utils.device import resolve_device
 from .mesh import Mesh, batch_sharding
 
@@ -49,13 +49,14 @@ def batched_flow(I0, I1, cfg: DISConfig, full_res: bool = True,
     Returns [B, H, W, 2] (``full_res``) or [B, H/2^fs, W/2^fs, 2].
     """
     device = resolve_device(device, I0, I1)
-    I0 = as_image(I0, device)
-    I1 = as_image(I1, device)
-    if I0.dim() != 4 or I0.shape != I1.shape:
-        raise ValueError(f"batched_flow takes two [B, H, W, C] batches of "
-                         f"one shape, got {tuple(I0.shape)} and "
-                         f"{tuple(I1.shape)}")
-    return flow_padded(I0, I1, cfg, full_res=full_res)
+    with profiling.call():
+        I0 = as_image(I0, device)
+        I1 = as_image(I1, device)
+        if I0.dim() != 4 or I0.shape != I1.shape:
+            raise ValueError(f"batched_flow takes two [B, H, W, C] batches "
+                             f"of one shape, got {tuple(I0.shape)} and "
+                             f"{tuple(I1.shape)}")
+        return flow_padded(I0, I1, cfg, full_res=full_res)
 
 
 def make_data_parallel_flow(mesh: Mesh, cfg: DISConfig,
@@ -113,12 +114,15 @@ def _make_stream_path(cfg: DISConfig, shape, full_res: bool, device):
                          device=device) for _ in range(2)]
 
     def step(k):
-        pyr = build_pyramid(frames, *args, **kw, out=pyrs[1 - k])
+        with profiling.span("pyramid"):
+            pyr = build_pyramid(frames, *args, **kw, out=pyrs[1 - k])
         flow = dis_flow_from_pyramids(pyrs[k], pyr, cfg, init_flow=inits[k])
-        inits[1 - k].copy_(warm_start(flow, cfg, *init_hw))
+        with profiling.span("warm_start"):
+            inits[1 - k].copy_(warm_start(flow, cfg, *init_hw))
         if not full_res:
             return flow
-        return upsample_flow_to_full(flow, cfg, H, W)
+        with profiling.span("upsample"):
+            return upsample_flow_to_full(flow, cfg, H, W)
 
     return (pyrs, inits), frames, step
 
@@ -187,37 +191,44 @@ def stream_flow(frames: Iterable, cfg: DISConfig, full_res: bool = True,
     (without a GPU that raises: pass ``device="cpu"``).
     Yields [H, W, 2] (``full_res``) or finest-scale flows, as numpy with
     ``fetch`` or as device tensors without; a yielded flow is the
-    caller's own and no later step changes it.
+    caller's own and no later step changes it.  Each frame is an entry
+    call of its own (``utils/profiling``), from the frame in hand to its
+    flow, fetched where ``fetch`` asks.
     """
     core = None
     shape0 = None
     try:
         for frame in frames:
-            if shape0 is None:
-                device = resolve_device(device, frame)
-            shape = tuple(frame.shape)
-            if len(shape) != 3 or shape[2] not in (1, 3):
-                raise ValueError(
-                    f"stream frame must be [H, W, 1|3], got {shape}")
-            if shape0 is None:
-                shape0 = shape
-                div = 2 ** cfg.coarsest_scale
-                if shape0[0] % div or shape0[1] % div:
+            with profiling.call():
+                if shape0 is None:
+                    device = resolve_device(device, frame)
+                shape = tuple(frame.shape)
+                if len(shape) != 3 or shape[2] not in (1, 3):
                     raise ValueError(
-                        f"stream frames must be pre-padded to "
-                        f"2^{cfg.coarsest_scale} divisibility, got "
-                        f"{shape0[0]}x{shape0[1]}")
-                core = StreamCore(cfg, 1, *shape0, full_res, device)
-                core.start(as_image(frame, device)[None])
-                continue
-            if shape != shape0:
-                raise ValueError(
-                    f"stream frame shape changed: {shape} vs "
-                    f"{shape0} — all frames of a stream must match")
-            batch = (frame[None] if isinstance(frame, torch.Tensor)
-                     else torch.as_tensor(frame)[None])
-            out = core.step(batch)[0]
-            yield out.cpu().numpy() if fetch else out
+                        f"stream frame must be [H, W, 1|3], got {shape}")
+                if shape0 is None:
+                    shape0 = shape
+                    div = 2 ** cfg.coarsest_scale
+                    if shape0[0] % div or shape0[1] % div:
+                        raise ValueError(
+                            f"stream frames must be pre-padded to "
+                            f"2^{cfg.coarsest_scale} divisibility, got "
+                            f"{shape0[0]}x{shape0[1]}")
+                    core = StreamCore(cfg, 1, *shape0, full_res, device)
+                    core.start(as_image(frame, device)[None])
+                    continue
+                if shape != shape0:
+                    raise ValueError(
+                        f"stream frame shape changed: {shape} vs "
+                        f"{shape0} — all frames of a stream must match")
+                batch = (frame[None] if isinstance(frame, torch.Tensor)
+                         else torch.as_tensor(frame)[None])
+                out = core.step(batch)[0]
+                if fetch:
+                    with profiling.host_span("fetch"):
+                        profiling.moved(out.nbytes, out.device, "cpu")
+                        out = out.cpu().numpy()
+            yield out
     finally:
         if core is not None:
             core.close()

@@ -35,6 +35,7 @@ import torch
 
 from ..config import DISConfig
 from ..models.dis_flow import as_image
+from ..utils import profiling
 from .frame_parallel import StreamCore
 
 
@@ -120,11 +121,12 @@ class MultiStream:
         them."""
         if not self._cores[0].started:
             raise RuntimeError("call start(first_frames) before push()")
-        flows = [core.step(part)
-                 for core, part in zip(self._cores, self._shards(frames))]
-        if len(flows) == 1:
-            return flows[0]
-        return torch.cat([f.to(self.device) for f in flows], dim=0)
+        with profiling.call():
+            flows = [core.step(part) for core, part in
+                     zip(self._cores, self._shards(frames))]
+            if len(flows) == 1:
+                return flows[0]
+            return torch.cat([f.to(self.device) for f in flows], dim=0)
 
     def close(self) -> None:
         """End the streams (on the card their captured paths may then

@@ -49,6 +49,12 @@ are theirs alone: a wrapper counts where it is called (eagerly, or once
 while a capture records it), and a replay, which calls no wrapper, counts
 nothing; what a replay ran on the device is read from a profile.
 
+Every recording has traced twins (``utils/profiling.py``): the same
+function recorded right after it, in the same memory pool, with a timing
+event at each device-span boundary.  A call traced by
+``utils/profiling`` replays a twin, any other call the plain graph; both
+run the same kernels on the same tensors.
+
 Captured paths run on the current CUDA stream and a path's tensors are
 shared by its calls, so calls of one path must come from one stream.
 """
@@ -64,6 +70,7 @@ from typing import Callable, Sequence
 import torch
 
 from . import device as device_mod
+from . import profiling
 
 MAX_ENTRIES = 8
 
@@ -151,11 +158,59 @@ class _Recording:
         return self.out
 
 
+class _Traced:
+    """A recording of ``fn()`` and its traced twins (recorded after it in
+    its pool, a timing event at each device-span boundary): a traced call
+    replays a twin, any other call the plain graph.  ``twins`` twins take
+    the traced calls in turn, so that a twin's times are read (after the
+    next call's launch) before it replays again: 2 for a path whose calls
+    all replay it, 1 for each of a stream's two alternating recordings."""
+
+    def __init__(self, fn: Callable, device: torch.device, pool=None,
+                 twins: int = 2):
+        self.plain = _Recording(fn, device, pool)
+        self.twins = []
+        for _ in range(twins):
+            marks = profiling.Marks()
+            self.twins.append((_Recording(
+                lambda marks=marks: marks.capture(fn), device,
+                pool=self.plain.pool()), marks))
+        self.turn = 0
+        profiling.recorded()
+
+    def pool(self):
+        return self.plain.pool()
+
+    def free(self) -> None:
+        self.plain.free()
+        for twin, _ in self.twins:
+            twin.free()
+
+    def replay(self):
+        if not profiling.active():
+            return self.plain.replay()
+        twin, marks = self.twins[self.turn]
+        self.turn = (self.turn + 1) % len(self.twins)
+        marks.before_replay()
+        out = twin.replay()
+        marks.replayed()
+        return out
+
+
 def _copy_out(out):
     """A call's result: copies, so the next replay cannot change it."""
-    if isinstance(out, torch.Tensor):
-        return out.clone()
-    return tuple(x.clone() for x in out)
+    with profiling.host_span("copy_out"):
+        if isinstance(out, torch.Tensor):
+            return out.clone()
+        return tuple(x.clone() for x in out)
+
+
+def _ingest(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``, with the bytes that cross between host and card
+    counted (a blocking copy converts on the host: ``dst``'s dtype
+    crosses)."""
+    profiling.moved(dst.nbytes, src.device, dst.device)
+    dst.copy_(src)
 
 
 # ---------------------------------------------------------- stateless paths
@@ -168,7 +223,8 @@ class _StaticPath:
         fixed = [torch.empty(x.shape, dtype=x.dtype, device=dev)
                  for x in inputs]
         self.inputs = fixed
-        self.recording = _Recording(lambda: fn(*fixed), dev)
+        self.device = dev
+        self.recording = _Traced(lambda: fn(*fixed), dev)
         self.replays = 0
         self.busy = False
 
@@ -176,10 +232,13 @@ class _StaticPath:
         self.recording.free()
 
     def __call__(self, inputs):
-        for dst, src in zip(self.inputs, inputs):
-            dst.copy_(src)
+        with profiling.host_span("ingest"):
+            for dst, src in zip(self.inputs, inputs):
+                _ingest(dst, src)
         self.replays += 1
-        return _copy_out(self.recording.replay())
+        with profiling.launch("replay", self.device):
+            out = self.recording.replay()
+        return _copy_out(out)
 
 
 def _insert(key, path) -> None:
@@ -204,20 +263,24 @@ def run(entry: str, fn: Callable, inputs: Sequence[torch.Tensor],
     over that changes what it computes (``cfg``, flags); it must be
     hashable.  ``fn`` returns a tensor or a tuple of tensors."""
     dev = inputs[0].device
-    if not enabled(entry, dev):
-        return fn(*inputs)
-    key = (entry, static, str(dev),
-           tuple((tuple(x.shape), x.dtype) for x in inputs))
-    with _lock:
-        path = _cache.get(key)
-        if path is None:
-            # first call: eager, and everything a capture must find ready
-            # (kernels built, constants on the device) is ready after it
-            out = fn(*inputs)
-            _insert(key, _StaticPath(fn, inputs))
-            return out
-        _cache.move_to_end(key)
-        return path(inputs)
+    with profiling.call():
+        if not enabled(entry, dev):
+            with profiling.launch("eager", dev):
+                return fn(*inputs)
+        key = (entry, static, str(dev),
+               tuple((tuple(x.shape), x.dtype) for x in inputs))
+        with _lock:
+            path = _cache.get(key)
+            if path is None:
+                # first call: eager, and everything a capture must find
+                # ready (kernels built, constants on the device) is ready
+                # after it
+                with profiling.launch("record", dev):
+                    out = fn(*inputs)
+                    _insert(key, _StaticPath(fn, inputs))
+                return out
+            _cache.move_to_end(key)
+            return path(inputs)
 
 
 # ------------------------------------------------------------- stream paths
@@ -251,22 +314,29 @@ class StreamPath:
         caller's own: a copy where a graph wrote it).  The first step of
         a new captured path runs eagerly (its result is the answer) and
         then records both alternations."""
-        self.frames.copy_(frames if isinstance(frames, torch.Tensor)
-                          else torch.as_tensor(frames))
-        k = self.k
-        self.k = 1 - k
-        step = self._step_fn
-        if not self.capture:
-            return step(k)
-        if self._recordings is None:
-            out = step(k)
-            first = _Recording(lambda: step(0), self.device)
-            second = _Recording(lambda: step(1), self.device,
-                                pool=first.pool())
-            self._recordings = (first, second)
-            return out
-        self.replays += 1
-        return _copy_out(self._recordings[k].replay())
+        with profiling.call():
+            with profiling.host_span("ingest"):
+                _ingest(self.frames, frames if isinstance(
+                    frames, torch.Tensor) else torch.as_tensor(frames))
+            k = self.k
+            self.k = 1 - k
+            step = self._step_fn
+            if not self.capture:
+                with profiling.launch("eager", self.device):
+                    return step(k)
+            if self._recordings is None:
+                with profiling.launch("record", self.device):
+                    out = step(k)
+                    first = _Traced(lambda: step(0), self.device,
+                                    twins=1)
+                    second = _Traced(lambda: step(1), self.device,
+                                     pool=first.pool(), twins=1)
+                self._recordings = (first, second)
+                return out
+            self.replays += 1
+            with profiling.launch("replay", self.device):
+                out = self._recordings[k].replay()
+            return _copy_out(out)
 
     def release(self) -> None:
         """The stream has ended: another may take the path, or, if the

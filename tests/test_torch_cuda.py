@@ -27,7 +27,7 @@ from flowonthego_tpu_torch.ops.cuda import (densify, derivs, dis_gn, dis_ref,
 from flowonthego_tpu_torch.ops.patches import (PatchGrid,
                                                extract_templates_and_hessians)
 from flowonthego_tpu_torch.ops.pyramid import build_pyramid
-from flowonthego_tpu_torch.utils import graphs
+from flowonthego_tpu_torch.utils import graphs, profiling
 from flowonthego_tpu_torch.utils.synth import plant_stripes, synthetic_frames
 
 pytestmark = pytest.mark.cuda
@@ -1223,3 +1223,109 @@ def test_g5_g6_raise_on_what_they_cannot_take(cuda):
     with pytest.raises(ValueError, match="1024"):
         dis_ref.optimize_reference(st, I1p, grid,
                                    dataclasses.replace(cfg, cost_fn="l1"))
+
+
+# --------------------------------------------------- traced twins (tracing)
+
+LEAVES = profiling.LEAVES
+
+
+def _tracing(on: bool):
+    (profiling.enable if on else profiling.disable)()
+
+
+def test_twin_replay_equals_plain_replay(cuda):
+    """A traced call replays the twin: the same flow bit for bit as the
+    plain graph's, one replay a call, its device spans read without a
+    wait by the next call of a caller that reads each flow (synchronises),
+    none dropped; on 124x256 frames (the in-graph pad and crop run)."""
+    cfg = dataclasses.replace(port.operating_point(2, width=256),
+                              coarsest_scale=4)
+    i0, i1 = (torch.as_tensor(x, device=cuda) for x in
+              synthetic_frames(3, 2, 124, 256, (2, 1), factor=4))
+    graphs.clear()
+    try:
+        plain = [port.compute_flow(i0, i1, cfg) for _ in range(3)]
+        _tracing(True)
+        twin = []
+        for _ in range(3):
+            twin.append(port.compute_flow(i0, i1, cfg))
+            torch.cuda.synchronize()
+        _tracing(False)
+        again = port.compute_flow(i0, i1, cfg)
+        torch.cuda.synchronize()
+        r = profiling.report()
+    finally:
+        _tracing(False)
+        graphs.clear()
+    assert all(torch.equal(t, plain[1]) for t in twin + [again, plain[2]])
+    assert r["calls"] == 3 and r["modes"] == {"replay": 3}
+    assert r["device_calls"] == 3 and r["dropped"] == r["pending"] == 0
+    assert {"pad", "pyramid", "upsample", "scale 4", "opti"} <= set(
+        r["device_ms"])
+    assert all(v > 0 for k, v in r["device_ms"].items() if k != "pad")
+
+
+def test_stream_switching_tracing_equals_untraced(cuda):
+    """A stream that turns tracing on and off between steps yields the
+    same flows as one that never traces; with ``fetch=True`` no reading
+    is dropped."""
+    cfg = dataclasses.replace(port.operating_point(2, width=256),
+                              coarsest_scale=4)
+    frames = [torch.as_tensor(f, device=cuda) for f in
+              synthetic_frames(7, 9, 128, 256, (2, 1), factor=4)]
+    graphs.clear()
+    reports = []       # enable() starts the totals afresh: one a stretch
+    try:
+        ref = list(port.stream_flow(frames, cfg))
+        got = []
+        for k, flow in enumerate(port.stream_flow(iter(frames), cfg)):
+            got.append(flow)
+            if k % 3 == 1:
+                _tracing(False)
+                reports.append(profiling.report())
+            elif not profiling.is_on():
+                _tracing(True)
+    finally:
+        _tracing(False)
+        graphs.clear()
+    assert len(got) == len(ref) == 8
+    assert all(np.array_equal(g, f) for g, f in zip(got, ref))
+    assert sum(r["calls"] for r in reports) == 5      # frames 1, 3-4, 6-7
+    for r in reports:
+        assert r["dropped"] == 0 and r["pending"] == 0
+        assert r["calls"] == r["device_calls"]
+        assert r["modes"] == {"replay": r["calls"]}
+        assert r["dtoh_bytes"] == r["calls"] * 128 * 256 * 2 * 4
+
+
+def test_twin_leaves_add_up_to_first_to_last(cuda):
+    """The leaves of a replayed twin share their boundary events, so
+    their device ms add up to its first-to-last event time; each scale's
+    span holds its five phases."""
+    cfg = dataclasses.replace(port.operating_point(2, width=256),
+                              coarsest_scale=4)
+    i0, i1 = (torch.as_tensor(x, device=cuda) for x in
+              synthetic_frames(3, 2, 124, 256, (2, 1), factor=4))
+    graphs.clear()
+    try:
+        port.compute_flow(i0, i1, cfg)
+        _tracing(True)
+        port.compute_flow(i0, i1, cfg)
+        torch.cuda.synchronize()
+        r = profiling.report()
+        (path,) = graphs._cache.values()
+        ev = path.recording.twins[0][1].events
+        total = ev[0].elapsed_time(ev[-1])
+    finally:
+        _tracing(False)
+        graphs.clear()
+    ms = r["device_ms"]
+    leaves = sum(v for k, v in ms.items() if k in LEAVES)
+    assert leaves == pytest.approx(total, rel=1e-5, abs=1e-4)
+    for sl in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
+        assert ms[f"scale {sl}"] > 0
+    scales = sum(v for k, v in ms.items() if k.startswith("scale "))
+    phases = sum(ms[k] for k in ("extract", "coarse", "opti", "aggregate",
+                                 "var_ref"))
+    assert scales == pytest.approx(phases, rel=1e-5, abs=1e-4)

@@ -1,0 +1,425 @@
+"""The port's spans and counters (``utils/profiling.py``) on the CPU.
+
+Tracing is on between ``profiling.enable()`` and ``disable()``, or while
+a ``torch.profiler`` records.  Here: the span tree of ``compute_flow``
+and ``stream_flow`` (host spans, device spans timed by the host clock on
+the CPU, one ``scale <sl>`` a scale), an empty report and unchanged flows
+with tracing off, the byte counters against shape x dtype, launches by
+mode through a stand-in for the CUDA graph (as tests/test_torch_graphs.py
+puts one in), the boundary events of a traced twin (:class:`Marks`) with
+stand-in events, and a span on the profiler's clock.  The card's side is
+in tests/test_torch_cuda.py.
+
+Tiny sizes: 44x64 frames, scales 2..1, 4 Gauss-Newton iterations,
+variational refinement on.
+"""
+
+import contextlib
+import time
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+import flowonthego_tpu_torch as port
+from flowonthego_tpu_torch.models import dis_flow as dis_flow_mod
+from flowonthego_tpu_torch.models.dis_flow import as_image
+from flowonthego_tpu_torch.utils import graphs, profiling
+from flowonthego_tpu_torch.utils.synth import synthetic_frames
+
+torch.set_num_threads(1)
+
+H, W = 44, 64
+CFG = port.DISConfig(coarsest_scale=2, finest_scale=1, grad_descent_iter=4,
+                     use_var_ref=True)
+PHASES = ("extract", "coarse", "opti", "aggregate", "var_ref")
+
+
+@pytest.fixture(autouse=True)
+def quiet():
+    """Each test starts with tracing off, an empty cache and empty
+    totals, and leaves them so."""
+    profiling.disable()
+    profiling.enable()
+    profiling.disable()
+    graphs.clear()
+    yield
+    profiling.disable()
+    graphs.clear()
+
+
+@contextlib.contextmanager
+def traced():
+    profiling.enable()
+    try:
+        yield
+    finally:
+        profiling.disable()
+
+
+def _frames(n, h=H, w=W):
+    return synthetic_frames(3, n, h, w, (2, 1), factor=4)
+
+
+def _by_call(spans):
+    calls = {}
+    for s in spans:
+        calls.setdefault(s.call, []).append(s)
+    return calls
+
+
+def _check_tree(spans, scales, leaves_top):
+    """One call's spans: host spans at the top, a ``scale <sl>`` under the
+    launch for each scale with its five phases under it, the other
+    device leaves under the launch."""
+    dev = [s for s in spans if s.on == "device"]
+    assert {s.name for s in spans if s.on == "host"} >= {"launch"}
+    assert all(s.parent is None for s in spans if s.on == "host")
+    assert [s.name for s in dev if s.name.startswith("scale ")] == [
+        f"scale {sl}" for sl in scales]
+    for sl in scales:
+        inner = [s for s in dev if s.parent == f"scale {sl}"]
+        assert [s.name for s in inner] == list(PHASES)
+        assert {s.scale for s in inner} == {sl}
+    top = [s.name for s in dev if s.parent == "launch"]
+    assert sorted(set(top)) == sorted(set(leaves_top) | {
+        f"scale {sl}" for sl in scales})
+    assert all(s.end_ns >= s.start_ns for s in spans)
+
+
+# ------------------------------------------------------------ off and on
+
+def test_off_keeps_nothing_and_on_changes_no_flow():
+    f0, f1 = _frames(2)
+    off = port.compute_flow(f0, f1, CFG, device="cpu")
+    stream_off = list(port.stream_flow(_frames(4), CFG, device="cpu"))
+    r = profiling.report()
+    assert r["calls"] == 0 and r["modes"] == {} and r["host_ms"] == {} \
+        and r["device_ms"] == {} and r["htod_bytes"] == r["dtoh_bytes"] == 0
+    assert profiling.spans() == []
+    with traced():
+        on = port.compute_flow(f0, f1, CFG, device="cpu")
+        stream_on = list(port.stream_flow(_frames(4), CFG, device="cpu"))
+    assert torch.equal(off, on)
+    assert all(np.array_equal(a, b) for a, b in zip(stream_off, stream_on))
+    assert profiling.report()["calls"] == 4
+
+
+def test_off_creates_no_call_context():
+    """With tracing off every hook is the same do-nothing context."""
+    assert profiling.call() is profiling._NOOP
+    assert profiling.host_span("ingest") is profiling._NOOP
+    assert profiling.launch("eager", "cpu") is profiling._NOOP
+    assert profiling.span("pyramid") is profiling._NOOP
+    assert profiling.scale(3) is profiling._NOOP
+    assert not profiling.active()
+
+
+# -------------------------------------------------------------- span tree
+
+def test_compute_flow_span_tree():
+    """Unpadded 42x62 frames: the in-graph pad and crop are spans too."""
+    f0, f1 = (f[:42, :62] for f in _frames(2))
+    with traced():
+        port.compute_flow(f0, f1, CFG, device="cpu")
+        port.compute_flow(f0, f1, CFG, device="cpu")
+    calls = _by_call(profiling.spans())
+    assert len(calls) == 2
+    for spans in calls.values():
+        _check_tree(spans, (2, 1), ("pad", "pyramid", "upsample"))
+        assert [s.name for s in spans if s.on == "host"].count("ingest") == 2
+        assert [s.mode for s in spans if s.name == "launch"] == ["eager"]
+    r = profiling.report()
+    assert r["calls"] == 2 and r["modes"] == {"eager": 2}
+    assert r["device_calls"] == 2 and r["pending"] == r["dropped"] == 0
+    assert set(r["device_ms"]) == {"pad", "pyramid", "upsample", "scale 2",
+                                   "scale 1", *PHASES}
+    last = profiling.report(calls=1)
+    assert last["calls"] == 1
+    assert last["device_ms"]["scale 1"] < r["device_ms"]["scale 1"]
+
+
+def test_stream_flow_span_tree():
+    frames = _frames(5)
+    with traced():
+        flows = list(port.stream_flow(frames, CFG, device="cpu"))
+    assert len(flows) == 4
+    calls = _by_call(profiling.spans())
+    assert len(calls) == 4          # the first frame launches nothing
+    for spans in calls.values():
+        _check_tree(spans, (2, 1), ("pyramid", "warm_start", "upsample"))
+        assert [s.name for s in spans if s.on == "host"] == [
+            "ingest", "launch", "fetch"]
+    r = profiling.report()
+    assert r["modes"] == {"eager": 4} and r["device_calls"] == 4
+
+
+def test_multistream_push_is_one_call():
+    videos = np.stack([np.stack(_frames(3)), np.stack(_frames(3)[::-1])])
+    ms = port.MultiStream(CFG, H, W, n_streams=2, device="cpu")
+    ms.start(videos[:, 0])
+    with traced():
+        for t in (1, 2):
+            ms.push(videos[:, t])
+    ms.close()
+    calls = _by_call(profiling.spans())
+    assert len(calls) == 2
+    for spans in calls.values():
+        _check_tree(spans, (2, 1), ("pyramid", "warm_start", "upsample"))
+
+
+def test_phase_timer_is_fed_by_the_leaves():
+    """compute_flow_timed's PhaseTimer gets its phases from the same span
+    hook: its pyramid, the five phases and the upsample, nothing else."""
+    made = []
+
+    class Kept(dis_flow_mod.PhaseTimer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(self)
+
+    lines = []
+    with mock.patch.object(dis_flow_mod, "PhaseTimer", Kept):
+        port.compute_flow_timed(*_frames(2), CFG, device="cpu",
+                                printer=lines.append)
+    text = "\n".join(lines)
+    names = [ln.split("]")[0].strip("[ ") for ln in text.splitlines()
+             if ln.startswith("[")]
+    assert names == ["pyramid", *PHASES, "upsample"]
+    assert text.count("TIME (Sc:") == 2
+    assert dict(made[0].counts) == dict(pyramid=1, extract=2, coarse=2,
+                                        opti=2, aggregate=2, var_ref=2,
+                                        upsample=1)
+
+
+# ------------------------------------------------------------------ bytes
+
+def test_byte_counters_are_shape_times_dtype():
+    """What crosses to a card (the meta device stands in for it): a numpy
+    frame as its own dtype, a host tensor copied into a path's float32
+    tensor as float32 (the copy converts on the host), a flow fetched."""
+    frame = np.zeros((448, 1024, 3), np.uint8)
+    fixed = torch.empty((1, 448, 1024, 3), device="meta")
+    flow = torch.empty((448, 1024, 2), device="meta")
+    with traced(), profiling.call():
+        profiling._local.call.modes["eager"] += 1     # a call that launched
+        as_image(frame, "meta")
+        as_image(torch.as_tensor(frame), "meta")
+        as_image(torch.as_tensor(frame), "cpu")        # stays on the host
+        graphs._ingest(fixed, torch.as_tensor(frame)[None])
+        profiling.moved(flow.nbytes, flow.device, "cpu")
+    r = profiling.report()
+    assert r["htod_bytes"] == 2 * 448 * 1024 * 3 + 448 * 1024 * 3 * 4
+    assert r["dtoh_bytes"] == 448 * 1024 * 2 * 4 == 3_670_016
+
+
+def test_host_frames_on_the_cpu_cross_nothing():
+    with traced():
+        list(port.stream_flow(_frames(3), CFG, device="cpu"))
+        port.compute_flow(*_frames(2), CFG, device="cpu")
+    r = profiling.report()
+    assert r["calls"] == 3 and r["htod_bytes"] == r["dtoh_bytes"] == 0
+
+
+# ----------------------------------------------------- modes through a graph
+
+class Rerun:
+    """Stands in for ``graphs._Recording`` on the CPU (as in
+    tests/test_torch_graphs.py): recording runs nothing, a replay runs
+    the function again into the first replay's output tensors."""
+
+    replayed = []
+
+    def __init__(self, fn, device, pool=None):
+        self.fn = fn
+        self.out = None
+
+    def pool(self):
+        return None
+
+    def free(self):
+        self.out = None
+
+    def replay(self):
+        Rerun.replayed.append(self)
+        out = self.fn()
+        if self.out is None:
+            self.out = out
+            return out
+        single = isinstance(out, torch.Tensor)
+        for dst, src in zip((self.out,) if single else self.out,
+                            (out,) if single else out):
+            dst.copy_(src)
+        return self.out
+
+
+@contextlib.contextmanager
+def fake_graphs():
+    on_card = graphs.enabled
+    Rerun.replayed = []
+    with mock.patch.object(graphs, "_Recording", Rerun), \
+            mock.patch.object(graphs, "enabled",
+                              lambda entry, device: on_card(entry, "cuda")):
+        yield
+
+
+def test_record_then_replay_counts_modes_and_recordings():
+    f0, f1 = (torch.as_tensor(f) for f in _frames(2))
+    eager = port.compute_flow(f0, f1, CFG, device="cpu")
+    with fake_graphs(), traced():
+        got = [port.compute_flow(f0, f1, CFG, device="cpu")
+               for _ in range(3)]
+    assert all(torch.equal(g, eager) for g in got)
+    r = profiling.report()
+    assert r["calls"] == 3
+    assert r["modes"] == {"record": 1, "replay": 2}
+    assert r["recordings"] == 1 and r["device_calls"] == 3
+    calls = list(_by_call(profiling.spans()).values())
+    for spans in calls:             # the twin's spans, timed on the host
+        _check_tree(spans, (2, 1), ("pyramid", "upsample"))
+    assert [s.name for s in calls[-1] if s.on == "host"] == [
+        "ingest", "ingest", "ingest", "launch", "copy_out"]
+    path = graphs._cache[next(iter(graphs._cache))]
+    assert Rerun.replayed == [twin for twin, _ in path.recording.twins]
+
+
+def test_stream_replays_its_twins_only_while_traced():
+    frames = [torch.as_tensor(f) for f in _frames(6)]
+    eager = list(port.stream_flow(frames, CFG, fetch=False, device="cpu"))
+    with fake_graphs():
+        with traced():
+            head = list(port.stream_flow(frames[:4], CFG, fetch=False,
+                                         device="cpu"))
+        r = profiling.report()
+        assert r["modes"] == {"record": 1, "replay": 2}
+        assert r["recordings"] == 2
+        path = graphs._cache[next(iter(graphs._cache))]
+        twins = [rec.twins[0][0] for rec in path._recordings]
+        assert Rerun.replayed == [twins[1], twins[0]]
+        Rerun.replayed = []
+        untraced = list(port.stream_flow(frames, CFG, fetch=False,
+                                         device="cpu"))
+        plains = [rec.plain for rec in path._recordings]
+        assert Rerun.replayed == [plains[0], plains[1]] * 2 + [plains[0]]
+    assert all(torch.equal(a, b) for a, b in zip(head, eager))
+    assert all(torch.equal(a, b) for a, b in zip(untraced, eager))
+    assert profiling.report()["calls"] == 3      # kept after disable
+
+
+def test_report_survives_clear():
+    with fake_graphs(), traced():
+        for _ in range(2):
+            port.compute_flow(*_frames(2), CFG, device="cpu")
+    before = profiling.report()
+    graphs.clear()
+    assert profiling.report() == before and before["calls"] == 2
+
+
+# ------------------------------------------------- a twin's boundary events
+
+class FakeEvent:
+    """A timing event: ``t`` ms once recorded; done unless held back."""
+
+    clock = [0.0]
+    held = False
+
+    def __init__(self):
+        FakeEvent.clock[0] += 1.0
+        self.t = FakeEvent.clock[0]
+
+    def query(self):
+        return not FakeEvent.held
+
+    def elapsed_time(self, other):
+        return other.t - self.t
+
+
+def test_twin_marks_share_leaf_boundaries_and_drop_unread():
+    """Leaves share their boundary events (a pyramid, a scale's two
+    phases, an upsample: 5 events for 4 leaves), a parent runs from its
+    first leaf's start to its last leaf's end, the leaves add up to the
+    first-to-last time; a twin replayed again before its events are done
+    drops their times."""
+    marks = profiling.Marks()
+
+    def step():
+        with profiling.span("pyramid"):
+            pass
+        with profiling.scale(0):
+            with profiling.span("extract"):
+                pass
+            with profiling.span("opti"):
+                pass
+        with profiling.span("upsample"):
+            pass
+
+    def fake_mark():
+        marks.events.append(FakeEvent())
+        return len(marks.events) - 1
+
+    with mock.patch.object(profiling, "_capturing", lambda: True), \
+            mock.patch.object(marks, "_mark", fake_mark):
+        marks.capture(step)
+    assert len(marks.events) == 5
+    assert [row[0] for row in marks.layout] == [
+        "pyramid", "extract", "opti", "scale 0", "upsample"]
+
+    with traced():
+        for held in (False, True, False):
+            with profiling.call():
+                profiling._local.call.modes["replay"] += 1
+                marks.before_replay()
+                FakeEvent.held = held
+                marks.replayed()
+        FakeEvent.held = False
+        r = profiling.report()
+    assert r["calls"] == 3 and r["device_calls"] == 2 and r["dropped"] == 1
+    assert r["device_ms"] == {"pyramid": 2.0, "extract": 2.0, "opti": 2.0,
+                              "scale 0": 4.0, "upsample": 2.0}
+    leaves = sum(v for k, v in r["device_ms"].items() if k != "scale 0")
+    assert leaves == 2 * (marks.events[-1].t - marks.events[0].t)
+    first = [s for s in profiling.spans() if s.on == "device"][:5]
+    assert [s.parent for s in first] == [
+        "launch", "scale 0", "scale 0", "launch", "launch"]
+
+
+# ------------------------------------------------------ the profiler's clock
+
+def test_span_brackets_an_aten_op_on_the_profilers_clock():
+    """Inside a CPU-only torch.profiler run tracing is on, and a host span
+    stamped around an op holds the op's own event on the profile's clock
+    (its times from the trace's start)."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones(64, 64)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert profiling.is_on()
+        with profiling.call():
+            profiling._local.call.modes["eager"] += 1
+            with profiling.host_span("fetch"):
+                time.sleep(0.002)
+                torch.mm(x, x)
+                time.sleep(0.002)
+    assert not profiling.is_on()
+    span = [s for s in profiling.spans() if s.name == "fetch"][-1]
+    t0 = prof.profiler.kineto_results.trace_start_ns()
+    mm = [e for e in prof.events() if e.name == "aten::mm"]
+    assert len(mm) == 1
+    start_us, end_us = (span.start_ns - t0) / 1e3, (span.end_ns - t0) / 1e3
+    assert start_us < mm[0].time_range.start < mm[0].time_range.end < end_us
+
+
+def test_trace_writes_the_spans(tmp_path):
+    import json
+    with profiling.trace(str(tmp_path)):
+        port.compute_flow(*_frames(2), CFG, device="cpu")
+    doc = json.loads((tmp_path / "trace.json").read_text())
+    mine = [e for e in doc["traceEvents"] if e.get("cat") == "program span"]
+    names = {e["name"] for e in mine}
+    assert {"ingest", "launch", "pyramid", "scale 1", "opti"} <= names
+    aten = [e for e in doc["traceEvents"] if e.get("name") == "aten::mm"
+            or str(e.get("name", "")).startswith("aten::")]
+    launch = next(e for e in mine if e["name"] == "launch")
+    inside = [e for e in aten
+              if launch["ts"] <= e["ts"] <= launch["ts"] + launch["dur"]]
+    assert inside
