@@ -47,7 +47,7 @@ from ..ops.patches import PatchGrid, extract_templates_and_hessians
 from ..ops.pyramid import build_pyramid, pad_replicate
 from ..ops.resize import resize_matmul
 from ..utils import graphs, profiling
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, to_host, upload
 from ..utils.timing import PhaseTimer
 
 
@@ -253,15 +253,13 @@ def validate_image_pair(I0, I1, what: str = "image") -> None:
 def as_image(x, device) -> torch.Tensor:
     """A numpy array or tensor as a float32 tensor on ``device`` (the
     entry points choose it with :func:`..utils.device.resolve_device`):
-    the host span ``ingest`` of a traced call, its own dtype crossing to
-    the card, if it does (``utils/profiling``)."""
+    the host span ``ingest`` of a traced call.  It crosses to the card,
+    if it does, in its own dtype (a host array through pinned staging,
+    :func:`..utils.device.upload`) and is converted there."""
     with profiling.host_span("ingest"):
         if not isinstance(x, torch.Tensor):
-            x = np.asarray(x)
-            profiling.moved(x.nbytes, "cpu", device)
-            return torch.as_tensor(x, device=device).float()
-        profiling.moved(x.nbytes, x.device, device)
-        return x.to(device).float()
+            x = torch.as_tensor(np.asarray(x))
+        return upload(x, device).float()
 
 
 def compute_flow(I0, I1, cfg: Optional[DISConfig] = None, op_point: int = 2,
@@ -353,7 +351,10 @@ class DISFlow:
             self.op_point, width=width)
 
     def calc(self, I0, I1) -> np.ndarray:
-        """Flow for one frame pair as numpy [H, W, 2]."""
+        """Flow for one frame pair as numpy [H, W, 2]: from the card, in
+        page-locked host memory while the caller keeps it, as
+        :func:`..parallel.frame_parallel.stream_flow`'s fetched flows
+        (``utils.device.to_host``)."""
         out = compute_flow(I0, I1, cfg=self.cfg, op_point=self.op_point,
                            device=self.device)
-        return out.cpu().numpy()
+        return to_host(out)

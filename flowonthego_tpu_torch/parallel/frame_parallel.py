@@ -26,6 +26,7 @@ from __future__ import annotations
 import functools
 from typing import Iterable
 
+import numpy as np
 import torch
 
 from ..config import DISConfig, pool_backend
@@ -34,7 +35,7 @@ from ..models.dis_flow import (as_image, dis_flow_from_pyramids, flow_padded,
 from ..ops.pyramid import build_pyramid, pyramid_buffers
 from ..ops.resize import resize_linear_antialias
 from ..utils import graphs, profiling
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, to_host
 from .mesh import Mesh, batch_sharding
 
 
@@ -99,15 +100,28 @@ def _pyramid_args(cfg: DISConfig):
             dict(start_level=cfg.finest_scale, backend=pool_backend(cfg)))
 
 
-def _make_stream_path(cfg: DISConfig, shape, full_res: bool, device):
+def frame_dtype(frames) -> torch.dtype:
+    """The dtype a stream path holds ``frames`` (numpy or a tensor) in:
+    uint8 frames as uint8 (``build_pyramid`` converts them on the device,
+    or K1 reads them as they are), any other as float32."""
+    if isinstance(frames, torch.Tensor):
+        uint8 = frames.dtype == torch.uint8
+    else:
+        uint8 = np.asarray(frames).dtype == np.uint8
+    return torch.uint8 if uint8 else torch.float32
+
+
+def _make_stream_path(cfg: DISConfig, shape, dtype: torch.dtype,
+                      full_res: bool, device):
     """The fixed tensors of a stream path and its step (see
-    :class:`..utils.graphs.StreamPath`): the frames' tensor, two sets of
-    carried state (pyramid from the finest processed level up, warm
-    start), and ``step(k)``, which reads set k and writes set 1 - k."""
+    :class:`..utils.graphs.StreamPath`): the frames' tensor (of
+    ``dtype``), two sets of carried state (pyramid from the finest
+    processed level up, warm start), and ``step(k)``, which reads set k
+    and writes set 1 - k."""
     B, H, W, C = shape
     args, kw = _pyramid_args(cfg)
     init_hw = (H >> (cfg.coarsest_scale + 1), W >> (cfg.coarsest_scale + 1))
-    frames = torch.empty(shape, dtype=torch.float32, device=device)
+    frames = torch.empty(shape, dtype=dtype, device=device)
     pyrs = [pyramid_buffers(B, H, W, C, *args, cfg.finest_scale, device)
             for _ in range(2)]
     inits = [torch.zeros((B, *init_hw, 2), dtype=torch.float32,
@@ -133,7 +147,12 @@ class StreamCore:
     ``start(frames)`` takes the first frames [B, H, W, C]; each
     ``step(frames)`` returns the flows [B, H, W, 2] (``full_res``) or the
     finest-scale flows from the previous frames to these.  Frames are
-    float32 tensors or numpy arrays.
+    tensors or numpy arrays, on any device.  The first frames' dtype
+    chooses the path (:func:`frame_dtype`): uint8 frames stay uint8 up to
+    the card and in the path's frames tensor, any other dtype is held as
+    float32; a host frame crosses through pinned staging
+    (``utils.device.copy_in``).  A uint8 stream takes no later frame of
+    another dtype.
 
     The carried pyramid and warm start live in two sets of fixed tensors
     that a step reads and writes in turn
@@ -155,10 +174,12 @@ class StreamCore:
     def start(self, frames) -> None:
         pin_fp32()
         self.close()
-        key = (self.shape, self.cfg, self.full_res)
+        dtype = frame_dtype(frames)
+        key = (self.shape, self.cfg, self.full_res, dtype)
         path = graphs.acquire_stream(
             "stream_step", key, functools.partial(
-                _make_stream_path, self.cfg, self.shape, self.full_res),
+                _make_stream_path, self.cfg, self.shape, dtype,
+                self.full_res),
             self.device)
         pyrs, inits = path.state
         args, kw = _pyramid_args(self.cfg)
@@ -171,6 +192,10 @@ class StreamCore:
         return self._path is not None
 
     def step(self, frames) -> torch.Tensor:
+        if (self._path.frames.dtype == torch.uint8
+                and frame_dtype(frames) != torch.uint8):
+            raise ValueError("a stream started on uint8 frames takes uint8 "
+                             f"frames, got {frames.dtype}")
         return self._path.step(frames)
 
     def close(self) -> None:
@@ -191,9 +216,12 @@ def stream_flow(frames: Iterable, cfg: DISConfig, full_res: bool = True,
     (without a GPU that raises: pass ``device="cpu"``).
     Yields [H, W, 2] (``full_res``) or finest-scale flows, as numpy with
     ``fetch`` or as device tensors without; a yielded flow is the
-    caller's own and no later step changes it.  Each frame is an entry
-    call of its own (``utils/profiling``), from the frame in hand to its
-    flow, fetched where ``fetch`` asks.
+    caller's own and no later step changes it.  A flow fetched from the
+    card lies in page-locked host memory of its own for as long as the
+    caller keeps it, up to ``utils.device.PINNED_FLOW_BYTES`` kept in all
+    (then in pageable memory; ``utils.device.to_host``).  Each frame is
+    an entry call of its own (``utils/profiling``), from the frame in
+    hand to its flow, fetched where ``fetch`` asks.
     """
     core = None
     shape0 = None
@@ -215,7 +243,7 @@ def stream_flow(frames: Iterable, cfg: DISConfig, full_res: bool = True,
                             f"2^{cfg.coarsest_scale} divisibility, got "
                             f"{shape0[0]}x{shape0[1]}")
                     core = StreamCore(cfg, 1, *shape0, full_res, device)
-                    core.start(as_image(frame, device)[None])
+                    core.start(frame[None])
                     continue
                 if shape != shape0:
                     raise ValueError(
@@ -226,8 +254,7 @@ def stream_flow(frames: Iterable, cfg: DISConfig, full_res: bool = True,
                 out = core.step(batch)[0]
                 if fetch:
                     with profiling.host_span("fetch"):
-                        profiling.moved(out.nbytes, out.device, "cpu")
-                        out = out.cpu().numpy()
+                        out = to_host(out)
             yield out
     finally:
         if core is not None:

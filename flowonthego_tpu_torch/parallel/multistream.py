@@ -34,8 +34,8 @@ import numpy as np
 import torch
 
 from ..config import DISConfig
-from ..models.dis_flow import as_image
 from ..utils import profiling
+from ..utils.device import to_host
 from .frame_parallel import StreamCore
 
 
@@ -111,7 +111,7 @@ class MultiStream:
     def start(self, first_frames) -> None:
         """Prime every stream with its first frame (no flow output)."""
         for core, part in zip(self._cores, self._shards(first_frames)):
-            core.start(as_image(part, core.device))
+            core.start(part)
 
     def push(self, frames) -> torch.Tensor:
         """Advance every stream one frame; returns [N, H, W, 2] flows (or
@@ -157,7 +157,9 @@ def stream_video_chunks(frames, cfg: DISConfig, n_streams: int, device,
     ``frames`` is a numpy array or a tensor (on any device); ``device``
     is one device or a list of them (the chunks split over it).
     ``overlap_warmup`` is accepted and unused, as in the JAX package.
-    Returns [T-1, H, W, 2] (``full_res``) as a host array.
+    Returns [T-1, H, W, 2] (``full_res``) as a host array in pageable
+    memory; each tick's flows cross through one page-locked block
+    (``utils.device.to_host``), copied out and handed back at once.
     """
     if frames.ndim != 4:
         raise ValueError(f"frames must be [T, H, W, C], got "
@@ -184,7 +186,7 @@ def stream_video_chunks(frames, cfg: DISConfig, n_streams: int, device,
     for t in range(ticks):
         idx = [min(starts[k] + 1 + t, starts[k + 1]) for k in range(N)]
         flows = ms.push(stack([frames[i] for i in idx]))
-        flows = flows.cpu().numpy()
+        flows = to_host(flows)
         for k in range(N):
             p = starts[k] + t
             if p < starts[k + 1]:

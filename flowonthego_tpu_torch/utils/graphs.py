@@ -206,11 +206,10 @@ def _copy_out(out):
 
 
 def _ingest(dst: torch.Tensor, src: torch.Tensor) -> None:
-    """``dst.copy_(src)``, with the bytes that cross between host and card
-    counted (a blocking copy converts on the host: ``dst``'s dtype
-    crosses)."""
-    profiling.moved(dst.nbytes, src.device, dst.device)
-    dst.copy_(src)
+    """Copy a call's input into a path's tensor (``utils.device.copy_in``:
+    a host input through pinned staging in ``dst``'s dtype, which a
+    stream path gives its frames' dtype; the bytes that cross counted)."""
+    device_mod.copy_in(dst, src)
 
 
 # ---------------------------------------------------------- stateless paths

@@ -21,19 +21,21 @@ call of ``graphs.run``) that starts while it is on is traced whole
 made and nothing waits.  A traced call keeps:
 
 * host spans, stamped with ``time.time_ns``, the clock ``torch.profiler``
-  stamps host events with (Unix ns): ``ingest`` (a frame converted on the
-  host, copied up, copied into a path's tensors), ``launch`` with its
+  stamps host events with (Unix ns): ``ingest`` (a frame staged in pinned
+  memory and copied up, or copied into a path's tensors), ``launch`` with its
   mode (``eager``, ``record``: the eager run and the recording, or
   ``replay``), ``copy_out`` (a replay's output cloned), ``fetch``
-  (``stream_flow``'s flow to numpy) and ``read`` (tracing's own: earlier
-  launches' device times, read right after a launch, while the card
-  runs it);
+  (``stream_flow``'s flow copied down into pinned memory) and ``read``
+  (tracing's own: earlier launches' device times, read right after a
+  launch, while the card runs it);
 * device spans: the leaves ``pyramid``, ``pad``, ``warm_start``,
   ``upsample`` and, under a parent ``scale <sl>``, ``extract``,
   ``coarse``, ``opti``, ``aggregate``, ``var_ref``;
 * counters: launches by mode, bytes across the host link each way (from
-  the shape and the dtype that crosses), recordings made, and device
-  readings dropped.
+  the shape and the dtype that crosses) and how many of them crossed
+  through pinned host memory, the new pinned blocks the program's
+  transfers made the caching host allocator allocate
+  (``utils/device.py``), recordings made, and device readings dropped.
 
 A device span is timed by CUDA events on the card (by the host clock on
 the CPU).  Leaves share their boundaries: a leaf starts at the event that
@@ -163,7 +165,8 @@ class _Call:
         self.readings = []       # (Marks.layout, ms offsets, launch start)
         self.device_ms = {}
         self.modes = collections.Counter()
-        self.htod = self.dtoh = self.recordings = 0
+        self.htod = self.dtoh = self.pinned = self.blocks = 0
+        self.recordings = 0
         self.unread = 0          # device readings still to come
         self.dropped = 0
         self.kept = False        # in the ring, its host side in the totals
@@ -184,6 +187,7 @@ class _Call:
 class _Totals:
     def __init__(self):
         self.calls = self.htod = self.dtoh = self.recordings = 0
+        self.pinned = self.blocks = 0
         self.dropped = self.device_calls = 0
         self.modes = collections.Counter()
         self.host_ms = collections.Counter()
@@ -194,6 +198,8 @@ class _Totals:
         self.modes.update(c.modes)
         self.htod += c.htod
         self.dtoh += c.dtoh
+        self.pinned += c.pinned
+        self.blocks += c.blocks
         self.recordings += c.recordings
         self.dropped += c.dropped
         for name, _, t0, t1 in c.host:
@@ -209,6 +215,7 @@ class _Totals:
     def as_dict(self, pending: int) -> dict:
         return {"calls": self.calls, "modes": dict(self.modes),
                 "htod_bytes": self.htod, "dtoh_bytes": self.dtoh,
+                "pinned_bytes": self.pinned, "pinned_blocks": self.blocks,
                 "recordings": self.recordings, "dropped": self.dropped,
                 "pending": pending, "device_calls": self.device_calls,
                 "host_ms": dict(self.host_ms),
@@ -303,7 +310,9 @@ def active() -> bool:
 def report(calls: Optional[int] = None) -> dict:
     """The totals since :func:`enable` or since the profiler started
     (``calls``: over the last ``calls`` entry calls kept): entry calls and
-    their launches by mode, bytes across the host link, recordings,
+    their launches by mode, bytes across the host link (``pinned_bytes``
+    of them through pinned memory; ``pinned_blocks``: new pinned blocks
+    allocated for them), recordings,
     dropped and still pending device readings, host ms and device ms by
     span name (device ms over the ``device_calls`` whose spans were all
     read).  Pending readings that are done are read first."""
@@ -406,8 +415,10 @@ def _launch(mode: str, device: torch.device):
             _rec.harvest()
 
 
-def moved(nbytes: int, src, dst) -> None:
-    """Count ``nbytes`` crossing between host and card, if they do."""
+def moved(nbytes: int, src, dst, host: Optional[torch.Tensor] = None) -> None:
+    """Count ``nbytes`` crossing between host and card, if they do, and
+    whether through pinned host memory: ``host``, the host side of the
+    copy, is page-locked."""
     c = _local.call
     if c is None:
         return
@@ -416,6 +427,16 @@ def moved(nbytes: int, src, dst) -> None:
         c.htod += int(nbytes)
     elif src != "cpu" and dst == "cpu":
         c.dtoh += int(nbytes)
+    else:
+        return
+    if host is not None and host.is_pinned():
+        c.pinned += int(nbytes)
+
+
+def pinned_blocks(n: int) -> None:
+    """Count ``n`` pinned host blocks newly allocated in the traced call."""
+    if _local.call is not None:
+        _local.call.blocks += int(n)
 
 
 def recorded() -> None:

@@ -1329,3 +1329,146 @@ def test_twin_leaves_add_up_to_first_to_last(cuda):
     phases = sum(ms[k] for k in ("extract", "coarse", "opti", "aggregate",
                                  "var_ref"))
     assert scales == pytest.approx(phases, rel=1e-5, abs=1e-4)
+
+
+# ------------------------------------------------- host frames and flows
+
+def _u8_frames(seed, n, h=128, w=256):
+    return [np.clip(np.round(f), 0, 255).astype(np.uint8)
+            for f in synthetic_frames(seed, n, h, w, (2, 1), factor=4)]
+
+
+@pytest.mark.parametrize("op", [2, 4])
+def test_uint8_host_stream_equals_float32_host_stream(cuda, op):
+    """uint8 numpy frames cross as uint8 and are converted on the card
+    (op 4: in the graph at finest scale 0; op 2: K1 reads them): the
+    flows of the same frames as float32, bit for bit."""
+    cfg = dataclasses.replace(port.operating_point(op, width=256),
+                              coarsest_scale=4)
+    u8 = _u8_frames(5, 6)
+    graphs.clear()
+    try:
+        got = list(port.stream_flow(u8, cfg))
+        want = list(port.stream_flow([f.astype(np.float32) for f in u8],
+                                     cfg))
+        dtypes = sorted(str(p.frames.dtype) for p in graphs._cache.values())
+    finally:
+        graphs.clear()
+    assert dtypes == ["torch.float32", "torch.uint8"]
+    assert len(got) == 5
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+def test_fetched_flow_is_pinned_and_the_callers_own(cuda):
+    """A flow yielded with ``fetch=True`` lies in pinned memory and stays
+    as it was while three later steps run."""
+    cfg = dataclasses.replace(port.operating_point(2, width=256),
+                              coarsest_scale=4)
+    graphs.clear()
+    try:
+        stream = port.stream_flow(_u8_frames(6, 7), cfg)
+        flows = [next(stream) for _ in range(2)]
+        first = flows[-1]
+        kept = first.copy()
+        later = [next(stream) for _ in range(3)]
+        stream.close()
+    finally:
+        graphs.clear()
+    assert torch.from_numpy(first).is_pinned()
+    assert all(torch.from_numpy(f).is_pinned() for f in later)
+    assert np.array_equal(first, kept)
+    assert first.ctypes.data not in {f.ctypes.data for f in later}
+
+
+def test_pinned_bytes_count_the_pinned_crossings(cuda):
+    """Traced small host frames and fetched flows: the frames go up
+    pageable (a uint8 frame; a cold pair's two), the flows come down
+    pinned, and the steady stream reuses its pinned blocks."""
+    cfg = dataclasses.replace(port.operating_point(2, width=256),
+                              coarsest_scale=4)
+    frames = _u8_frames(7, 12)
+    graphs.clear()
+    try:
+        stream = port.stream_flow(iter(frames), cfg)
+        for _ in range(3):
+            next(stream)
+        _tracing(True)
+        for _ in range(8):
+            next(stream)
+        _tracing(False)
+        r = profiling.report()
+        stream.close()
+        port.compute_flow(*frames[:2], cfg)
+        _tracing(True)
+        for _ in range(3):
+            port.compute_flow(*frames[:2], cfg)
+        _tracing(False)
+        pairs = profiling.report()
+    finally:
+        _tracing(False)
+        graphs.clear()
+    assert r["calls"] == 8
+    assert r["htod_bytes"] == 8 * 128 * 256 * 3
+    assert r["dtoh_bytes"] == 8 * 128 * 256 * 2 * 4
+    assert r["pinned_bytes"] == r["dtoh_bytes"]
+    assert r["pinned_blocks"] <= 2
+    assert pairs["calls"] == 3 and pairs["dtoh_bytes"] == 0
+    assert pairs["pinned_bytes"] == 0
+    assert pairs["htod_bytes"] == 3 * 2 * 128 * 256 * 3
+
+
+@pytest.mark.parametrize("case", ["small", "small strided", "small to float",
+                                  "large", "large strided", "large to float"])
+def test_copy_in_stages_every_form_exactly(cuda, case):
+    """A host tensor reaches the card unchanged on both sides of
+    ``PINNED_UPLOAD_BYTES`` (the plain copy below it, pinned staging by
+    copy_ above it, a strided or converting copy too), and the counter
+    sees the staged bytes alone cross pinned."""
+    from flowonthego_tpu_torch.utils import device as device_mod
+    n = device_mod.PINNED_UPLOAD_BYTES
+    g = torch.Generator().manual_seed(3)
+    large = case.startswith("large")
+    rows = n // 3072 + (64 if large else -64)
+    src = torch.randint(0, 256, (rows, 1024, 3), generator=g,
+                        dtype=torch.uint8)
+    dtype = torch.float32 if case.endswith("to float") else torch.uint8
+    if case.endswith("strided"):
+        src = src.transpose(0, 1)
+    dst = torch.empty(src.shape, dtype=dtype, device=cuda)
+    if dtype == torch.float32 and not large:
+        rows = n // 12288 - 16                   # under the bound as float
+        src, dst = src[:rows], dst[:rows]
+    _tracing(True)
+    try:
+        with profiling.call():
+            profiling._local.call.modes["eager"] += 1     # a call that launched
+            device_mod.copy_in(dst, src)
+        r = profiling.report()
+    finally:
+        _tracing(False)
+    assert torch.equal(dst.cpu(), src.to(dtype))
+    assert r["htod_bytes"] == dst.nbytes
+    assert r["pinned_bytes"] == (dst.nbytes if large else 0)
+
+
+def test_kept_flows_hold_at_most_the_pinned_bound(cuda, monkeypatch):
+    """Fetched flows that the caller keeps stay pinned up to
+    ``PINNED_FLOW_BYTES``; the next lands in pageable memory, and a
+    dropped flow's bytes count no more."""
+    from flowonthego_tpu_torch.utils import device as device_mod
+    flow = torch.rand(64, 128, 2, device=cuda)
+    held = device_mod._held
+    monkeypatch.setattr(device_mod, "PINNED_FLOW_BYTES",
+                        held + 2 * flow.nbytes)
+    kept = [device_mod.to_host(flow) for _ in range(3)]
+    assert [torch.from_numpy(f).is_pinned() for f in kept] == [
+        True, True, False]
+    assert all(np.array_equal(f, flow.cpu().numpy()) for f in kept)
+    view = kept[0][..., 0]
+    del kept[0]
+    assert not torch.from_numpy(device_mod.to_host(flow)).is_pinned()
+    del view
+    again = device_mod.to_host(flow)
+    assert torch.from_numpy(again).is_pinned()
+    del kept, again
+    assert device_mod._held == held

@@ -375,6 +375,62 @@ def test_stream_core_restart_rewrites_its_state():
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+def _uint8(video):
+    return np.clip(np.round(video), 0, 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("path", ["eager", "fixed tensors"])
+@pytest.mark.parametrize("finest", [1, 0])
+def test_uint8_stream_equals_float32_stream(path, finest):
+    """A stream of uint8 numpy frames gives the flows of the same frames
+    as float32 bit for bit, run eagerly and through the fixed-tensor path;
+    at finest scale 0 the pyramid converts the uint8 frame itself, above
+    it the pool reads uint8."""
+    cfg = _pcfg(finest_scale=finest)
+    u8 = _uint8(_video(9, 5))
+    with (graphs.eager() if path == "eager" else fixed_tensors()):
+        got = list(port.stream_flow(u8, cfg, device="cpu"))
+        want = list(port.stream_flow(u8.astype(np.float32), cfg,
+                                     device="cpu"))
+    assert len(got) == 4
+    assert all(g.dtype == np.float32 and np.array_equal(g, w)
+               for g, w in zip(got, want))
+
+
+def test_uint8_and_float32_streams_take_two_paths():
+    """One shape, two frame dtypes: two stream paths, each holding its
+    frames in its own dtype; a uint8 stream refuses a float32 frame."""
+    cfg = _pcfg()
+    u8 = _uint8(_video(10, 3))
+    with fixed_tensors():
+        list(port.stream_flow(u8, cfg, fetch=False, device="cpu"))
+        list(port.stream_flow(u8.astype(np.float32), cfg, fetch=False,
+                              device="cpu"))
+        assert graphs.cached_paths() == [("stream_step", 1)] * 2
+        held = sorted(str(p.frames.dtype) for p in graphs._cache.values())
+        assert held == ["torch.float32", "torch.uint8"]
+        mixed = [u8[0], u8[1], u8[2].astype(np.float32)]
+        with pytest.raises(ValueError, match="uint8"):
+            list(port.stream_flow(mixed, cfg, device="cpu"))
+
+
+def test_host_results_stay_float32_numpy():
+    """``DISFlow.calc`` and ``stream_video_chunks`` fetch through the same
+    helper as ``stream_flow``: float32 numpy on the CPU, uint8 frames or
+    float32 alike."""
+    cfg = _pcfg()
+    u8 = _uint8(_video(11, 5))
+    flow = port.DISFlow(cfg, device="cpu").calc(u8[0], u8[1])
+    assert isinstance(flow, np.ndarray) and flow.dtype == np.float32
+    assert np.array_equal(flow, port.DISFlow(cfg, device="cpu").calc(
+        u8[0].astype(np.float32), u8[1].astype(np.float32)))
+    chunks = [port.stream_video_chunks(v, cfg, 2, "cpu")
+              for v in (u8, u8.astype(np.float32))]
+    assert isinstance(chunks[0], np.ndarray) and chunks[0].dtype == np.float32
+    assert chunks[0].shape == (4, H, W, 2)
+    assert np.array_equal(*chunks)
+
+
 # ------------------------------------------------- the hoisted host tensors
 
 def test_hoisted_constants_equal_the_host_values():

@@ -25,6 +25,7 @@ import torch
 import flowonthego_tpu_torch as port
 from flowonthego_tpu_torch.models import dis_flow as dis_flow_mod
 from flowonthego_tpu_torch.models.dis_flow import as_image
+from flowonthego_tpu_torch.parallel import frame_parallel
 from flowonthego_tpu_torch.utils import graphs, profiling
 from flowonthego_tpu_torch.utils.synth import synthetic_frames
 
@@ -212,6 +213,33 @@ def test_byte_counters_are_shape_times_dtype():
     r = profiling.report()
     assert r["htod_bytes"] == 2 * 448 * 1024 * 3 + 448 * 1024 * 3 * 4
     assert r["dtoh_bytes"] == 448 * 1024 * 2 * 4 == 3_670_016
+
+
+def test_uint8_stream_counts_uint8_bytes_in():
+    """A uint8 stream's path holds its frames as uint8, so a host frame
+    crosses in its own dtype: 448·1024·3 bytes a Sintel frame (the meta
+    device stands in for the card, which alone stages large frames in
+    pinned memory).  On the CPU a uint8 stream crosses nothing and pins
+    nothing."""
+    frame = np.zeros((448, 1024, 3), np.uint8)
+    cfg = port.operating_point(4, width=1024)
+    _, fixed, _ = frame_parallel._make_stream_path(
+        cfg, (1, 448, 1024, 3), frame_parallel.frame_dtype(frame), True,
+        "meta")
+    assert fixed.dtype == torch.uint8
+    with traced(), profiling.call():
+        profiling._local.call.modes["eager"] += 1     # a call that launched
+        for _ in range(2):
+            graphs._ingest(fixed, torch.as_tensor(frame)[None])
+    r = profiling.report()
+    assert r["htod_bytes"] == 2 * 448 * 1024 * 3
+    assert r["pinned_bytes"] == r["pinned_blocks"] == 0
+    u8 = [np.clip(f, 0, 255).astype(np.uint8) for f in _frames(3)]
+    with traced():
+        list(port.stream_flow(u8, CFG, device="cpu"))
+    r = profiling.report()
+    assert r["calls"] == 2
+    assert r["htod_bytes"] == r["dtoh_bytes"] == r["pinned_bytes"] == 0
 
 
 def test_host_frames_on_the_cpu_cross_nothing():
