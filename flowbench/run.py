@@ -13,9 +13,12 @@ one caller, the next frame when the last flow is in hand.  With
 metrics; with ``--trace 1`` the first frames of the window run under
 ``torch.profiler`` and the line holds the per-layer metrics, the device's
 busy and window seconds and a breakdown.  Once the window has closed, the
-program's state is freed and the plain reference judges the kept flows
-(``reference/check.py``); each number compared is printed beside its
-limit, last on standard error and last in the result's line.
+program's state is freed and the configuration's judge, the plain
+reference it names (``reference/<reference>.py``, default
+``reference/check.py``), judges the kept flows; each number compared is
+printed beside its limit, last on standard error and last in the result's
+line.  A configuration its judge does not compute, or traffic of a kind
+the judge has no function for, is refused before the warm-up.
 
 The run needs a CUDA device (it exits 2 without one, printing no result)
 and refuses to print a result if JAX or the JAX package was loaded.
@@ -66,17 +69,23 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     (all four for ``calibrate.py``)."""
     import torch
 
-    from .reference import check
     cell = cells.load(name, root)
     if port is None:
         import flowonthego_tpu_torch as port
     on_card = torch.device(device).type == "cuda"
     cfg = cells.program_config(port, cell.conf, **(changes or {}))
+    # the judge: check_params(dis) raises on what it does not compute;
+    # stream(...) and pairs(...) return check.Readings
+    judge = cells.module("reference", cell.conf.get("reference", "check"))
+    judge.check_params(cell.conf["dis"])
     spec = dict(cell.spec, **(mix_changes or {}))
     t_imported = time.perf_counter()
     seed %= 2 ** 64                 # numpy's generators take no negatives
     traffic = cells.module("traffic", spec["law"]).make(spec, cell.conf,
                                                         seed)
+    if not callable(getattr(judge, traffic.kind, None)):
+        raise ValueError(f"the judge {judge.__name__} has no function for "
+                         f"{traffic.kind!r} traffic")
     t_made = time.perf_counter()
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
@@ -119,8 +128,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         f"{lat_ms.max():.4f}; set-up {setup_s:.3f} s; device memory peak "
         f"{peak} B")
     t_ref = time.perf_counter()
-    judge = check.stream if traffic.kind == "stream" else check.pairs
-    readings = judge(traffic, cell.conf["dis"], kept, device, memo)
+    readings = getattr(judge, traffic.kind)(traffic, cell.conf["dis"], kept,
+                                            device, memo)
     for label, st in readings.flows:
         log(f"  {label}: EPE vs the reference mean {st['mean']:.4g}, p90 "
             f"{st['p90']:.4g}, p99 {st['p99']:.4g}, p99.9 {st['p999']:.4g},"
