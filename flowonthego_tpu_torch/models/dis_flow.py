@@ -88,6 +88,13 @@ def dis_flow_padded(I0: torch.Tensor, I1: torch.Tensor, cfg: DISConfig,
 
 
 _SCALE_PHASES = ("extract", "coarse", "opti", "aggregate", "var_ref")
+# the leaves each phase of the reference's TIME line holds: both
+# directions' work, and the fb merges in the aggregation
+_PHASE_LEAVES = {"extract": ("extract", "extract_bw"),
+                 "coarse": ("coarse", "coarse_bw"),
+                 "opti": ("opti", "opti_bw"),
+                 "aggregate": ("fb_merge", "aggregate", "aggregate_bw"),
+                 "var_ref": ("var_ref", "var_ref_bw")}
 
 
 def dis_flow_from_pyramids(pyr0, pyr1, cfg: DISConfig,
@@ -100,11 +107,18 @@ def dis_flow_from_pyramids(pyr0, pyr1, cfg: DISConfig,
     once and uses it for two pairs.
 
     Each scale is the device span ``scale <sl>`` and each of its five
-    phases a leaf inside it (``utils/profiling``).  With a ``timer``, the
-    phases feed it (each ends with a device sync) and ``printer`` gets
-    the reference's line ``TIME (Sc: %i, #p:%6i, pconst, pinit, poptim,
-    cflow, tvopt, total)`` per scale."""
+    phases a leaf inside it (``utils/profiling``); with forward-backward
+    consistency the backward grid's phases are leaves of their own
+    (``extract_bw``, ``coarse_bw``, ``opti_bw``, ``aggregate_bw``,
+    ``var_ref_bw``) and both merges one leaf, ``fb_merge``, before the
+    aggregation.  Each scale counts the patches each direction solves
+    (``patches_fw``, ``patches_bw``).  With a ``timer``, the leaves feed
+    it (each ends with a device sync) and ``printer`` gets the
+    reference's line ``TIME (Sc: %i, #p:%6i, pconst, pinit, poptim,
+    cflow, tvopt, total)`` per scale, each phase the work of both
+    directions (:data:`_PHASE_LEAVES`)."""
     lvl_c = pyr0[cfg.coarsest_scale]
+    B = lvl_c.image.shape[0]
     H = lvl_c.image.shape[1] - 2 * cfg.padding << cfg.coarsest_scale
     W = lvl_c.image.shape[2] - 2 * cfg.padding << cfg.coarsest_scale
     span = profiling.span
@@ -113,7 +127,7 @@ def dis_flow_from_pyramids(pyr0, pyr1, cfg: DISConfig,
     # optimized beside the forward one, each densification merges the
     # other's reversed flow, and the backward chain (warm-started only from
     # its own coarser flow) stops at the finest scale, where nothing reads
-    # it.  Both directions run inside the same phase.
+    # it.
     fb = cfg.use_fb_consistency
 
     def make_state(lvl, grid):
@@ -126,35 +140,48 @@ def dis_flow_from_pyramids(pyr0, pyr1, cfg: DISConfig,
         grid = PatchGrid.create(cfg, w_sl, h_sl)
         lvl0, lvl1 = pyr0[sl], pyr1[sl]
         go_bw = fb and sl > cfg.finest_scale
+        profiling.count("patches_fw", B * grid.n_patches)
 
         with span("extract"):
             state = make_state(lvl0, grid)
-            state_bw = make_state(lvl1, grid) if fb else None
         with span("coarse"):
             warm = flow if flow is not None else init_flow
             if warm is not None:
                 state = dis_mod.init_from_coarser(state, warm, grid)
-            if fb and flow_bw is not None:
-                state_bw = dis_mod.init_from_coarser(state_bw, flow_bw, grid)
         with span("opti"):
             state = dis_mod.optimize(state, lvl1.image, grid, cfg)
-            if fb:
+        merge = merge_bw = None
+        if fb:
+            profiling.count("patches_bw", B * grid.n_patches)
+            with span("extract_bw"):
+                state_bw = make_state(lvl1, grid)
+            with span("coarse_bw"):
+                if flow_bw is not None:
+                    state_bw = dis_mod.init_from_coarser(state_bw, flow_bw,
+                                                         grid)
+            with span("opti_bw"):
                 state_bw = dis_mod.optimize(state_bw, lvl0.image, grid, cfg)
+            with span("fb_merge"):
+                merge = densify_mod.fb_merge(state_bw, grid, cfg)
+                if go_bw:
+                    merge_bw = densify_mod.fb_merge(state, grid, cfg)
         with span("aggregate"):
-            flow = densify_mod.densify(state, grid, cfg, compl_state=state_bw)
-            if go_bw:
+            flow = densify_mod.densify(state, grid, cfg, merge=merge)
+        if go_bw:
+            with span("aggregate_bw"):
                 flow_bw = densify_mod.densify(state_bw, grid, cfg,
-                                              compl_state=state)
+                                              merge=merge_bw)
 
         if cfg.use_var_ref:
+            p = cfg.padding
+            im1 = lvl0.image[:, p:p + h_sl, p:p + w_sl, :]
+            im2 = lvl1.image[:, p:p + h_sl, p:p + w_sl, :]
+            level = sl + level_offset
             with span("var_ref"):
-                p = cfg.padding
-                im1 = lvl0.image[:, p:p + h_sl, p:p + w_sl, :]
-                im2 = lvl1.image[:, p:p + h_sl, p:p + w_sl, :]
-                level = sl + level_offset
                 flow = var_mod.variational_refine_auto(flow, im1, im2, cfg,
                                                        level)
-                if go_bw:
+            if go_bw:
+                with span("var_ref_bw"):
                     flow_bw = var_mod.variational_refine_auto(
                         flow_bw, im2, im1, cfg, level)
         return flow, flow_bw, grid
@@ -166,7 +193,9 @@ def dis_flow_from_pyramids(pyr0, pyr1, cfg: DISConfig,
             with profiling.scale(sl):
                 flow, flow_bw, grid = one_scale(sl, flow, flow_bw)
             if timer is not None:
-                ms = [timer.last.get(name, 0.0) for name in _SCALE_PHASES]
+                ms = [sum(timer.last.pop(leaf, 0.0)
+                          for leaf in _PHASE_LEAVES[name])
+                      for name in _SCALE_PHASES]
                 printer(f"TIME (Sc: {sl}, #p:{grid.n_patches:6d}, pconst, "
                         "pinit, poptim, cflow, tvopt, total): "
                         + " ".join(f"{t:8.2f}" for t in ms)

@@ -170,22 +170,32 @@ def overlap_add_canvas(contrib: torch.Tensor, ps: int, st: int) -> torch.Tensor:
     return cols
 
 
+def fb_merge(compl_state: PatchState, grid: PatchGrid,
+             cfg: DISConfig) -> torch.Tensor:
+    """The [B, H, W, 3] merge of a complementary (opposite-direction)
+    grid's reversed flow into this grid's frame, for :func:`densify`'s
+    ``merge``: the G5 kernel or :func:`fb_merge_plain`
+    (:func:`_fb_merge_scatter`)."""
+    return _fb_merge_scatter(compl_state, grid, cfg, grid.height,
+                             grid.width)
+
+
 def densify(state: PatchState, grid: PatchGrid, cfg: DISConfig,
-            compl_state: Optional[PatchState] = None) -> torch.Tensor:
+            compl_state: Optional[PatchState] = None,
+            merge: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Aggregate each frame's per-patch flow into a dense [B, H, W, 2]
     field; contributions outside a frame are dropped (2-D clipping per
     frame), so none reaches the next frame.
 
     ``compl_state`` optionally merges a complementary (opposite-direction)
-    grid's reversed flow: forward-backward consistency.  The merge is the
-    G5 kernel and the canvas and the normalisation the G3 kernel
-    (:mod:`.cuda.fb_merge`, :mod:`.cuda.densify`) where ``cfg.gn_backend``
-    selects the kernels for the state, and :func:`fb_merge_plain` and
-    :func:`densify_plain` otherwise."""
-    merge = None
+    grid's reversed flow: forward-backward consistency (the JAX package's
+    argument); ``merge`` is that merge computed already (:func:`fb_merge`).
+    The merge is the G5 kernel and the canvas and the normalisation the
+    G3 kernel (:mod:`.cuda.fb_merge`, :mod:`.cuda.densify`) where
+    ``cfg.gn_backend`` selects the kernels for the state, and
+    :func:`fb_merge_plain` and :func:`densify_plain` otherwise."""
     if compl_state is not None:
-        merge = _fb_merge_scatter(compl_state, grid, cfg, grid.height,
-                                  grid.width)
+        merge = fb_merge(compl_state, grid, cfg)
     if use_kernel(cfg.gn_backend, state.p_cur):
         from .cuda.densify import densify as kernel
         return kernel(state._replace(p_cur=state.p_cur.contiguous(),

@@ -53,7 +53,9 @@ Every recording has traced twins (``utils/profiling.py``): the same
 function recorded right after it, in the same memory pool, with a timing
 event at each device-span boundary.  A call traced by
 ``utils/profiling`` replays a twin, any other call the plain graph; both
-run the same kernels on the same tensors.
+run the same kernels on the same tensors.  What the recording counted
+(``profiling.count``: the patches each direction solves) is added to a
+traced call on each replay, since a replay runs no Python.
 
 Captured paths run on the current CUDA stream and a path's tensors are
 shared by its calls, so calls of one path must come from one stream.
@@ -168,13 +170,16 @@ class _Traced:
 
     def __init__(self, fn: Callable, device: torch.device, pool=None,
                  twins: int = 2):
-        self.plain = _Recording(fn, device, pool)
+        # what the capture counts (profiling.count), added on each replay
+        with profiling.tally() as self.counters:
+            self.plain = _Recording(fn, device, pool)
         self.twins = []
-        for _ in range(twins):
-            marks = profiling.Marks()
-            self.twins.append((_Recording(
-                lambda marks=marks: marks.capture(fn), device,
-                pool=self.plain.pool()), marks))
+        with profiling.tally():             # the same work: counted once
+            for _ in range(twins):
+                marks = profiling.Marks()
+                self.twins.append((_Recording(
+                    lambda marks=marks: marks.capture(fn), device,
+                    pool=self.plain.pool()), marks))
         self.turn = 0
         profiling.recorded()
 
@@ -189,6 +194,7 @@ class _Traced:
     def replay(self):
         if not profiling.active():
             return self.plain.replay()
+        profiling.counted(self.counters)
         twin, marks = self.twins[self.turn]
         self.turn = (self.turn + 1) % len(self.twins)
         marks.before_replay()

@@ -30,12 +30,19 @@ made and nothing waits.  A traced call keeps:
   launch, while the card runs it);
 * device spans: the leaves ``pyramid``, ``pad``, ``warm_start``,
   ``upsample`` and, under a parent ``scale <sl>``, ``extract``,
-  ``coarse``, ``opti``, ``aggregate``, ``var_ref``;
+  ``coarse``, ``opti``, ``aggregate``, ``var_ref``; with
+  forward-backward consistency the backward grid's work in leaves of its
+  own, ``extract_bw``, ``coarse_bw``, ``opti_bw``, ``aggregate_bw``,
+  ``var_ref_bw``, and both directions' merges in ``fb_merge``;
 * counters: launches by mode, bytes across the host link each way (from
   the shape and the dtype that crosses) and how many of them crossed
   through pinned host memory, the new pinned blocks the program's
   transfers made the caching host allocator allocate
-  (``utils/device.py``), recordings made, and device readings dropped.
+  (``utils/device.py``), recordings made, device readings dropped, and
+  the named counters of :func:`count`: ``patches_fw`` and
+  ``patches_bw``, the patches each direction solved.  A recording keeps
+  what its capture counted and adds it to the traced call on each replay
+  (no Python runs then).
 
 A device span is timed by CUDA events on the card (by the host clock on
 the CPU).  Leaves share their boundaries: a leaf starts at the event that
@@ -74,7 +81,8 @@ import torch
 
 RING_CALLS = 1024      # entry calls kept for report(calls=n) and the trace
 LEAVES = ("pyramid", "pad", "warm_start", "upsample", "extract", "coarse",
-          "opti", "aggregate", "var_ref")
+          "opti", "aggregate", "var_ref", "extract_bw", "coarse_bw",
+          "opti_bw", "fb_merge", "aggregate_bw", "var_ref_bw")
 
 _NOOP = contextlib.nullcontext()
 clock_ns = time.time_ns
@@ -165,6 +173,7 @@ class _Call:
         self.readings = []       # (Marks.layout, ms offsets, launch start)
         self.device_ms = {}
         self.modes = collections.Counter()
+        self.counters = collections.Counter()
         self.htod = self.dtoh = self.pinned = self.blocks = 0
         self.recordings = 0
         self.unread = 0          # device readings still to come
@@ -190,12 +199,14 @@ class _Totals:
         self.pinned = self.blocks = 0
         self.dropped = self.device_calls = 0
         self.modes = collections.Counter()
+        self.counters = collections.Counter()
         self.host_ms = collections.Counter()
         self.device_ms = collections.Counter()
 
     def add_host(self, c: _Call) -> None:
         self.calls += 1
         self.modes.update(c.modes)
+        self.counters.update(c.counters)
         self.htod += c.htod
         self.dtoh += c.dtoh
         self.pinned += c.pinned
@@ -218,6 +229,7 @@ class _Totals:
                 "pinned_bytes": self.pinned, "pinned_blocks": self.blocks,
                 "recordings": self.recordings, "dropped": self.dropped,
                 "pending": pending, "device_calls": self.device_calls,
+                "counters": dict(self.counters),
                 "host_ms": dict(self.host_ms),
                 "device_ms": dict(self.device_ms)}
 
@@ -273,6 +285,7 @@ _rec = _Recorder()
 
 class _Local(threading.local):
     call = None          # the traced entry call running on this thread
+    tally = None         # the counters a recording's capture fills
     marks = None         # an eager launch's Marks on the card
     capture = None       # the Marks a traced twin's capture fills
     timer = None         # a PhaseTimer fed by the leaves
@@ -313,7 +326,8 @@ def report(calls: Optional[int] = None) -> dict:
     their launches by mode, bytes across the host link (``pinned_bytes``
     of them through pinned memory; ``pinned_blocks``: new pinned blocks
     allocated for them), recordings,
-    dropped and still pending device readings, host ms and device ms by
+    dropped and still pending device readings, the named counters of
+    :func:`count` (``counters``), host ms and device ms by
     span name (device ms over the ``device_calls`` whose spans were all
     read).  Pending readings that are done are read first."""
     _rec.harvest()
@@ -443,6 +457,35 @@ def recorded() -> None:
     """Count a recording made in the traced call."""
     if _local.call is not None:
         _local.call.recordings += 1
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name`` of what runs now: a recording
+    being captured (:func:`tally`), else the traced call on this
+    thread."""
+    loc = _local
+    if loc.tally is not None:
+        loc.tally[name] += n
+    elif loc.call is not None:
+        loc.call.counters[name] += n
+
+
+@contextlib.contextmanager
+def tally():
+    """Collect what :func:`count` counts inside the block, traced or not,
+    into the Counter it yields (a recording's own, added by
+    :func:`counted` on each replay) and nowhere else."""
+    outer, _local.tally = _local.tally, collections.Counter()
+    try:
+        yield _local.tally
+    finally:
+        _local.tally = outer
+
+
+def counted(counters) -> None:
+    """Add a recording's counters to the traced call replaying it."""
+    if _local.call is not None:
+        _local.call.counters.update(counters)
 
 
 # ------------------------------------------------------------- device spans

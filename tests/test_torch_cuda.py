@@ -1331,6 +1331,45 @@ def test_twin_leaves_add_up_to_first_to_last(cuda):
     assert scales == pytest.approx(phases, rel=1e-5, abs=1e-4)
 
 
+def test_captured_fb_stream_equals_eager(cuda):
+    """An fb stream of uint8 host frames at op 4 (the backward chain starts
+    cold on every frame) replays one graph a frame, bit for bit with the
+    eager step; traced, its scales hold both directions' leaves and the
+    merges, and each direction counts its patches on every replay."""
+    cfg = dataclasses.replace(port.operating_point(4, width=256),
+                              coarsest_scale=4, use_fb_consistency=True)
+    u8 = _u8_frames(8, 7)
+    graphs.clear()
+    try:
+        with graphs.eager():
+            want = list(port.stream_flow(u8, cfg))
+        stream = port.stream_flow(iter(u8), cfg)
+        got = [next(stream) for _ in range(3)]
+        _tracing(True)
+        got += [next(stream) for _ in range(3)]
+        torch.cuda.synchronize()
+        _tracing(False)
+        r = profiling.report()
+        stream.close()
+    finally:
+        _tracing(False)
+        graphs.clear()
+    assert len(got) == len(want) == 6
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    assert r["modes"] == {"replay": 3}
+    assert r["device_calls"] == 3 and r["dropped"] == 0
+    n = sum(PatchGrid.create(cfg, 256 >> sl, 128 >> sl).n_patches
+            for sl in range(cfg.finest_scale, cfg.coarsest_scale + 1))
+    assert r["counters"] == {"patches_fw": 3 * n, "patches_bw": 3 * n}
+    ms = r["device_ms"]
+    assert {"extract_bw", "opti_bw", "fb_merge", "aggregate_bw",
+            "var_ref_bw"} <= set(ms)
+    scales = sum(v for k, v in ms.items() if k.startswith("scale "))
+    inner = sum(v for k, v in ms.items() if k in LEAVES and k not in (
+        "pyramid", "pad", "warm_start", "upsample"))
+    assert scales == pytest.approx(inner, rel=1e-5, abs=1e-4)
+
+
 # ------------------------------------------------- host frames and flows
 
 def _u8_frames(seed, n, h=128, w=256):

@@ -7,14 +7,19 @@ the CPU, one ``scale <sl>`` a scale), an empty report and unchanged flows
 with tracing off, the byte counters against shape x dtype, launches by
 mode through a stand-in for the CUDA graph (as tests/test_torch_graphs.py
 puts one in), the boundary events of a traced twin (:class:`Marks`) with
-stand-in events, and a span on the profiler's clock.  The card's side is
-in tests/test_torch_cuda.py.
+stand-in events, and a span on the profiler's clock.  With
+forward-backward consistency: the backward grid's leaves and the merges'
+leaf, the TIME line's phases over both directions, the per-direction
+patch counters (eager, and carried by a recording to its replays), and
+the fb stream as a chain of fb pairs.  The card's side is in
+tests/test_torch_cuda.py.
 
 Tiny sizes: 44x64 frames, scales 2..1, 4 Gauss-Newton iterations,
 variational refinement on.
 """
 
 import contextlib
+import dataclasses
 import time
 from unittest import mock
 
@@ -451,3 +456,172 @@ def test_trace_writes_the_spans(tmp_path):
     inside = [e for e in aten
               if launch["ts"] <= e["ts"] <= launch["ts"] + launch["dur"]]
     assert inside
+
+
+# ------------------------------------------- forward-backward consistency
+
+def _fb(cfg=CFG):
+    return dataclasses.replace(cfg, use_fb_consistency=True)
+
+
+def _scale_leaves(fb, finest):
+    """A scale's leaves, in order: the forward phases, with fb the
+    backward grid's and the merges, whose aggregation and refinement the
+    finest scale leaves out."""
+    if not fb:
+        return list(PHASES)
+    bw = ["extract_bw", "coarse_bw", "opti_bw", "fb_merge", "aggregate"]
+    if not finest:
+        bw.append("aggregate_bw")
+    bw.append("var_ref")
+    if not finest:
+        bw.append("var_ref_bw")
+    return ["extract", "coarse", "opti", *bw]
+
+
+def _run_entry(entry, cfg):
+    if entry == "compute_flow":
+        port.compute_flow(*_frames(2), cfg, device="cpu")
+    else:
+        list(port.stream_flow(_frames(3), cfg, device="cpu"))
+
+
+@pytest.mark.parametrize("entry", ["compute_flow", "stream_flow"])
+@pytest.mark.parametrize("fb", [False, True], ids=["fw", "fb"])
+def test_scale_leaves_by_direction(entry, fb):
+    """An fb call gives the backward grid's work and the merges leaves of
+    their own inside each scale; a call without fb keeps the five
+    phases, their names and their order."""
+    cfg = _fb() if fb else CFG
+    with traced():
+        _run_entry(entry, cfg)
+    calls = _by_call(profiling.spans())
+    assert calls
+    for spans in calls.values():
+        dev = [s for s in spans if s.on == "device"]
+        for sl in (2, 1):
+            inner = [s.name for s in dev if s.parent == f"scale {sl}"]
+            assert inner == _scale_leaves(fb, sl == CFG.finest_scale)
+        assert {s.name for s in dev if s.parent != "launch"
+                } <= set(profiling.LEAVES)
+    names = set(profiling.report()["device_ms"])
+    bw = {n for n in profiling.LEAVES if n.endswith("_bw")} | {"fb_merge"}
+    assert bool(names & bw) == fb
+
+
+def test_fb_leaves_share_boundaries_and_add_up():
+    """Captured into a twin's boundary events (stand-in events), the leaves
+    of an fb call share their boundaries, so they add up to the call's
+    first-to-last time."""
+    marks = profiling.Marks()
+    a, b = (torch.as_tensor(f)[None] for f in _frames(2))
+
+    def fake_mark():
+        marks.events.append(FakeEvent())
+        return len(marks.events) - 1
+
+    with mock.patch.object(profiling, "_capturing", lambda: True), \
+            mock.patch.object(marks, "_mark", fake_mark):
+        marks.capture(lambda: dis_flow_mod.dis_flow_padded(a, b, _fb()))
+    with traced():
+        with profiling.call():
+            profiling._local.call.modes["replay"] += 1
+            marks.replayed()
+        r = profiling.report()
+    ms = r["device_ms"]
+    assert r["device_calls"] == 1
+    assert {"opti_bw", "fb_merge", "aggregate_bw", "var_ref_bw"} <= set(ms)
+    leaves = sum(v for k, v in ms.items() if k in profiling.LEAVES)
+    assert leaves == marks.events[-1].t - marks.events[0].t
+    n_leaves = sum(1 for row in marks.layout if row[0] in profiling.LEAVES)
+    assert len(marks.events) == n_leaves + 1
+
+
+def test_fb_phase_timer_sums_both_directions():
+    """compute_flow_timed's TIME line keeps five phases, each the work of
+    both directions: ``<phase>_bw`` added to its phase, ``fb_merge`` to
+    the aggregation (every leaf timed 1 ms here)."""
+
+    class OneMs(dis_flow_mod.PhaseTimer):
+        @contextlib.contextmanager
+        def phase(self, name):
+            yield
+            self.last[name] = 1.0
+            self.totals[name] += 1.0
+            self.counts[name] += 1
+
+    lines = []
+    with mock.patch.object(dis_flow_mod, "PhaseTimer", OneMs):
+        port.compute_flow_timed(*_frames(2), _fb(), device="cpu",
+                                printer=lines.append)
+    rows = [ln for ln in lines if ln.startswith("TIME (Sc:")]
+    assert len(rows) == 2
+    got = [[float(x) for x in ln.split("):")[1].replace("->", "").replace(
+        "ms.", "").split()] for ln in rows]
+    assert got[0] == [2.0, 2.0, 2.0, 3.0, 2.0, 11.0]     # scale 2
+    assert got[1] == [2.0, 2.0, 2.0, 2.0, 1.0, 9.0]      # scale 1, finest
+
+
+class Captured(Rerun):
+    """A stand-in recording that runs the function once where a capture
+    would (so what it counts goes to the recording's tally) and whose
+    replay runs no Python, as a graph's does."""
+
+    def __init__(self, fn, device, pool=None):
+        super().__init__(fn, device, pool)
+        self.out = fn()
+
+    def replay(self):
+        Rerun.replayed.append(self)
+        return self.out
+
+
+def _patches(cfg, h=H, w=W):
+    from flowonthego_tpu_torch.ops.patches import PatchGrid
+    return sum(PatchGrid.create(cfg, w >> sl, h >> sl).n_patches
+               for sl in range(cfg.finest_scale, cfg.coarsest_scale + 1))
+
+
+@pytest.mark.parametrize("path", ["eager", "captured"])
+@pytest.mark.parametrize("entry", ["compute_flow", "stream_flow"])
+@pytest.mark.parametrize("fb", [False, True], ids=["fw", "fb"])
+def test_patch_counters_are_grids_times_frames(path, entry, fb):
+    """``patches_fw`` and ``patches_bw``: each direction's patches over the
+    scales times the frames; a captured path counts what its recording
+    counted on every replay."""
+    cfg = _fb() if fb else CFG
+    fake = mock.patch.object(graphs, "_Recording", Captured)
+    on = mock.patch.object(graphs, "enabled",
+                           lambda e, d, f=graphs.enabled: f(e, "cuda"))
+    with contextlib.ExitStack() as stack:
+        if path == "captured":
+            stack.enter_context(fake)
+            stack.enter_context(on)
+        with traced():
+            for _ in range(3):
+                _run_entry(entry, cfg)
+        r = profiling.report()
+    frames = r["calls"]
+    assert frames == (3 if entry == "compute_flow" else 6)
+    if path == "captured":
+        assert r["modes"].get("replay", 0) > 0
+    n = _patches(cfg) * frames
+    assert r["counters"] == ({"patches_fw": n, "patches_bw": n} if fb
+                             else {"patches_fw": n})
+
+
+def test_fb_stream_is_the_chain_of_fb_pairs():
+    """On the CPU an fb stream equals fb ``dis_flow_padded`` calls chained
+    by the forward warm start (the backward chain starts cold on every
+    frame), each upsampled."""
+    cfg = _fb()
+    frames = _frames(5)
+    got = list(port.stream_flow(frames, cfg, device="cpu"))
+    init_hw = (H >> (cfg.coarsest_scale + 1), W >> (cfg.coarsest_scale + 1))
+    init = torch.zeros((1, *init_hw, 2))
+    for i in range(1, len(frames)):
+        a, b = (torch.as_tensor(f)[None].float() for f in frames[i - 1:i + 1])
+        fin = dis_flow_mod.dis_flow_padded(a, b, cfg, init_flow=init)
+        init = frame_parallel.warm_start(fin, cfg, *init_hw)
+        full = dis_flow_mod.upsample_flow_to_full(fin, cfg, H, W)[0]
+        assert np.array_equal(got[i - 1], full.numpy())
