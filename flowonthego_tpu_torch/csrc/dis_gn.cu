@@ -6,25 +6,52 @@
 // patches of 12x12x3 values, 128 iterations) needs ~8.7 GFLOP and ~91 MB,
 // 0.13 ms at the card's float32 peak; an op-2 scale (32-510 patches, 12
 // iterations) needs microseconds and is a chain of dependent iterations.
-// What a kernel pays for beyond that is the SMs' dispatch rate, barriers
-// and the L1 wavefronts of its tap loads, so the design spends as little
-// of each per patch-iteration as it can.
+// What a kernel pays for beyond that is the SMs' issue rate, barriers and
+// the L1 wavefronts of its tap loads, so the design spends as little of
+// each per patch-iteration (a trip) as it can.
 //
 // Design: one warp per patch.
 //   * Lane l owns values l, l + 32, l + 64, ... of the patch's ps*ps*C
 //     values (flat, row-major).  Their template value T, gradients gx, gy
-//     and window offset stay in registers for the whole solve: the kernel
-//     is instantiated for (ps, C) in {8, 12} x {1, 3}, where the count per
-//     lane (2, 6, 5, 14) is a compile-time constant; the last is ragged
-//     (432 = 13*32 + 16), and a lane without a value holds zeros.
+//     and the four taps of their window stay in registers for the whole
+//     solve: the kernel is instantiated for (ps, C) in {8, 12} x {1, 3},
+//     where the count per lane (2, 6, 5, 14) is a compile-time constant;
+//     the last is ragged (432 = 13*32 + 16), and a lane without a value
+//     holds zeros.
 //   * The stride-32 ownership makes each tap load of a warp 32 neighbouring
 //     addresses of one window row (two rows where a patch row ends inside
 //     it): 2-3 L1 wavefronts a load.  A contiguous run per lane would let
 //     a lane reuse taps along its run, but its loads would touch ~20 lines
-//     each (one per patch row), and the L1 wavefronts, not the count of
-//     operations, would then bound the kernel (~56 loads x 20 lines x
-//     1.6M patch-iterations is ~8 ms of L1 time over 132 SMs), so taps are
-//     loaded four a value and not reused.
+//     each (one per patch row), and the L1 wavefronts would bound the
+//     kernel (~56 loads x 20 lines x 1.6M patch-iterations is ~8 ms of L1
+//     time over 132 SMs).
+//   * Taps are reloaded only when the window moves.  A trip's window origin
+//     (wrap once, clamp) changes only where floor(mid + p) crosses a whole
+//     pixel; otherwise only the four bilinear weights change.  Loading four
+//     taps a value every trip (56 loads at ps 12, C = 3: ~150 wavefronts,
+//     about one a clock from an SM's L1) held a trip at ~175 SM-cycles, and
+//     op 4 runs all 128 trips with sub-pixel steps after the first few.  So
+//     each lane keeps its values' taps, the warp the origin they came from;
+//     a trip whose origin is that one loads nothing and blends the held
+//     taps, any other reloads all of them (the test is uniform over the
+//     warp, so the branch does not diverge).  The final cost pass follows
+//     the same rule.  The blend, the sums and the step are the same
+//     operations on the same operands in the same order, so the results are
+//     bit for bit those of loading every trip.  On an H100 (700 W) 90-92% of
+//     op 4's trips reload nothing; K2 at op 4's scale 1 went from 1.03 to
+//     0.73 ms.  A reused trip is now bound by issue: ~330 instructions
+//     (SASS of ps 12, C = 3: 84 FMUL and 99 FADD of blend and sums, 15
+//     shuffles, the three divisions and the square root of the step) at
+//     four an SM-clock, ~82 cycles, of the ~118 measured; a reload adds 56
+//     loads and ~220 integer instructions of their offsets, recomputed from
+//     the value index rather than held (14 registers less).
+//   * Registers: ps 12, C = 3 holds 98 of per-value state (T, gx, gy, 56
+//     taps) and takes 168 registers at 12 warps an SM (__launch_bounds__
+//     (32, 12)), no spill; at 16 warps (128) it spills 72 bytes.  Reading
+//     T where it is used instead (the sums before the loop, the final
+//     cost) spills 52-60 bytes at 16 warps and ran no faster than this
+//     form, and at 12 warps 4% slower (H100): the trip is not waiting for
+//     warps.  The other forms fit 16 warps (64-113 registers).
 //   * The window origin (wrap once, clamp), the fractional offsets and the
 //     four bilinear weights are uniform over the patch and are computed
 //     once per warp-iteration.
@@ -35,21 +62,20 @@
 //     broadcast, no shared memory and no __syncthreads() in the loop; a
 //     patch that resets and stops frees its own warp only.
 //   * One patch a CTA, so a CTA is one warp: an op-2 scale's 32-510
-//     patches spread over all SMs, and on op 4's grids up to 32 patches
-//     are resident an SM, as many as the registers allow at ps 12, C = 3
-//     (the launch bounds cap them at 128 a thread: 16 warps).  Two, four
-//     or eight patches a CTA, and fewer registers for more resident
-//     warps, were tried on an H100 and made nothing faster, so the
-//     simplest form stays.  A patch's arithmetic does not depend on where
-//     in the launch it runs, so a frame of a batch equals its own launch
-//     bit for bit.
+//     patches spread over all SMs.  Two, four or eight patches a CTA, and
+//     fewer registers for more resident warps, were tried on an H100 and
+//     made nothing faster, so the simplest form stays.  A patch's
+//     arithmetic does not depend on where in the launch it runs, so a
+//     frame of a batch equals its own launch bit for bit.
 //   * Any other (ps, C) with up to 1024 values takes the generic form of
-//     the same kernel body: run-time loops, the per-value state in shared
-//     memory (a [4][values] slab, index k*32 + lane, free of bank
-//     conflicts) instead of registers.
-// Staging the window in shared memory (cp.async, reload when floor(mid)
-// moves) was not tried: the window's taps already hit L1, and staging
-// would add operations to a kernel that is bound by their dispatch.
+//     the same kernel body: run-time loops, the per-value state (T, gx,
+//     gy and the held taps) in shared memory (a [7][values] slab, index
+//     k*32 + lane, free of bank conflicts) instead of registers.
+//   * Counting (tracing's): with a counts pointer, lane 0 of each patch
+//     adds its trips (the final cost pass is one; none if not started) and
+//     its window loads to the patch's own row, or stores them where the
+//     rows are fresh (not yet written: no launch zeroes them); without
+//     one nothing more runs.
 //
 // Batch: B frames are one launch over B*P patches; patch k solves patch
 // k % P of frame k / P and reads that frame's padded level image.
@@ -106,6 +132,8 @@ struct GnArgs {
   const uint8_t* started;
   float* p_out;
   float* cost_out;
+  int* counts;  // [n_patches, 2] trips and window loads, or null
+  int counts_fresh;  // store into counts instead of adding
   int n_patches, P, Hp, Wp, C, ps, padding, n_iters;
   float thresh, l_bound, ub_w, ub_h, mean_on;
   float off_x, off_y;  // the strip offset (dis_gn_strip_kernel only)
@@ -152,18 +180,22 @@ __device__ __forceinline__ void gn_body(const GnArgs& a) {
     if (lane == 0) {
       a.p_out[2 * p] = a.pcur[2 * p];
       a.p_out[2 * p + 1] = a.pcur[2 * p + 1];
+      if (a.counts != nullptr && a.counts_fresh) {
+        a.counts[2 * p] = 0;
+        a.counts[2 * p + 1] = 0;
+      }
     }
     for (int t = lane; t < N; t += 32) cost_out[t] = 0.0f;
     return;
   }
 
-  // Per-value state: T, gx, gy and the value's offset in the window.
-  float rT[kV], rGX[kV], rGY[kV];
-  int rOff[kV];
+  // Per-value state: T, gx, gy, and the four taps of the value's window
+  // (top left, top right, bottom left, bottom right) as last loaded.
+  float rT[kV], rGX[kV], rGY[kV], rTap[4][kV];
   float* const sT = slab;
   float* const sGX = sT + nv * 32;
   float* const sGY = sGX + nv * 32;
-  int* const sOff = (int*)(sGY + nv * 32);
+  float* const sTap = sGY + nv * 32;  // [4][nv * 32]
   auto T = [&](int k) -> float& {
     if constexpr (kFixed) return rT[k]; else return sT[k * 32 + lane];
   };
@@ -173,16 +205,15 @@ __device__ __forceinline__ void gn_body(const GnArgs& a) {
   auto GY = [&](int k) -> float& {
     if constexpr (kFixed) return rGY[k]; else return sGY[k * 32 + lane];
   };
-  auto OFF = [&](int k) -> int& {
-    if constexpr (kFixed) return rOff[k]; else return sOff[k * 32 + lane];
+  auto TAP = [&](int j, int k) -> float& {
+    if constexpr (kFixed) return rTap[j][k];
+    else return sTap[(j * nv + k) * 32 + lane];
   };
 
 #pragma unroll
   for (int k = 0; k < nv; ++k) {
     const int t = k * 32 + lane;
     const bool live = t < N;
-    const int r = live ? t / psC : 0;
-    OFF(k) = live ? r * rs + (t - r * psC) : 0;
     T(k) = live ? to_f32(tmpl[t]) : 0.0f;
     GX(k) = live ? to_f32(tgx[t]) : 0.0f;
     GY(k) = live ? to_f32(tgy[t]) : 0.0f;
@@ -219,8 +250,13 @@ __device__ __forceinline__ void gn_body(const GnArgs& a) {
 
   // The window of the patch at displacement (px, py): its origin in the
   // level image and the four bilinear weights, once for the whole warp.
+  // Where the origin is the one the held taps came from, the trip loads
+  // nothing; else every lane reloads its taps from the new origin (the
+  // test is uniform: the window is the patch's).
   const Load* win;
+  const Load* held = nullptr;  // the origin of the held taps
   float w_tl, w_tr, w_bl, w_br;
+  int trips = 0, loads = 0;
   auto window = [&](float px, float py) {
     float mx = mx0 + px, my = my0 + py;
     if constexpr (STRIP) {
@@ -239,13 +275,27 @@ __device__ __forceinline__ void gn_body(const GnArgs& a) {
     w_tr = rx * (1.0f - ry);
     w_bl = (1.0f - rx) * ry;
     w_br = rx * ry;
+    ++trips;
+    if (win != held) {
+      held = win;
+      ++loads;
+#pragma unroll
+      for (int k = 0; k < nv; ++k) {  // value t sits at (t / psC, t % psC)
+        const int t = k * 32 + lane;
+        const int r = t < N ? t / psC : 0;
+        const Load* q = win + (t < N ? r * rs + (t - r * psC) : 0);
+        TAP(0, k) = to_f32(q[0]);
+        TAP(1, k) = to_f32(q[C]);
+        TAP(2, k) = to_f32(q[rs]);
+        TAP(3, k) = to_f32(q[rs + C]);
+      }
+    }
   };
   // This lane's k-th bilinear sample (0 where it has no k-th value).
   auto sample = [&](int k) -> float {
-    const Load* q = win + OFF(k);
-    const float S = ((w_tl * to_f32(q[0]) + w_tr * to_f32(q[C])) +
-                     w_bl * to_f32(q[rs])) +
-                    w_br * to_f32(q[rs + C]);
+    const float S = ((w_tl * TAP(0, k) + w_tr * TAP(1, k)) +
+                     w_bl * TAP(2, k)) +
+                    w_br * TAP(3, k);
     return (k < nv - 1 || lane < last_live) ? S : 0.0f;
   };
 
@@ -302,24 +352,39 @@ __device__ __forceinline__ void gn_body(const GnArgs& a) {
   if (lane == 0) {
     a.p_out[2 * p] = px;
     a.p_out[2 * p + 1] = py;
+    if (a.counts != nullptr && a.counts_fresh) {  // tracing's counts
+      a.counts[2 * p] = trips;
+      a.counts[2 * p + 1] = loads;
+    } else if (a.counts != nullptr) {
+      atomicAdd(a.counts + 2 * p, trips);
+      atomicAdd(a.counts + 2 * p + 1, loads);
+    }
   }
 }
 
+// Resident warps an SM the launch bounds ask for: 16 (128 registers a
+// thread) where the per-value state fits, 12 (168) for the 14 values a
+// lane of ps 12, C = 3 (T, gx, gy and four taps each: 98 registers).
+template <int PS, int CH>
+constexpr int kMinWarps = PS * PS * CH > 384 ? 12 : 16;
+
 template <typename Load, int PS, int CH>
-__global__ void __launch_bounds__(32, 16) dis_gn_kernel(const GnArgs a) {
+__global__ void __launch_bounds__(32, kMinWarps<PS, CH>)
+    dis_gn_kernel(const GnArgs a) {
   gn_body<Load, PS, CH, false>(a);
 }
 
 template <typename Load, int PS, int CH>
-__global__ void __launch_bounds__(32, 16) dis_gn_strip_kernel(const GnArgs a) {
+__global__ void __launch_bounds__(32, kMinWarps<PS, CH>)
+    dis_gn_strip_kernel(const GnArgs a) {
   gn_body<Load, PS, CH, true>(a);
 }
 
 template <typename Load, int PS, int CH>
 int launch(const GnArgs& a, bool offset, cudaStream_t stream) {
   size_t shared = 0;
-  if (PS == 0) {  // the generic form's slab: [4][values per lane * 32]
-    shared = (size_t)4 * ((a.ps * a.ps * a.C + 31) / 32) * 32 * sizeof(float);
+  if (PS == 0) {  // the generic form's slab: [7][values per lane * 32]
+    shared = (size_t)7 * ((a.ps * a.ps * a.C + 31) / 32) * 32 * sizeof(float);
     if (shared > (size_t)kMaxSharedBytes)
       return (int)cudaErrorInvalidConfiguration;
   }
@@ -344,6 +409,9 @@ int dispatch(const GnArgs& a, bool offset, cudaStream_t stream) {
 // bf16 != 0: I1, tmpl, tgx, tgy are __nv_bfloat16 and sums ([B*P, 4]
 // float32) is required; else they are float32 and sums is ignored.
 // offset != 0: the strip kernel, sampling at (mid + p) + (off_x, off_y).
+// counts ([B*P, 2] int32, or null): each patch adds its trips (the final
+// cost pass is one) and its window loads to its own row; counts_fresh != 0:
+// stores them instead (every row is written).
 extern "C" int fot_dis_gn(const void* I1, int bf16, int B, int Hp, int Wp,
                           int C, const void* tmpl, const void* tgx,
                           const void* tgy, const void* sums, const void* H,
@@ -352,7 +420,8 @@ extern "C" int fot_dis_gn(const void* I1, int bf16, int B, int Hp, int Wp,
                           int n_iters, float thresh, float l_bound,
                           float ub_w, float ub_h, float mean_on, int offset,
                           float off_x, float off_y, void* p_out,
-                          void* cost_out, void* stream) {
+                          void* cost_out, void* counts, int counts_fresh,
+                          void* stream) {
   const long long n_patches = (long long)B * P;
   if (n_patches == 0) return 0;
   if (n_patches > 0x7fffffffLL || ps < 1 || C < 1)
@@ -371,6 +440,8 @@ extern "C" int fot_dis_gn(const void* I1, int bf16, int B, int Hp, int Wp,
   a.started = (const uint8_t*)started;
   a.p_out = (float*)p_out;
   a.cost_out = (float*)cost_out;
+  a.counts = (int*)counts;
+  a.counts_fresh = counts_fresh;
   a.n_patches = (int)n_patches;
   a.P = P;
   a.Hp = Hp;

@@ -42,7 +42,7 @@ SIGNATURES = {
     "fot_pool2x2_u8": [_P, _P, _I, _I, _I, _F, _I, _P],
     "fot_dis_gn": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                    _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _F, _F,
-                   _P, _P, _P],
+                   _P, _P, _P, _I, _P],
     "fot_varref_fused": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
                          _F, _F, _I, _P, _P, _P],
     "fot_varref_tiled": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,

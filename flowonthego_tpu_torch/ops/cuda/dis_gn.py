@@ -4,19 +4,30 @@ batch of frames.
 Replaces ``flowonthego_tpu/ops/pallas/dis_gn.py`` (``gn_scale_loop``,
 kernel ``_kernel``) with ``csrc/dis_gn.cu``.  The solve needs little of
 the card (op 4's largest call ~8.7 GFLOP and ~91 MB, ``bounds.gn_bound``);
-what it pays for is the SMs' dispatch rate, barriers and the L1 wavefronts
+what it pays for is the SMs' issue rate, barriers and the L1 wavefronts
 of its tap loads.  So the kernel runs one warp per patch (a CTA is one
 warp): lane l owns values l, l + 32, ... of the patch and keeps their
-template value, gradients and window offset in registers (the kernel is
-instantiated for ps 8 and 12 at C = 1 and 3; any other patch of up to
-1024 values takes a generic form with that state in shared memory); the
-window origin and the four bilinear weights are computed once per warp
-and iteration; the three sums of an iteration are per-lane partials and
-one shuffle butterfly each, after which every lane holds the same
-totals, so the 2x2 step, the outlier test and the early stop are uniform
-per warp with no shared memory and no block barrier in the loop.  The
-TPU kernel's envelopes, band pairs and radix shift selects worked around
-the lack of a gather on the TPU and are not carried over.
+template value, gradients and the four taps of their window in registers
+(the kernel is instantiated for ps 8 and 12 at C = 1 and 3; any other
+patch of up to 1024 values takes a generic form with that state in
+shared memory); the window origin and the four bilinear weights are
+computed once per warp and iteration (a trip), and the taps are loaded
+again only on a trip whose origin differs from the one they came from:
+op 4's sub-pixel steps keep the window on 90-92% of its trips, and a trip
+that loads four taps a value pays ~150 L1 wavefronts (the kernel's
+header has the arithmetic).  The three sums of a trip are per-lane
+partials and one shuffle butterfly each, after which every lane holds the
+same totals, so the 2x2 step, the outlier test and the early stop are
+uniform per warp with no shared memory and no block barrier in the loop.
+The blend and the sums are those of loading every trip, in the same
+order: the results are bit for bit the same.  The TPU kernel's
+envelopes, band pairs and radix shift selects worked around the lack of
+a gather on the TPU and are not carried over.
+
+Counting: given ``counts``, each patch adds its trips and its window loads
+to its own row; a traced launch counts into tracing's buffer
+(``utils/profiling.kernel_counts``, read as ``gn_trips`` and
+``gn_window_loads``), any other launch counts nothing.
 
 A batch of B frames is one launch over B*P patches (P a frame); patch k
 solves patch k % P of frame k / P against that frame's level image, as a
@@ -57,7 +68,9 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ..interp import blend_windows, gather_windows, sample_patches_bilinear
+from ...utils import profiling
+from ..interp import (blend_windows, clamp_starts, gather_windows,
+                      sample_patches_bilinear)
 
 # Kernel launches since the last reset (read and reset by chip_smoke.py);
 # launches_bf16 counts those of them that ran the bf16 operand kernel,
@@ -96,11 +109,14 @@ def gn_scale_loop_plain(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org,
     residual at the final position.  With ``bf16`` the image, templates
     and gradients are rounded to bf16 (the sums of the projection's
     constant terms are not).  Returns (p [B, n_h, n_w, 2], cost_px like
-    templates), and with ``count_iters`` a third value: the iterations
-    each patch ran [B, n_h, n_w] (0 if never started, k if it reset at
-    iteration k), the work a bound on these inputs counts.  ``offset``
-    (off_x, off_y): sample at ``(mid_org + p) + offset`` (module
-    docstring).
+    templates), and with ``count_iters`` two more values [B, n_h, n_w]:
+    the iterations each patch ran (0 if never started, k if it reset at
+    iteration k), the work a bound on these inputs counts, and its window
+    loads: the trips, the final cost pass among them, whose window origin
+    differs from the previous trip's (the first always does), the loads
+    of a kernel that keeps its taps while the window stays (module
+    docstring).  ``offset`` (off_x, off_y): sample at ``(mid_org + p) +
+    offset`` (module docstring).
     """
     ps = templates.shape[-3]
     N = templates[0, 0, 0].numel()
@@ -141,20 +157,41 @@ def gn_scale_loop_plain(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org,
         p = torch.where(active[..., None], p_new, p)
         return p, active & ~outlier
 
+    def origin(p):
+        """The window's origin at displacement p, one integer a patch."""
+        x, y = sample_at(p)
+        sy = clamp_starts(torch.floor(y).to(torch.int64) + (padding - ps // 2),
+                          I1_pad.shape[1], ps + 1)
+        sx = clamp_starts(torch.floor(x).to(torch.int64) + (padding - ps // 2),
+                          I1_pad.shape[2], ps + 1)
+        return sy * I1_pad.shape[2] + sx
+
     p, active = p_cur, started
     iters = torch.zeros(started.shape, dtype=torch.int64,
                         device=started.device)
+    loads = torch.zeros_like(iters)
+    held = torch.full_like(iters, -1)   # the origin of a patch's held taps
+
+    def load(live):
+        nonlocal held
+        o = origin(p)
+        loads.add_(live & (o != held))
+        held = torch.where(live, o, held)
+
     for _ in range(n_iters):
         if count_iters:
             iters += active
+            load(active)
         p, active = gn_step(p, active)
+    if count_iters:
+        load(started)
 
     raw = sample_patches_bilinear(I1_pad, *sample_at(p), ps, padding)
     if mean_on:
         raw = raw - raw.mean(dim=_PATCH, keepdim=True)
     diff = raw - templates
     cost_px = torch.where(started[..., None, None, None], diff * diff, 0.0)
-    return (p, cost_px, iters) if count_iters else (p, cost_px)
+    return (p, cost_px, iters, loads) if count_iters else (p, cost_px)
 
 
 def _check(name, x, shape, dtype=torch.float32):
@@ -168,19 +205,35 @@ def _check(name, x, shape, dtype=torch.float32):
 def gn_scale_loop(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org, p_cur,
                   p_org, started, *, n_iters: int, padding: int,
                   thresh: float, l_bound: float, ub_w: float, ub_h: float,
-                  mean_on: float, bf16: bool = False, offset=None):
+                  mean_on: float, bf16: bool = False, offset=None,
+                  counts=None):
     """The scale solve of :func:`gn_scale_loop_plain` — launches the
     kernel (the bf16 one with ``bf16``, the strip entry with ``offset``)
     once for the whole batch for CUDA tensors, runs the plain version for
-    CPU tensors."""
+    CPU tensors.
+
+    ``counts`` (int32 [B, n_h, n_w, 2]): each patch adds its trips, the
+    final cost pass among them, and its window loads to its own row (on
+    the CPU: the plain version's ``count_iters`` counts, the same rule).
+    Without it a traced launch adds them to tracing's buffer
+    (``profiling.kernel_counts``) and any other launch counts nothing."""
     global launches, launches_bf16, launches_offset
     kw = dict(n_iters=n_iters, padding=padding, thresh=thresh,
               l_bound=l_bound, ub_w=ub_w, ub_h=ub_h, mean_on=mean_on,
               bf16=bf16, offset=offset)
-    if not I1_pad.is_cuda:
-        return gn_scale_loop_plain(I1_pad, templates, tgrad_x, tgrad_y, H,
-                                   mid_org, p_cur, p_org, started, **kw)
     B, n_h, n_w, ps, _, C = templates.shape
+    if counts is not None:
+        _check("counts", counts, (B, n_h, n_w, 2), torch.int32)
+    if not I1_pad.is_cuda:
+        if counts is None:
+            return gn_scale_loop_plain(I1_pad, templates, tgrad_x, tgrad_y,
+                                       H, mid_org, p_cur, p_org, started,
+                                       **kw)
+        p, cost, iters, loads = gn_scale_loop_plain(
+            I1_pad, templates, tgrad_x, tgrad_y, H, mid_org, p_cur, p_org,
+            started, **kw, count_iters=True)
+        counts += torch.stack([iters + started, loads], -1).to(torch.int32)
+        return p, cost
     Hp, Wp = I1_pad.shape[1], I1_pad.shape[2]
     P, N = n_h * n_w, ps * ps * C
     _check("I1_pad", I1_pad, (B, Hp, Wp, C))
@@ -214,6 +267,12 @@ def gn_scale_loop(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org, p_cur,
     args = [x.contiguous() for x in (I1_pad, templates, tgrad_x, tgrad_y, H,
                                      mid_org, p_cur, p_org)]
     st = started.to(torch.uint8).contiguous()
+    fresh = False
+    if counts is None:
+        counts, fresh = profiling.kernel_counts(dev, B * P)
+    elif not counts.is_contiguous() or counts.device != dev:
+        raise ValueError("gn_scale_loop: counts must be contiguous on "
+                         f"{dev}")
     p_out = torch.empty((B, n_h, n_w, 2), dtype=torch.float32, device=dev)
     cost = torch.empty((B, n_h, n_w, ps, ps, C), dtype=torch.float32,
                        device=dev)
@@ -227,7 +286,9 @@ def gn_scale_loop(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org, p_cur,
             P, ps, padding, n_iters, float(thresh), float(l_bound),
             float(ub_w), float(ub_h), float(mean_on), int(offset is not None),
             *(0.0, 0.0) if offset is None else map(float, offset),
-            p_out.data_ptr(), cost.data_ptr(), _build.stream_handle(I1c))
+            p_out.data_ptr(), cost.data_ptr(),
+            None if counts is None else counts.data_ptr(), int(fresh),
+            _build.stream_handle(I1c))
     _build.check(err, "gn_scale_loop")
     launches += 1
     launches_bf16 += int(bf16)

@@ -55,7 +55,9 @@ event at each device-span boundary.  A call traced by
 ``utils/profiling`` replays a twin, any other call the plain graph; both
 run the same kernels on the same tensors.  What the recording counted
 (``profiling.count``: the patches each direction solves) is added to a
-traced call on each replay, since a replay runs no Python.
+traced call on each replay, since a replay runs no Python; a twin's
+kernels count on the card into buffers made for it outside the pool
+(``profiling.kernel_counts``), the plain graph's count nothing.
 
 Captured paths run on the current CUDA stream and a path's tensors are
 shared by its calls, so calls of one path must come from one stream.
@@ -171,12 +173,14 @@ class _Traced:
     def __init__(self, fn: Callable, device: torch.device, pool=None,
                  twins: int = 2):
         # what the capture counts (profiling.count), added on each replay
-        with profiling.tally() as self.counters:
+        # and the kernel counters a twin's capture will take
+        with profiling.tally() as self.counters, \
+                profiling.kernel_sizes() as sizes:
             self.plain = _Recording(fn, device, pool)
         self.twins = []
         with profiling.tally():             # the same work: counted once
             for _ in range(twins):
-                marks = profiling.Marks()
+                marks = profiling.Marks(counts=sizes)
                 self.twins.append((_Recording(
                     lambda marks=marks: marks.capture(fn), device,
                     pool=self.plain.pool()), marks))

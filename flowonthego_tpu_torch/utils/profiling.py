@@ -42,7 +42,10 @@ made and nothing waits.  A traced call keeps:
   the named counters of :func:`count`: ``patches_fw`` and
   ``patches_bw``, the patches each direction solved.  A recording keeps
   what its capture counted and adds it to the traced call on each replay
-  (no Python runs then).
+  (no Python runs then);
+* kernel counters, counted on the card: ``gn_trips`` and
+  ``gn_window_loads``, the patch solve's (K2's) trips and the trips of
+  them that loaded the window's taps anew (:func:`kernel_counts`).
 
 A device span is timed by CUDA events on the card (by the host clock on
 the CPU).  Leaves share their boundaries: a leaf starts at the event that
@@ -59,7 +62,15 @@ use, at a call after tracing stopped, or by :func:`report`; a twin
 replayed again before its times were done drops them (``dropped``).
 
 :func:`report` sums what was kept since :func:`enable` or since the
-profiler started; ``report(calls=n)`` over the last ``n`` entry calls.
+profiler started; ``report(calls=n)`` over the last ``n`` entry calls,
+but for the kernel counters, which are the session's.  A traced K2
+launch counts per patch into a device buffer that tracing owns (an eager
+launch's is kept by size and stored into while fresh, a twin's is made
+zeroed before its capture and added to): no launch, copy or wait is
+added to a traced call.  The buffers are folded into the session's sums
+on the card (their sums added, the buffers cleared: launches, no wait)
+when the session ends, at the first untraced call or :func:`disable`, and
+by :func:`report`, which then waits for the card to read the sums.
 :func:`spans` returns the kept spans.  Spans are no profiler ranges: a
 range around device work leaves its shadow on the device's timeline.
 Nothing here touches CUDA when the module is imported or when there is
@@ -83,6 +94,7 @@ RING_CALLS = 1024      # entry calls kept for report(calls=n) and the trace
 LEAVES = ("pyramid", "pad", "warm_start", "upsample", "extract", "coarse",
           "opti", "aggregate", "var_ref", "extract_bw", "coarse_bw",
           "opti_bw", "fb_merge", "aggregate_bw", "var_ref_bw")
+KERNEL_COUNTERS = ("gn_trips", "gn_window_loads")
 
 _NOOP = contextlib.nullcontext()
 clock_ns = time.time_ns
@@ -243,6 +255,9 @@ class _Recorder:
         self.enabled = False
         self.was_on = False
         self.next_id = 0
+        self.eager_counts = {}   # (device, rows) -> a traced eager launch's
+        self.fresh = set()       # ids of eager counters not written yet
+        self.unsummed = {}       # kernel counters written since a fold
         self.reset()
 
     def reset(self) -> None:
@@ -250,6 +265,50 @@ class _Recorder:
             self.ring = collections.deque(maxlen=RING_CALLS)
             self.totals = _Totals()
             self.pending = []        # Marks holding a call's unread events
+            for t in self.unsummed.values():
+                self.clear(t)        # counts of a session that ended unread
+            self.unsummed = {}
+            self.sums = None         # device -> the folded sums, int64 [2]
+
+    def added(self, tensors) -> None:
+        """Traced launches write to these kernel counters."""
+        with self.lock:
+            for t in tensors:
+                self.unsummed[id(t)] = t
+            if self.sums is None:
+                self.sums = {}
+
+    def clear(self, t: torch.Tensor) -> None:
+        if any(t is e for e in self.eager_counts.values()):
+            self.fresh.add(id(t))    # the next launch stores
+        else:
+            t.zero_()
+
+    def fold(self) -> None:
+        """Add what the kernel counters written since the last fold hold to
+        the session's sums, on their device, and clear them."""
+        with self.lock:
+            bufs, self.unsummed = list(self.unsummed.values()), {}
+            for t in bufs:
+                s = t.sum(0, dtype=torch.int64)
+                acc = self.sums.get(t.device)
+                self.sums[t.device] = s if acc is None else acc + s
+                self.clear(t)
+
+    def kernel_sums(self) -> Optional[dict]:
+        """The session's kernel counters, None where no traced launch
+        counted: fold, wait for the card, read."""
+        with self.lock:
+            if self.sums is None:
+                return None
+            self.fold()
+            out = dict.fromkeys(KERNEL_COUNTERS, 0)
+            for dev, acc in self.sums.items():
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                for k, v in zip(KERNEL_COUNTERS, acc.tolist()):
+                    out[k] += v
+            return out
 
     def finish(self, c: _Call) -> None:
         """A traced call has returned: keep it, if it launched."""
@@ -286,6 +345,7 @@ _rec = _Recorder()
 class _Local(threading.local):
     call = None          # the traced entry call running on this thread
     tally = None         # the counters a recording's capture fills
+    sizes = None         # the kernel counters a plain capture asks for
     marks = None         # an eager launch's Marks on the card
     capture = None       # the Marks a traced twin's capture fills
     timer = None         # a PhaseTimer fed by the leaves
@@ -308,6 +368,7 @@ def enable() -> None:
 def disable() -> None:
     _rec.enabled = False
     _rec.harvest()
+    _rec.fold()
 
 
 def is_on() -> bool:
@@ -329,20 +390,28 @@ def report(calls: Optional[int] = None) -> dict:
     dropped and still pending device readings, the named counters of
     :func:`count` (``counters``), host ms and device ms by
     span name (device ms over the ``device_calls`` whose spans were all
-    read).  Pending readings that are done are read first."""
+    read), and among the counters the session's kernel counters where a
+    traced launch counted (``gn_trips``, ``gn_window_loads``: read after
+    waiting for the card).  Pending readings that are done are read
+    first."""
     _rec.harvest()
     with _rec.lock:
+        kernel = _rec.kernel_sums()
         kept = list(_rec.ring)
         if calls is not None:
             kept = kept[-calls:] if calls > 0 else []
         pending = sum(1 for c in kept if c.unread)
         if calls is None:
-            return _rec.totals.as_dict(pending)
-        tot = _Totals()
-        for c in kept:
-            tot.add_host(c)
-            tot.add_device(c)
-        return tot.as_dict(pending)
+            out = _rec.totals.as_dict(pending)
+        else:
+            tot = _Totals()
+            for c in kept:
+                tot.add_host(c)
+                tot.add_device(c)
+            out = tot.as_dict(pending)
+    if kernel is not None:
+        out["counters"].update(kernel)
+    return out
 
 
 def spans() -> list:
@@ -362,6 +431,7 @@ def call():
         if _rec.was_on:          # tracing stopped: read what is done
             _rec.was_on = False
             _rec.harvest()
+            _rec.fold()
         return _NOOP
     return _traced_call()
 
@@ -488,6 +558,56 @@ def counted(counters) -> None:
         _local.call.counters.update(counters)
 
 
+def kernel_counts(device, rows: int):
+    """(the int32 [rows, 2] buffer a kernel launched now on ``device``
+    counts per item into (K2: a patch's trips and window loads), whether
+    the launch stores into it instead of adding), or (None, False) where
+    nothing is counted: tracing off, a plain capture, the CPU.  A traced
+    twin's capture takes the buffers made for it before it began
+    (:class:`Marks`), in the order of the plain capture's requests
+    (:func:`kernel_sizes`), counted when the twin replays in a traced
+    call: a buffer in the graphs' shared pool would be written by the
+    plain graph's replays.  A traced eager launch shares one buffer with
+    the launches of its size, stored into while fresh, so that no launch
+    zeroes it."""
+    loc = _local
+    if loc.capture is None and loc.sizes is None and loc.call is None:
+        return None, False
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None, False
+    if _capturing():
+        if loc.capture is not None:
+            return loc.capture.take_counts(rows), False
+        if loc.sizes is not None:
+            loc.sizes.append((device, rows))
+        return None, False
+    if loc.call is None:
+        return None, False
+    key = (device, rows)
+    with _rec.lock:
+        t = _rec.eager_counts.get(key)
+        if t is None:
+            t = _rec.eager_counts[key] = torch.empty(
+                (rows, 2), dtype=torch.int32, device=device)
+            _rec.fresh.add(id(t))
+        fresh = id(t) in _rec.fresh
+        _rec.fresh.discard(id(t))
+        _rec.added([t])
+    return t, fresh
+
+
+@contextlib.contextmanager
+def kernel_sizes():
+    """Collect, into the list it yields, the (device, rows) of each kernel
+    counter a capture inside the block would take if it were a twin's."""
+    outer, _local.sizes = _local.sizes, []
+    try:
+        yield _local.sizes
+    finally:
+        _local.sizes = outer
+
+
 # ------------------------------------------------------------- device spans
 
 def _capturing() -> bool:
@@ -503,7 +623,7 @@ class Marks:
     a row, (name, parent, scale, index of its start event, of its end
     event)."""
 
-    def __init__(self, external: bool = True):
+    def __init__(self, external: bool = True, counts=()):
         self.external = external
         self.events = []
         self.layout = []
@@ -511,6 +631,11 @@ class Marks:
         self.tail = None
         self.unread = None       # the call whose times the events hold
         self.anchor = 0          # its launch's start
+        # the kernel counters its capture hands out in turn, made (zeroed)
+        # outside the capture for each (device, rows) of ``counts``
+        self.counts = [torch.zeros((rows, 2), dtype=torch.int32,
+                                   device=dev) for dev, rows in counts]
+        self.taken = 0
 
     def capture(self, fn):
         """``fn()`` with this object collecting the boundaries (a twin's
@@ -545,10 +670,22 @@ class Marks:
             return
         self.layout.append((name, parent, scale, start, self.tail))
 
+    def take_counts(self, rows: int) -> Optional[torch.Tensor]:
+        """The next kernel counter of the capture, if it has ``rows``."""
+        if self.taken < len(self.counts) and \
+                self.counts[self.taken].shape[0] == rows:
+            self.taken += 1
+            return self.counts[self.taken - 1]
+        return None
+
     def replayed(self) -> None:
         """The events now hold the times of the traced call running."""
         c = _local.call
-        if c is None or not self.layout:
+        if c is None:
+            return
+        if self.counts:
+            _rec.added(self.counts)
+        if not self.layout:
             return
         self.unread, self.anchor = c, c.launch_ns
         c.unread += 1

@@ -121,29 +121,52 @@ def _gn_call(cfg, grid, state, I1p):
 
 # the four compiled (ps, C) with their per-value state in registers, and
 # sizes that take the generic form (18x18x3 = 972 of its 1024 values)
+@pytest.mark.parametrize("start", ["random", "converged"])
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("ps,channels", [(8, 1), (8, 3), (12, 1), (12, 3),
                                          (10, 1), (6, 3), (10, 3), (18, 3)])
-def test_gn_kernel_forms(cuda, ps, channels, bf16):
+def test_gn_kernel_forms(cuda, ps, channels, bf16, start):
     """Every form of K2 (one warp a patch) against the plain version on a
-    warm-started batch of two frames, float32 and bf16 operands; two runs
-    give the same bits; a frame of the batch equals its own launch bit for
-    bit (a patch's arithmetic does not depend on its place in the launch)."""
+    batch of two frames, float32 and bf16 operands, warm-started from a
+    random coarse flow of +-2 px (window origins move) or from the plain
+    solve's own result (converged: most trips keep their window's taps);
+    two runs give the same bits; a frame of the batch equals its own
+    launch bit for bit (a patch's arithmetic does not depend on its place
+    in the launch).  The kernel's counts: a patch's trips are the plain
+    version's iterations and its final pass, but on at most 1% of the
+    patches (an ulp can flip an outlier reset); its window loads are within
+    1% of the plain count in all and never above its trips; a second run
+    adds the same counts again."""
     cfg, grid, state, I1p = _level_state(cuda, 56, 128, True, channels, 2,
                                          patch_size=ps)
     args, kw = _gn_call(cfg, grid, state, I1p)
+    kw = dict(kw, bf16=bf16)
+    if start == "converged":
+        p0 = dis_gn.gn_scale_loop_plain(*args, **kw)[0]
+        args = args[:6] + (p0,) + args[7:]
     assert state.templates.shape[-3:] == (ps, ps, channels)
+    counts = torch.zeros(args[8].shape + (2,), dtype=torch.int32,
+                         device=cuda)
     n0 = dis_gn.launches
-    p, cost = dis_gn.gn_scale_loop(*args, **kw, bf16=bf16)
+    p, cost = dis_gn.gn_scale_loop(*args, **kw, counts=counts)
     assert dis_gn.launches == n0 + 1
-    rp, rcost = dis_gn.gn_scale_loop_plain(*args, **kw, bf16=bf16)
+    rp, rcost, iters, loads = dis_gn.gn_scale_loop_plain(*args, **kw,
+                                                         count_iters=True)
     torch.testing.assert_close(p, rp, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(cost, rcost, rtol=1e-3, atol=1e-3)
-    p2, cost2 = dis_gn.gn_scale_loop(*args, **kw, bf16=bf16)
+    trips, kloads = counts.long().unbind(-1)
+    assert (trips != iters + args[8]).float().mean() < 0.01
+    assert abs(int(kloads.sum()) - int(loads.sum())) <= 0.01 * int(
+        loads.sum())
+    assert (kloads <= trips).all() and (kloads[args[8]] >= 1).all()
+    if start == "converged":        # the mechanism engages
+        assert int(kloads.sum()) < 0.5 * int(trips.sum())
+    first = counts.clone()
+    p2, cost2 = dis_gn.gn_scale_loop(*args, **kw, counts=counts)
     assert torch.equal(p2, p) and torch.equal(cost2, cost)
+    assert torch.equal(counts, 2 * first)
     for b in range(2):
-        pb, cb = dis_gn.gn_scale_loop(*(x[b:b + 1] for x in args), **kw,
-                                      bf16=bf16)
+        pb, cb = dis_gn.gn_scale_loop(*(x[b:b + 1] for x in args), **kw)
         assert torch.equal(pb[0], p[b]) and torch.equal(cb[0], cost[b])
 
 
@@ -1360,7 +1383,10 @@ def test_captured_fb_stream_equals_eager(cuda):
     assert r["device_calls"] == 3 and r["dropped"] == 0
     n = sum(PatchGrid.create(cfg, 256 >> sl, 128 >> sl).n_patches
             for sl in range(cfg.finest_scale, cfg.coarsest_scale + 1))
-    assert r["counters"] == {"patches_fw": 3 * n, "patches_bw": 3 * n}
+    counters = r["counters"]
+    assert {k: counters[k] for k in ("patches_fw", "patches_bw")} == {
+        "patches_fw": 3 * n, "patches_bw": 3 * n}
+    assert 0 < counters["gn_window_loads"] <= counters["gn_trips"]
     ms = r["device_ms"]
     assert {"extract_bw", "opti_bw", "fb_merge", "aggregate_bw",
             "var_ref_bw"} <= set(ms)

@@ -287,11 +287,18 @@ def test_gn_plain_counts_iterations(rng):
               l_bound=grid.l_bound, ub_w=grid.u_bound_w, ub_h=grid.u_bound_h,
               mean_on=1.0)
     p, cost = gn_scale_loop_plain(*args, **kw)
-    p2, cost2, iters = gn_scale_loop_plain(*args, **kw, count_iters=True)
+    p2, cost2, iters, loads = gn_scale_loop_plain(*args, **kw,
+                                                  count_iters=True)
     assert torch.equal(p, p2) and torch.equal(cost, cost2)
-    assert iters.shape == st.converged.shape
+    assert iters.shape == loads.shape == st.converged.shape
     assert not iters[st.converged].any() and (iters[~st.converged] >= 1).all()
     assert int(iters.max()) == 12 and 0 < int(iters.sum()) < 12 * iters.numel()
+    # a started patch loads its window at its first trip, and at most at
+    # every trip and the final cost pass; a frozen one never
+    started = ~st.converged
+    assert not loads[st.converged].any()
+    assert (loads[started] >= 1).all()
+    assert (loads[started] <= iters[started] + 1).all()
     # one iteration fewer allowed: every patch that ran all 12 now runs 11
     iters11 = gn_scale_loop_plain(*args, **dict(kw, n_iters=11),
                                   count_iters=True)[2]
@@ -360,3 +367,55 @@ def test_resize_matmul_matches_jax(rng):
     ref = np.asarray(jresize.resize_matmul(jnp.asarray(flow), 112, 256))
     got = presize.resize_matmul(_t(flow), 112, 256).numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+def _gn_ramp_case(n_iters=12):
+    """A hand-built scale whose steps are exact: a flat target image, the
+    template 0.25 above it, gx = 1/64 and gy = 0 on 8x8x1 patches, H the
+    identity and no mean normalisation, so every trip moves p by exactly
+    +0.25 px in x and not in y.  Patch 0 starts at x = 10.1 and its window
+    origin moves at trips 5 and 9 and at the final pass (x = 13.1); patch
+    1 starts at x = 20.1, steps past the box's right edge (21) at its 4th
+    trip and resets to p_org (x = 18.1), where the final pass loads anew;
+    patch 2 is frozen."""
+    ps, pad = 8, 4
+    I1 = torch.zeros((1, 24, 40, 1))
+    tmpl = torch.full((1, 1, 3, ps, ps, 1), 0.25)
+    gx = torch.full_like(tmpl, 1 / 64)
+    gy = torch.zeros_like(tmpl)
+    H = torch.tensor([1.0, 0.0, 1.0]).expand(1, 1, 3, 3).contiguous()
+    mid = torch.tensor([[[[10.0, 9.0], [20.0, 9.0], [30.0, 9.0]]]])
+    p_cur = torch.full((1, 1, 3, 2), 0.1)
+    p_cur[..., 1] = 0.0
+    p_org = torch.tensor([[[[0.0, 0.0], [-1.9, 0.0], [0.0, 0.0]]]])
+    started = torch.tensor([[[True, True, False]]])
+    args = (I1, tmpl, gx, gy, H, mid, p_cur, p_org, started)
+    kw = dict(n_iters=n_iters, padding=pad, thresh=100.0, l_bound=-100.0,
+              ub_w=21.0, ub_h=100.0, mean_on=0.0)
+    return args, kw
+
+
+def test_gn_plain_counts_window_loads():
+    """``count_iters``'s window loads on steps whose every pixel crossing
+    is known: 4 for patch 0 (its first trip, x 11.1 and 12.1, the final
+    pass at 13.1), 2 for patch 1 (its first trip, the final pass at
+    p_org), 0 for the frozen patch; the CPU path of ``gn_scale_loop`` adds
+    the same counts, the final pass as a trip, to ``counts``."""
+    from flowonthego_tpu_torch.ops.cuda.dis_gn import (gn_scale_loop,
+                                                       gn_scale_loop_plain)
+    args, kw = _gn_ramp_case()
+    p, cost, iters, loads = gn_scale_loop_plain(*args, **kw,
+                                                count_iters=True)
+    torch.testing.assert_close(p[0, 0, :, 0], torch.tensor([3.1, -1.9, 0.1]))
+    assert (p[0, 0, :, 1] == 0).all()
+    assert iters.tolist() == [[[12, 4, 0]]]
+    assert loads.tolist() == [[[4, 2, 0]]]
+    counts = torch.ones((1, 1, 3, 2), dtype=torch.int32)
+    p2, cost2 = gn_scale_loop(*args, **kw, counts=counts)
+    assert torch.equal(p2, p) and torch.equal(cost2, cost)
+    assert counts.tolist() == [[[[14, 5], [6, 3], [1, 1]]]]
+    # one trip fewer: patch 0's final pass (x = 12.85) stays in the window
+    # of its last trip (x = 12.6) and loads nothing
+    loads11 = gn_scale_loop_plain(*args, **dict(kw, n_iters=11),
+                                  count_iters=True)[3]
+    assert loads11.tolist() == [[[3, 2, 0]]]

@@ -625,3 +625,111 @@ def test_fb_stream_is_the_chain_of_fb_pairs():
         init = frame_parallel.warm_start(fin, cfg, *init_hw)
         full = dis_flow_mod.upsample_flow_to_full(fin, cfg, H, W)[0]
         assert np.array_equal(got[i - 1], full.numpy())
+
+
+# ------------------------------------------------------- kernel counters
+
+def test_kernel_counters_are_read_once_and_zeroed():
+    """The kernel counters (``gn_trips``, ``gn_window_loads``): absent
+    until a traced launch writes to a buffer; ``report`` folds what the
+    buffers hold into the session's sums and zeroes them, so a second
+    report adds only what came since; the session's end folds too, and a
+    new session starts without the counters.  CPU tensors stand in for
+    the device buffers."""
+    a = torch.tensor([[13, 2], [13, 1], [0, 0]], dtype=torch.int32)
+    b = torch.tensor([[5, 5]], dtype=torch.int32)
+    with traced():
+        assert "gn_trips" not in profiling.report()["counters"]
+        profiling._rec.added([a, b])
+        r = profiling.report()
+        assert r["counters"] == {"gn_trips": 31, "gn_window_loads": 8}
+        assert not a.any() and not b.any()
+        a[0] = torch.tensor([13, 3], dtype=torch.int32)
+        profiling._rec.added([a])
+        assert profiling.report(calls=1)["counters"] == {
+            "gn_trips": 44, "gn_window_loads": 11}
+        a[0] = 7
+        profiling._rec.added([a])
+    assert not a.any()                       # folded at the session's end
+    assert profiling.report()["counters"] == {"gn_trips": 51,
+                                              "gn_window_loads": 18}
+    profiling.enable()                       # a new session
+    profiling.disable()
+    assert "gn_trips" not in profiling.report()["counters"]
+
+
+def test_twin_counters_made_zeroed_counted_when_traced():
+    """A twin's kernel counters are made zeroed before its capture, one for
+    each size the plain capture asked for, handed out in that order (none
+    where the size differs), and count where the twin replays in a traced
+    call; a plain replay, outside a traced call, counts nothing."""
+    cpu = torch.device("cpu")
+    marks = profiling.Marks(counts=[(cpu, 4), (cpu, 2)])
+    assert [tuple(t.shape) for t in marks.counts] == [(4, 2), (2, 2)]
+    assert not any(t.any() for t in marks.counts)
+    assert marks.take_counts(3) is None
+    a, b = marks.take_counts(4), marks.take_counts(2)
+    assert (a, b) == tuple(marks.counts) and marks.take_counts(2) is None
+    a += 1                                   # what a replay adds
+    b[0, 0] = 5
+    marks.replayed()                         # no traced call
+    assert "gn_trips" not in profiling.report()["counters"]
+    with traced():
+        with profiling.call():
+            profiling._local.call.modes["replay"] += 1
+            marks.replayed()
+        r = profiling.report()
+    assert r["counters"] == {"gn_trips": 9, "gn_window_loads": 4}
+
+
+def test_kernel_counts_only_for_traced_card_launches():
+    """No buffer off the card, and none with tracing off (nothing of CUDA
+    is touched then)."""
+    assert profiling.kernel_counts("cuda", 8) == (None, False)
+    with traced(), profiling.call():
+        assert profiling.kernel_counts("cpu", 8) == (None, False)
+        assert profiling.kernel_counts(torch.device("cpu"), 8) == (None,
+                                                                   False)
+    f0, f1 = _frames(2)
+    with traced():
+        port.compute_flow(f0, f1, CFG, device="cpu")
+    assert "gn_trips" not in profiling.report()["counters"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["eager", "captured"])
+def test_traced_stream_counts_gn_trips_on_the_card(path):
+    """On the card: a traced stream, eager or replaying its twins, reports
+    ``gn_trips`` and ``gn_window_loads`` (as many as the eager stream: the
+    same work), with fewer loads than trips; an untraced stream leaves
+    both absent and gives the traced flows' bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; run this on the card")
+    frames = [torch.as_tensor(f, device="cuda") for f in _frames(6)]
+
+    def run():
+        return [f.clone() for f in port.stream_flow(frames, CFG,
+                                                     fetch=False)]
+
+    with graphs.eager():
+        with traced():
+            eager = run()
+        want = profiling.report()["counters"]
+    assert 0 < want["gn_window_loads"] < want["gn_trips"]
+    with contextlib.ExitStack() as stack:
+        if path == "eager":
+            stack.enter_context(graphs.eager())
+        else:
+            run()                            # record the paths untraced
+        with traced():
+            got = run()
+        r = profiling.report()
+        if path == "captured":
+            assert r["modes"].get("replay", 0) > 0
+        assert {k: r["counters"][k] for k in want} == want
+        profiling.enable()                   # a new session, then off
+        profiling.disable()
+        plain = run()
+        assert "gn_trips" not in profiling.report()["counters"]
+    assert all(torch.equal(a, b) for a, b in zip(got, eager))
+    assert all(torch.equal(a, b) for a, b in zip(plain, eager))
