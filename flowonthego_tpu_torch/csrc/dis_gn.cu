@@ -71,11 +71,13 @@
 //     the same kernel body: run-time loops, the per-value state (T, gx,
 //     gy and the held taps) in shared memory (a [7][values] slab, index
 //     k*32 + lane, free of bank conflicts) instead of registers.
-//   * Counting (tracing's): with a counts pointer, lane 0 of each patch
-//     adds its trips (the final cost pass is one; none if not started) and
-//     its window loads to the patch's own row, or stores them where the
-//     rows are fresh (not yet written: no launch zeroes them); without
-//     one nothing more runs.
+//   * Counting (tracing's): with a counts pointer, lane 0 of patch p adds
+//     its trips (the final cost pass is one; none if not started) and its
+//     window loads to row p, so the buffer holds at least a row a patch
+//     (tracing's has more rows than any launch in the benchmark); without
+//     one nothing more runs.  Rows do not wrap: a modulo or a mask on p
+//     here slowed the bf16 ps 12, C = 3 form by 6.6% on an H100 and moved
+//     other forms' registers.
 //
 // Batch: B frames are one launch over B*P patches; patch k solves patch
 // k % P of frame k / P and reads that frame's padded level image.
@@ -132,8 +134,10 @@ struct GnArgs {
   const uint8_t* started;
   float* p_out;
   float* cost_out;
-  int* counts;  // [n_patches, 2] trips and window loads, or null
-  int counts_fresh;  // store into counts instead of adding
+  int* counts;  // [count_rows, 2] trips and window loads, or null
+  // unread here; without it in the arguments ptxas gives several forms
+  // more registers and K2 runs up to 1% slower (H100)
+  int count_rows;
   int n_patches, P, Hp, Wp, C, ps, padding, n_iters;
   float thresh, l_bound, ub_w, ub_h, mean_on;
   float off_x, off_y;  // the strip offset (dis_gn_strip_kernel only)
@@ -180,10 +184,6 @@ __device__ __forceinline__ void gn_body(const GnArgs& a) {
     if (lane == 0) {
       a.p_out[2 * p] = a.pcur[2 * p];
       a.p_out[2 * p + 1] = a.pcur[2 * p + 1];
-      if (a.counts != nullptr && a.counts_fresh) {
-        a.counts[2 * p] = 0;
-        a.counts[2 * p + 1] = 0;
-      }
     }
     for (int t = lane; t < N; t += 32) cost_out[t] = 0.0f;
     return;
@@ -352,12 +352,10 @@ __device__ __forceinline__ void gn_body(const GnArgs& a) {
   if (lane == 0) {
     a.p_out[2 * p] = px;
     a.p_out[2 * p + 1] = py;
-    if (a.counts != nullptr && a.counts_fresh) {  // tracing's counts
-      a.counts[2 * p] = trips;
-      a.counts[2 * p + 1] = loads;
-    } else if (a.counts != nullptr) {
-      atomicAdd(a.counts + 2 * p, trips);
-      atomicAdd(a.counts + 2 * p + 1, loads);
+    if (a.counts != nullptr) {
+      int* row = a.counts + 2 * p;
+      atomicAdd(row, trips);
+      atomicAdd(row + 1, loads);
     }
   }
 }
@@ -409,9 +407,8 @@ int dispatch(const GnArgs& a, bool offset, cudaStream_t stream) {
 // bf16 != 0: I1, tmpl, tgx, tgy are __nv_bfloat16 and sums ([B*P, 4]
 // float32) is required; else they are float32 and sums is ignored.
 // offset != 0: the strip kernel, sampling at (mid + p) + (off_x, off_y).
-// counts ([B*P, 2] int32, or null): each patch adds its trips (the final
-// cost pass is one) and its window loads to its own row; counts_fresh != 0:
-// stores them instead (every row is written).
+// counts ([count_rows, 2] int32, count_rows >= B*P, or null): patch p adds
+// its trips (the final cost pass is one) and its window loads to row p.
 extern "C" int fot_dis_gn(const void* I1, int bf16, int B, int Hp, int Wp,
                           int C, const void* tmpl, const void* tgx,
                           const void* tgy, const void* sums, const void* H,
@@ -420,13 +417,15 @@ extern "C" int fot_dis_gn(const void* I1, int bf16, int B, int Hp, int Wp,
                           int n_iters, float thresh, float l_bound,
                           float ub_w, float ub_h, float mean_on, int offset,
                           float off_x, float off_y, void* p_out,
-                          void* cost_out, void* counts, int counts_fresh,
+                          void* cost_out, void* counts, int count_rows,
                           void* stream) {
   const long long n_patches = (long long)B * P;
   if (n_patches == 0) return 0;
   if (n_patches > 0x7fffffffLL || ps < 1 || C < 1)
     return (int)cudaErrorInvalidConfiguration;
   if (bf16 && sums == nullptr) return (int)cudaErrorInvalidValue;
+  if (counts != nullptr && count_rows < n_patches)
+    return (int)cudaErrorInvalidValue;
   GnArgs a;
   a.I1 = I1;
   a.tmpl = tmpl;
@@ -441,7 +440,7 @@ extern "C" int fot_dis_gn(const void* I1, int bf16, int B, int Hp, int Wp,
   a.p_out = (float*)p_out;
   a.cost_out = (float*)cost_out;
   a.counts = (int*)counts;
-  a.counts_fresh = counts_fresh;
+  a.count_rows = count_rows;
   a.n_patches = (int)n_patches;
   a.P = P;
   a.Hp = Hp;

@@ -87,6 +87,10 @@ def dis_flow_padded(I0: torch.Tensor, I1: torch.Tensor, cfg: DISConfig,
                                   level_offset=level_offset)
 
 
+# the device spans' leaves (utils/profiling.span) of an entry call
+LEAVES = ("pyramid", "pad", "warm_start", "upsample", "extract", "coarse",
+          "opti", "aggregate", "var_ref", "extract_bw", "coarse_bw",
+          "opti_bw", "fb_merge", "aggregate_bw", "var_ref_bw")
 _SCALE_PHASES = ("extract", "coarse", "opti", "aggregate", "var_ref")
 # the leaves each phase of the reference's TIME line holds: both
 # directions' work, and the fb merges in the aggregation

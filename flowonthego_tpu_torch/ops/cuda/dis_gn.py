@@ -24,10 +24,11 @@ order: the results are bit for bit the same.  The TPU kernel's
 envelopes, band pairs and radix shift selects worked around the lack of
 a gather on the TPU and are not carried over.
 
-Counting: given ``counts``, each patch adds its trips and its window loads
-to its own row; a traced launch counts into tracing's buffer
-(``utils/profiling.kernel_counts``, read as ``gn_trips`` and
-``gn_window_loads``), any other launch counts nothing.
+Counting: given ``counts``, at least a row a patch, patch k of the launch
+adds its trips and its window loads to row k; a traced launch counts into
+tracing's buffer (``utils/profiling.kernel_counts``, read as ``gn_trips``
+and ``gn_window_loads``) where it has the rows, any other launch counts
+nothing.
 
 A batch of B frames is one launch over B*P patches (P a frame); patch k
 solves patch k % P of frame k / P against that frame's level image, as a
@@ -212,18 +213,26 @@ def gn_scale_loop(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org, p_cur,
     once for the whole batch for CUDA tensors, runs the plain version for
     CPU tensors.
 
-    ``counts`` (int32 [B, n_h, n_w, 2]): each patch adds its trips, the
-    final cost pass among them, and its window loads to its own row (on
-    the CPU: the plain version's ``count_iters`` counts, the same rule).
+    ``counts`` (contiguous int32 [..., 2], at least B * n_h * n_w rows):
+    patch k of the batch adds its trips, the final cost pass among them,
+    and its window loads to row k, its own row in a [B, n_h, n_w, 2]
+    buffer (on the CPU: the plain version's ``count_iters`` counts).
     Without it a traced launch adds them to tracing's buffer
-    (``profiling.kernel_counts``) and any other launch counts nothing."""
+    (``profiling.kernel_counts``) if the buffer has a row for each patch,
+    and any other launch counts nothing."""
     global launches, launches_bf16, launches_offset
     kw = dict(n_iters=n_iters, padding=padding, thresh=thresh,
               l_bound=l_bound, ub_w=ub_w, ub_h=ub_h, mean_on=mean_on,
               bf16=bf16, offset=offset)
     B, n_h, n_w, ps, _, C = templates.shape
-    if counts is not None:
-        _check("counts", counts, (B, n_h, n_w, 2), torch.int32)
+    dev = I1_pad.device
+    n = B * n_h * n_w
+    if counts is not None and not (
+            counts.dtype == torch.int32 and counts.shape[-1] == 2
+            and counts.numel() >= 2 * n and counts.is_contiguous()
+            and counts.device == dev):
+        raise ValueError("gn_scale_loop: counts must be contiguous int32 "
+                         f"[..., 2] on {dev}, at least a row a patch")
     if not I1_pad.is_cuda:
         if counts is None:
             return gn_scale_loop_plain(I1_pad, templates, tgrad_x, tgrad_y,
@@ -232,7 +241,8 @@ def gn_scale_loop(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org, p_cur,
         p, cost, iters, loads = gn_scale_loop_plain(
             I1_pad, templates, tgrad_x, tgrad_y, H, mid_org, p_cur, p_org,
             started, **kw, count_iters=True)
-        counts += torch.stack([iters + started, loads], -1).to(torch.int32)
+        counts.view(-1, 2)[:n] += torch.stack(
+            [iters + started, loads], -1).view(-1, 2).to(torch.int32)
         return p, cost
     Hp, Wp = I1_pad.shape[1], I1_pad.shape[2]
     P, N = n_h * n_w, ps * ps * C
@@ -249,7 +259,6 @@ def gn_scale_loop(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org, p_cur,
                          "kernel's 1024 (32 a lane)")
     if Hp < ps + 1 or Wp < ps + 1:
         raise ValueError("gn_scale_loop: level image smaller than a window")
-    dev = I1_pad.device
     for x in (templates, tgrad_x, tgrad_y, H, mid_org, p_cur, p_org, started):
         if x.device != dev:
             raise ValueError("gn_scale_loop: all tensors must be on "
@@ -267,12 +276,11 @@ def gn_scale_loop(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org, p_cur,
     args = [x.contiguous() for x in (I1_pad, templates, tgrad_x, tgrad_y, H,
                                      mid_org, p_cur, p_org)]
     st = started.to(torch.uint8).contiguous()
-    fresh = False
     if counts is None:
-        counts, fresh = profiling.kernel_counts(dev, B * P)
-    elif not counts.is_contiguous() or counts.device != dev:
-        raise ValueError("gn_scale_loop: counts must be contiguous on "
-                         f"{dev}")
+        counts = profiling.kernel_counts(dev, ("gn_trips",
+                                               "gn_window_loads"))
+        if counts is not None and counts.shape[0] < n:
+            counts = None                   # more patches than its rows
     p_out = torch.empty((B, n_h, n_w, 2), dtype=torch.float32, device=dev)
     cost = torch.empty((B, n_h, n_w, ps, ps, C), dtype=torch.float32,
                        device=dev)
@@ -287,7 +295,8 @@ def gn_scale_loop(I1_pad, templates, tgrad_x, tgrad_y, H, mid_org, p_cur,
             float(ub_w), float(ub_h), float(mean_on), int(offset is not None),
             *(0.0, 0.0) if offset is None else map(float, offset),
             p_out.data_ptr(), cost.data_ptr(),
-            None if counts is None else counts.data_ptr(), int(fresh),
+            None if counts is None else counts.data_ptr(),
+            0 if counts is None else counts.numel() // 2,
             _build.stream_handle(I1c))
     _build.check(err, "gn_scale_loop")
     launches += 1

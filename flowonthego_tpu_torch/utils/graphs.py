@@ -49,15 +49,12 @@ are theirs alone: a wrapper counts where it is called (eagerly, or once
 while a capture records it), and a replay, which calls no wrapper, counts
 nothing; what a replay ran on the device is read from a profile.
 
-Every recording has traced twins (``utils/profiling.py``): the same
-function recorded right after it, in the same memory pool, with a timing
-event at each device-span boundary.  A call traced by
-``utils/profiling`` replays a twin, any other call the plain graph; both
-run the same kernels on the same tensors.  What the recording counted
-(``profiling.count``: the patches each direction solves) is added to a
-traced call on each replay, since a replay runs no Python; a twin's
-kernels count on the card into buffers made for it outside the pool
-(``profiling.kernel_counts``), the plain graph's count nothing.
+Every recording has traced twins, recorded through its
+``profiling.Twins``: the same function recorded right after it, in the
+same memory pool, with a timing event at each device-span boundary.  A
+call traced by ``utils/profiling`` replays a twin, which adds what the
+recording counted and its device times to the call, any other call the
+plain graph; both run the same kernels on the same tensors.
 
 Captured paths run on the current CUDA stream and a path's tensors are
 shared by its calls, so calls of one path must come from one stream.
@@ -163,29 +160,18 @@ class _Recording:
 
 
 class _Traced:
-    """A recording of ``fn()`` and its traced twins (recorded after it in
-    its pool, a timing event at each device-span boundary): a traced call
-    replays a twin, any other call the plain graph.  ``twins`` twins take
-    the traced calls in turn, so that a twin's times are read (after the
-    next call's launch) before it replays again: 2 for a path whose calls
-    all replay it, 1 for each of a stream's two alternating recordings."""
+    """A recording of ``fn()`` and its traced twins (``profiling.Twins``):
+    a traced call replays a twin, any other call the plain graph.
+    ``twins`` twins take the traced calls in turn: 2 for a path whose
+    calls all replay it, 1 for each of a stream's two alternating
+    recordings."""
 
     def __init__(self, fn: Callable, device: torch.device, pool=None,
                  twins: int = 2):
-        # what the capture counts (profiling.count), added on each replay
-        # and the kernel counters a twin's capture will take
-        with profiling.tally() as self.counters, \
-                profiling.kernel_sizes() as sizes:
-            self.plain = _Recording(fn, device, pool)
-        self.twins = []
-        with profiling.tally():             # the same work: counted once
-            for _ in range(twins):
-                marks = profiling.Marks(counts=sizes)
-                self.twins.append((_Recording(
-                    lambda marks=marks: marks.capture(fn), device,
-                    pool=self.plain.pool()), marks))
-        self.turn = 0
-        profiling.recorded()
+        self.traced = profiling.Twins(device, twins)
+        self.plain = self.traced.record(
+            fn, lambda f, pool: _Recording(f, device, pool), pool)
+        self.twins = self.traced.twins
 
     def pool(self):
         return self.plain.pool()
@@ -198,13 +184,7 @@ class _Traced:
     def replay(self):
         if not profiling.active():
             return self.plain.replay()
-        profiling.counted(self.counters)
-        twin, marks = self.twins[self.turn]
-        self.turn = (self.turn + 1) % len(self.twins)
-        marks.before_replay()
-        out = twin.replay()
-        marks.replayed()
-        return out
+        return self.traced.replay()
 
 
 def _copy_out(out):

@@ -42,10 +42,10 @@ made and nothing waits.  A traced call keeps:
   the named counters of :func:`count`: ``patches_fw`` and
   ``patches_bw``, the patches each direction solved.  A recording keeps
   what its capture counted and adds it to the traced call on each replay
-  (no Python runs then);
-* kernel counters, counted on the card: ``gn_trips`` and
-  ``gn_window_loads``, the patch solve's (K2's) trips and the trips of
-  them that loaded the window's taps anew (:func:`kernel_counts`).
+  (no Python runs then: :class:`Twins`);
+* kernel counters, counted on the card under its wrapper's names
+  (:func:`kernel_counts`): K2's ``gn_trips`` and ``gn_window_loads``, its
+  trips and the trips of them that loaded the window's taps anew.
 
 A device span is timed by CUDA events on the card (by the host clock on
 the CPU).  Leaves share their boundaries: a leaf starts at the event that
@@ -53,8 +53,8 @@ ended the one before it, so device work between two leaves counts to the
 later one, and the leaves of a call add up to its first-to-last event
 time.  A parent runs from its first leaf's start to its last leaf's end.
 On a captured path (``utils/graphs.py``) no Python runs on a replay, so
-every recording has traced twins, captured right after it in the same
-memory pool with an event-record node at each boundary
+every recording has traced twins (:class:`Twins`), captured right after
+it in the same memory pool with an event-record node at each boundary
 (:class:`Marks`); a twin replays instead of the plain graph only in a
 traced call.  Event times are read without waiting, and only where the
 last event is done: after a traced call's launch, on the twin's next
@@ -64,11 +64,10 @@ replayed again before its times were done drops them (``dropped``).
 :func:`report` sums what was kept since :func:`enable` or since the
 profiler started; ``report(calls=n)`` over the last ``n`` entry calls,
 but for the kernel counters, which are the session's.  A traced K2
-launch counts per patch into a device buffer that tracing owns (an eager
-launch's is kept by size and stored into while fresh, a twin's is made
-zeroed before its capture and added to): no launch, copy or wait is
+launch adds into tracing's one buffer a device, made zeroed once
+outside any capture (:func:`kernel_counts`): no launch, copy or wait is
 added to a traced call.  The buffers are folded into the session's sums
-on the card (their sums added, the buffers cleared: launches, no wait)
+on the card (their sums added, the buffers zeroed: launches, no wait)
 when the session ends, at the first untraced call or :func:`disable`, and
 by :func:`report`, which then waits for the card to read the sums.
 :func:`spans` returns the kept spans.  Spans are no profiler ranges: a
@@ -91,10 +90,10 @@ from typing import NamedTuple, Optional
 import torch
 
 RING_CALLS = 1024      # entry calls kept for report(calls=n) and the trace
-LEAVES = ("pyramid", "pad", "warm_start", "upsample", "extract", "coarse",
-          "opti", "aggregate", "var_ref", "extract_bw", "coarse_bw",
-          "opti_bw", "fb_merge", "aggregate_bw", "var_ref_bw")
-KERNEL_COUNTERS = ("gn_trips", "gn_window_loads")
+# rows of a kernel counter buffer, a row an item of a launch: a 4K frame
+# at op 4 solves ~920,000 patches at scale 0 (Sintel's ~51,000); a launch
+# of more items than rows is not counted
+_COUNT_ROWS = 1 << 20
 
 _NOOP = contextlib.nullcontext()
 clock_ns = time.time_ns
@@ -255,9 +254,9 @@ class _Recorder:
         self.enabled = False
         self.was_on = False
         self.next_id = 0
-        self.eager_counts = {}   # (device, rows) -> a traced eager launch's
-        self.fresh = set()       # ids of eager counters not written yet
-        self.unsummed = {}       # kernel counters written since a fold
+        self.counts = {}         # device -> the kernel counters
+        self.names = ()          # what their columns count
+        self.written = False     # a traced launch counted since a fold
         self.reset()
 
     def reset(self) -> None:
@@ -265,48 +264,43 @@ class _Recorder:
             self.ring = collections.deque(maxlen=RING_CALLS)
             self.totals = _Totals()
             self.pending = []        # Marks holding a call's unread events
-            for t in self.unsummed.values():
-                self.clear(t)        # counts of a session that ended unread
-            self.unsummed = {}
-            self.sums = None         # device -> the folded sums, int64 [2]
+            self.fold()              # counts of a session that ended unread
+            self.sums = None         # device -> the folded sums, int64
 
-    def added(self, tensors) -> None:
-        """Traced launches write to these kernel counters."""
+    def buffer(self, device: torch.device) -> torch.Tensor:
+        """The kernel counters on ``device``, made zeroed if it has none."""
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
         with self.lock:
-            for t in tensors:
-                self.unsummed[id(t)] = t
-            if self.sums is None:
-                self.sums = {}
-
-    def clear(self, t: torch.Tensor) -> None:
-        if any(t is e for e in self.eager_counts.values()):
-            self.fresh.add(id(t))    # the next launch stores
-        else:
-            t.zero_()
+            if device not in self.counts:
+                self.counts[device] = torch.zeros(
+                    (_COUNT_ROWS, 2), dtype=torch.int32, device=device)
+            return self.counts[device]
 
     def fold(self) -> None:
-        """Add what the kernel counters written since the last fold hold to
-        the session's sums, on their device, and clear them."""
+        """Add what the kernel counters hold to the session's sums, on
+        their device, and zero them, if a traced launch wrote to them."""
         with self.lock:
-            bufs, self.unsummed = list(self.unsummed.values()), {}
-            for t in bufs:
-                s = t.sum(0, dtype=torch.int64)
-                acc = self.sums.get(t.device)
-                self.sums[t.device] = s if acc is None else acc + s
-                self.clear(t)
+            if not self.written:
+                return
+            self.written, self.sums = False, self.sums or {}
+            for dev, t in self.counts.items():
+                self.sums[dev] = (t.sum(0, dtype=torch.int64)
+                                  + self.sums.get(dev, 0))
+                t.zero_()
 
     def kernel_sums(self) -> Optional[dict]:
         """The session's kernel counters, None where no traced launch
         counted: fold, wait for the card, read."""
         with self.lock:
+            self.fold()
             if self.sums is None:
                 return None
-            self.fold()
-            out = dict.fromkeys(KERNEL_COUNTERS, 0)
-            for dev, acc in self.sums.items():
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                for k, v in zip(KERNEL_COUNTERS, acc.tolist()):
+            out = dict.fromkeys(self.names, 0)
+            for acc in self.sums.values():
+                if acc.is_cuda:
+                    torch.cuda.synchronize(acc.device)
+                for k, v in zip(self.names, acc.tolist()):
                     out[k] += v
             return out
 
@@ -345,7 +339,6 @@ _rec = _Recorder()
 class _Local(threading.local):
     call = None          # the traced entry call running on this thread
     tally = None         # the counters a recording's capture fills
-    sizes = None         # the kernel counters a plain capture asks for
     marks = None         # an eager launch's Marks on the card
     capture = None       # the Marks a traced twin's capture fills
     timer = None         # a PhaseTimer fed by the leaves
@@ -523,15 +516,9 @@ def pinned_blocks(n: int) -> None:
         _local.call.blocks += int(n)
 
 
-def recorded() -> None:
-    """Count a recording made in the traced call."""
-    if _local.call is not None:
-        _local.call.recordings += 1
-
-
 def count(name: str, n: int) -> None:
     """Add ``n`` to the counter ``name`` of what runs now: a recording
-    being captured (:func:`tally`), else the traced call on this
+    being captured (its :class:`Twins`), else the traced call on this
     thread."""
     loc = _local
     if loc.tally is not None:
@@ -541,71 +528,74 @@ def count(name: str, n: int) -> None:
 
 
 @contextlib.contextmanager
-def tally():
-    """Collect what :func:`count` counts inside the block, traced or not,
-    into the Counter it yields (a recording's own, added by
-    :func:`counted` on each replay) and nowhere else."""
-    outer, _local.tally = _local.tally, collections.Counter()
+def _tally(counters):
+    outer, _local.tally = _local.tally, counters
     try:
-        yield _local.tally
+        yield
     finally:
         _local.tally = outer
 
 
-def counted(counters) -> None:
-    """Add a recording's counters to the traced call replaying it."""
-    if _local.call is not None:
-        _local.call.counters.update(counters)
-
-
-def kernel_counts(device, rows: int):
-    """(the int32 [rows, 2] buffer a kernel launched now on ``device``
-    counts per item into (K2: a patch's trips and window loads), whether
-    the launch stores into it instead of adding), or (None, False) where
-    nothing is counted: tracing off, a plain capture, the CPU.  A traced
-    twin's capture takes the buffers made for it before it began
-    (:class:`Marks`), in the order of the plain capture's requests
-    (:func:`kernel_sizes`), counted when the twin replays in a traced
-    call: a buffer in the graphs' shared pool would be written by the
-    plain graph's replays.  A traced eager launch shares one buffer with
-    the launches of its size, stored into while fresh, so that no launch
-    zeroes it."""
+def kernel_counts(device, names: tuple) -> Optional[torch.Tensor]:
+    """The int32 [:data:`_COUNT_ROWS`, 2] buffer a kernel launched now on
+    ``device`` adds its two counts (the report's ``names``) into, item k
+    into row k, or None: tracing off, a plain capture, the CPU.
+    One a device, made zeroed by its first :class:`Twins` or traced
+    launch, outside any capture; a traced twin's replays add to it."""
     loc = _local
-    if loc.capture is None and loc.sizes is None and loc.call is None:
-        return None, False
+    if loc.call is None and loc.capture is None:
+        return None
     device = torch.device(device)
     if device.type != "cuda":
-        return None, False
-    if _capturing():
-        if loc.capture is not None:
-            return loc.capture.take_counts(rows), False
-        if loc.sizes is not None:
-            loc.sizes.append((device, rows))
-        return None, False
-    if loc.call is None:
-        return None, False
-    key = (device, rows)
-    with _rec.lock:
-        t = _rec.eager_counts.get(key)
-        if t is None:
-            t = _rec.eager_counts[key] = torch.empty(
-                (rows, 2), dtype=torch.int32, device=device)
-            _rec.fresh.add(id(t))
-        fresh = id(t) in _rec.fresh
-        _rec.fresh.discard(id(t))
-        _rec.added([t])
-    return t, fresh
+        return None
+    if not _capturing():
+        t = None if loc.call is None else _rec.buffer(device)
+        _rec.written |= t is not None
+    else:
+        t = None if loc.capture is None else _rec.counts.get(device)
+        if t is not None:
+            loc.capture.counted = True
+    if t is not None:
+        _rec.names = names
+    return t
 
 
-@contextlib.contextmanager
-def kernel_sizes():
-    """Collect, into the list it yields, the (device, rows) of each kernel
-    counter a capture inside the block would take if it were a twin's."""
-    outer, _local.sizes = _local.sizes, []
-    try:
-        yield _local.sizes
-    finally:
-        _local.sizes = outer
+class Twins:
+    """Tracing's side of one recording (``utils/graphs._Traced``): its
+    twins with their :class:`Marks`, which take the traced calls in turn
+    (a twin's times are read before it replays again), and what its
+    capture counted (:func:`count`), added to a traced call's replay."""
+
+    def __init__(self, device, n: int):
+        self.device, self.n, self.turn = torch.device(device), n, 0
+        self.counters = collections.Counter()
+        self.twins = []          # (recording, Marks)
+
+    def record(self, fn, record, pool=None):
+        """The plain recording ``record(fn, pool)``, returned, then the
+        twins after it in its pool (the device's kernel counters made
+        first); only the plain capture counts (:func:`count`)."""
+        if self.device.type == "cuda":
+            _rec.buffer(self.device)
+        with _tally(self.counters):
+            plain = record(fn, pool)
+        with _tally(collections.Counter()):
+            for marks in (Marks() for _ in range(self.n)):
+                self.twins.append((record(lambda m=marks: m.capture(fn),
+                                          plain.pool()), marks))
+        if _local.call is not None:
+            _local.call.recordings += 1
+        return plain
+
+    def replay(self):
+        """Replay the next twin in the traced call on this thread."""
+        _local.call.counters.update(self.counters)
+        twin, marks = self.twins[self.turn]
+        self.turn = (self.turn + 1) % self.n
+        marks.before_replay()
+        out = twin.replay()
+        marks.replayed()
+        return out
 
 
 # ------------------------------------------------------------- device spans
@@ -623,7 +613,7 @@ class Marks:
     a row, (name, parent, scale, index of its start event, of its end
     event)."""
 
-    def __init__(self, external: bool = True, counts=()):
+    def __init__(self, external: bool = True):
         self.external = external
         self.events = []
         self.layout = []
@@ -631,11 +621,7 @@ class Marks:
         self.tail = None
         self.unread = None       # the call whose times the events hold
         self.anchor = 0          # its launch's start
-        # the kernel counters its capture hands out in turn, made (zeroed)
-        # outside the capture for each (device, rows) of ``counts``
-        self.counts = [torch.zeros((rows, 2), dtype=torch.int32,
-                                   device=dev) for dev, rows in counts]
-        self.taken = 0
+        self.counted = False     # its capture took kernel counters
 
     def capture(self, fn):
         """``fn()`` with this object collecting the boundaries (a twin's
@@ -670,21 +656,12 @@ class Marks:
             return
         self.layout.append((name, parent, scale, start, self.tail))
 
-    def take_counts(self, rows: int) -> Optional[torch.Tensor]:
-        """The next kernel counter of the capture, if it has ``rows``."""
-        if self.taken < len(self.counts) and \
-                self.counts[self.taken].shape[0] == rows:
-            self.taken += 1
-            return self.counts[self.taken - 1]
-        return None
-
     def replayed(self) -> None:
         """The events now hold the times of the traced call running."""
         c = _local.call
         if c is None:
             return
-        if self.counts:
-            _rec.added(self.counts)
+        _rec.written |= self.counted
         if not self.layout:
             return
         self.unread, self.anchor = c, c.launch_ns
@@ -734,7 +711,7 @@ def _target():
 
 
 def span(name: str):
-    """A device span, a leaf (one of :data:`LEAVES`); with a PhaseTimer
+    """A device span, a leaf (``models/dis_flow.LEAVES``); with a PhaseTimer
     fed (:func:`phases`), the leaf is that timer's phase too."""
     loc = _local
     if loc.timer is None and loc.call is None and loc.capture is None:

@@ -10,6 +10,7 @@ Tolerances are those of the CPU tests against the JAX package
 """
 
 import dataclasses
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ from flowonthego_tpu_torch.ops import dis as dis_mod
 from flowonthego_tpu_torch.ops import densify as densify_mod
 from flowonthego_tpu_torch.ops import patches as patches_mod
 from flowonthego_tpu_torch.ops import pyramid as pyramid_mod
+from flowonthego_tpu_torch.models import dis_flow as dis_flow_mod
 from flowonthego_tpu_torch.models import stereo as stereo_mod
 from flowonthego_tpu_torch.ops.cuda import (densify, derivs, dis_gn, dis_ref,
                                             extract, fb_merge, level, pool,
@@ -120,12 +122,20 @@ def _gn_call(cfg, grid, state, I1p):
 
 
 # the four compiled (ps, C) with their per-value state in registers, and
-# sizes that take the generic form (18x18x3 = 972 of its 1024 values)
-@pytest.mark.parametrize("start", ["random", "converged"])
-@pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("ps,channels", [(8, 1), (8, 3), (12, 1), (12, 3),
-                                         (10, 1), (6, 3), (10, 3), (18, 3)])
-def test_gn_kernel_forms(cuda, ps, channels, bf16, start):
+# sizes that take the generic form (18x18x3 = 972 of its 1024 values);
+# one more case counts into a buffer of more rows than patches as well
+_GN_FORMS = [(ps, c, bf16, start, None)
+             for ps, c in [(8, 1), (8, 3), (12, 1), (12, 3), (10, 1), (6, 3),
+                           (10, 3), (18, 3)]
+             for bf16 in (False, True) for start in ("random", "converged")]
+_GN_FORMS.append((12, 3, False, "converged", 1000))
+
+
+@pytest.mark.parametrize(
+    "ps,channels,bf16,start,extra", _GN_FORMS,
+    ids=[f"{ps}-{c}-{b}-{s}" + (f"-extra{e}" if e else "")
+         for ps, c, b, s, e in _GN_FORMS])
+def test_gn_kernel_forms(cuda, ps, channels, bf16, start, extra):
     """Every form of K2 (one warp a patch) against the plain version on a
     batch of two frames, float32 and bf16 operands, warm-started from a
     random coarse flow of +-2 px (window origins move) or from the plain
@@ -136,7 +146,10 @@ def test_gn_kernel_forms(cuda, ps, channels, bf16, start):
     version's iterations and its final pass, but on at most 1% of the
     patches (an ulp can flip an outlier reset); its window loads are within
     1% of the plain count in all and never above its trips; a second run
-    adds the same counts again."""
+    adds the same counts again.  With ``extra``, a buffer of that many
+    rows more than patches (as tracing's) gets patch k's counts in row k
+    and nothing in the rows after; one of fewer rows than patches is
+    refused, and tracing's, if it had fewer, would count nothing."""
     cfg, grid, state, I1p = _level_state(cuda, 56, 128, True, channels, 2,
                                          patch_size=ps)
     args, kw = _gn_call(cfg, grid, state, I1p)
@@ -162,6 +175,19 @@ def test_gn_kernel_forms(cuda, ps, channels, bf16, start):
     if start == "converged":        # the mechanism engages
         assert int(kloads.sum()) < 0.5 * int(trips.sum())
     first = counts.clone()
+    if extra is not None:
+        n = first.numel() // 2
+        wide = torch.zeros((n + extra, 2), dtype=torch.int32, device=cuda)
+        dis_gn.gn_scale_loop(*args, **kw, counts=wide)
+        assert torch.equal(wide[:n], first.view(-1, 2))
+        assert not wide[n:].any()
+        with pytest.raises(ValueError, match="a row a patch"):
+            dis_gn.gn_scale_loop(*args, **kw, counts=wide[:n - 1])
+        short = torch.zeros((n - 1, 2), dtype=torch.int32, device=cuda)
+        with mock.patch.object(profiling, "kernel_counts",
+                               lambda *_: short):
+            dis_gn.gn_scale_loop(*args, **kw)
+        assert not short.any()
     p2, cost2 = dis_gn.gn_scale_loop(*args, **kw, counts=counts)
     assert torch.equal(p2, p) and torch.equal(cost2, cost)
     assert torch.equal(counts, 2 * first)
@@ -1250,7 +1276,7 @@ def test_g5_g6_raise_on_what_they_cannot_take(cuda):
 
 # --------------------------------------------------- traced twins (tracing)
 
-LEAVES = profiling.LEAVES
+LEAVES = dis_flow_mod.LEAVES
 
 
 def _tracing(on: bool):

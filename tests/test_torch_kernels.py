@@ -305,6 +305,38 @@ def test_gn_plain_counts_iterations(rng):
     assert torch.equal(iters11, iters.clamp(max=11))
 
 
+def test_gn_counts_take_a_row_a_patch(rng):
+    """``gn_scale_loop(counts=...)`` on the CPU: patch k of the batch adds
+    its plain counts to row k, so a buffer of more rows than patches (as
+    tracing's) holds the per-patch buffer's rows and nothing after them;
+    one of fewer rows than patches is refused (K2 does not wrap rows)."""
+    from flowonthego_tpu_torch.ops.cuda.dis_gn import gn_scale_loop
+    jc = JaxConfig(coarsest_scale=1, finest_scale=1, grad_descent_iter=12)
+    i0, i1 = _scene(rng, 48, 64, shift=(3, -2))
+    coarse = rng.standard_normal((24, 32, 2)).astype(np.float32) * 2.0
+    grid, jstate = _jax_state(jc, i0, coarse)
+    st = patch_state_from_numpy(
+        {k: np.asarray(v) for k, v in jstate._asdict().items()})
+    I1p = _t(jpyramid.pad_replicate(jnp.asarray(i1), jc.padding))[None]
+    args = [torch.cat([x, x.flip(2)]) for x in (
+        I1p, st.templates, st.tgrad_x, st.tgrad_y, st.H, st.mid_org,
+        st.p_cur, st.p_org, ~st.converged)]        # a batch of two frames
+    kw = dict(n_iters=12, padding=grid.padding, thresh=jc.outlier_thresh,
+              l_bound=grid.l_bound, ub_w=grid.u_bound_w, ub_h=grid.u_bound_h,
+              mean_on=1.0)
+    per_patch = torch.zeros(args[8].shape + (2,), dtype=torch.int32)
+    n = per_patch.numel() // 2
+    with pytest.raises(ValueError, match="a row a patch"):
+        gn_scale_loop(*args, **kw, counts=torch.zeros((n - 1, 2),
+                                                      dtype=torch.int32))
+    wide = torch.zeros((n + 100, 2), dtype=torch.int32)
+    p, cost = gn_scale_loop(*args, **kw, counts=per_patch)
+    p2, cost2 = gn_scale_loop(*args, **kw, counts=wide)
+    assert torch.equal(p, p2) and torch.equal(cost, cost2)
+    assert torch.equal(wide[:n], per_patch.view(-1, 2))
+    assert not wide[n:].any() and int(per_patch.sum()) > 0
+
+
 def test_init_from_coarser_matches_jax(rng):
     """The warm-start lookup, exact.  A 1/2^(cs+1) warm start of a 4K
     frame padded to 2176 rows has 8 rows where the 17-row coarsest grid

@@ -503,9 +503,9 @@ def test_scale_leaves_by_direction(entry, fb):
             inner = [s.name for s in dev if s.parent == f"scale {sl}"]
             assert inner == _scale_leaves(fb, sl == CFG.finest_scale)
         assert {s.name for s in dev if s.parent != "launch"
-                } <= set(profiling.LEAVES)
+                } <= set(dis_flow_mod.LEAVES)
     names = set(profiling.report()["device_ms"])
-    bw = {n for n in profiling.LEAVES if n.endswith("_bw")} | {"fb_merge"}
+    bw = {n for n in dis_flow_mod.LEAVES if n.endswith("_bw")} | {"fb_merge"}
     assert bool(names & bw) == fb
 
 
@@ -531,9 +531,9 @@ def test_fb_leaves_share_boundaries_and_add_up():
     ms = r["device_ms"]
     assert r["device_calls"] == 1
     assert {"opti_bw", "fb_merge", "aggregate_bw", "var_ref_bw"} <= set(ms)
-    leaves = sum(v for k, v in ms.items() if k in profiling.LEAVES)
+    leaves = sum(v for k, v in ms.items() if k in dis_flow_mod.LEAVES)
     assert leaves == marks.events[-1].t - marks.events[0].t
-    n_leaves = sum(1 for row in marks.layout if row[0] in profiling.LEAVES)
+    n_leaves = sum(1 for row in marks.layout if row[0] in dis_flow_mod.LEAVES)
     assert len(marks.events) == n_leaves + 1
 
 
@@ -629,67 +629,119 @@ def test_fb_stream_is_the_chain_of_fb_pairs():
 
 # ------------------------------------------------------- kernel counters
 
+GN = ("gn_trips", "gn_window_loads")
+CARD = torch.device("cuda", 0)
+
+
+@contextlib.contextmanager
+def card_buffers(n):
+    """Tracing's kernel counters of ``n`` cards, as CPU tensors of three
+    rows (none for ``n`` = 0); the process's own are put back after."""
+    bufs = [torch.zeros((3, 2), dtype=torch.int32) for _ in range(n)]
+    with mock.patch.dict(profiling._rec.counts, clear=True), \
+            mock.patch.object(profiling._rec, "names", ()):
+        profiling._rec.counts.update(
+            (torch.device("cuda", i), t) for i, t in enumerate(bufs))
+        yield bufs
+
+
+def _traced_launch(card):
+    """What a K2 launch on ``card`` asks for in a traced call of its own."""
+    with profiling.call():
+        profiling._local.call.modes["eager"] += 1
+        return profiling.kernel_counts(f"cuda:{card}", GN)
+
+
 def test_kernel_counters_are_read_once_and_zeroed():
-    """The kernel counters (``gn_trips``, ``gn_window_loads``): absent
-    until a traced launch writes to a buffer; ``report`` folds what the
-    buffers hold into the session's sums and zeroes them, so a second
+    """The kernel counters (``gn_trips``, ``gn_window_loads``), one buffer
+    a card: absent until a traced launch takes one; ``report`` folds what
+    the buffers hold into the session's sums and zeroes them, so a second
     report adds only what came since; the session's end folds too, and a
     new session starts without the counters.  CPU tensors stand in for
-    the device buffers."""
-    a = torch.tensor([[13, 2], [13, 1], [0, 0]], dtype=torch.int32)
-    b = torch.tensor([[5, 5]], dtype=torch.int32)
-    with traced():
+    the cards' buffers."""
+    with card_buffers(2) as (a, b):
+        with traced():
+            assert "gn_trips" not in profiling.report()["counters"]
+            assert _traced_launch(0) is a and _traced_launch(1) is b
+            a += torch.tensor([[13, 2], [13, 1], [0, 0]], dtype=torch.int32)
+            b[0] += 5
+            r = profiling.report()
+            assert r["counters"] == {"gn_trips": 31, "gn_window_loads": 8}
+            assert not a.any() and not b.any()
+            _traced_launch(0)[0] += torch.tensor([13, 3], dtype=torch.int32)
+            assert profiling.report(calls=1)["counters"] == {
+                "gn_trips": 44, "gn_window_loads": 11}
+            _traced_launch(0)[0] += 7
+        assert not a.any()                   # folded at the session's end
+        assert profiling.report()["counters"] == {"gn_trips": 51,
+                                                  "gn_window_loads": 18}
+        profiling.enable()                   # a new session
+        profiling.disable()
         assert "gn_trips" not in profiling.report()["counters"]
-        profiling._rec.added([a, b])
-        r = profiling.report()
-        assert r["counters"] == {"gn_trips": 31, "gn_window_loads": 8}
-        assert not a.any() and not b.any()
-        a[0] = torch.tensor([13, 3], dtype=torch.int32)
-        profiling._rec.added([a])
-        assert profiling.report(calls=1)["counters"] == {
-            "gn_trips": 44, "gn_window_loads": 11}
-        a[0] = 7
-        profiling._rec.added([a])
-    assert not a.any()                       # folded at the session's end
-    assert profiling.report()["counters"] == {"gn_trips": 51,
-                                              "gn_window_loads": 18}
-    profiling.enable()                       # a new session
-    profiling.disable()
-    assert "gn_trips" not in profiling.report()["counters"]
+
+
+class CapturedOnCard(Captured):
+    """A stand-in recording on a card: ``profiling`` sees a capture while
+    it runs the function."""
+
+    capturing = False
+
+    def __init__(self, fn, device, pool=None):
+        CapturedOnCard.capturing = True
+        try:
+            super().__init__(fn, device, pool)
+        finally:
+            CapturedOnCard.capturing = False
 
 
 def test_twin_counters_made_zeroed_counted_when_traced():
-    """A twin's kernel counters are made zeroed before its capture, one for
-    each size the plain capture asked for, handed out in that order (none
-    where the size differs), and count where the twin replays in a traced
-    call; a plain replay, outside a traced call, counts nothing."""
-    cpu = torch.device("cpu")
-    marks = profiling.Marks(counts=[(cpu, 4), (cpu, 2)])
-    assert [tuple(t.shape) for t in marks.counts] == [(4, 2), (2, 2)]
-    assert not any(t.any() for t in marks.counts)
-    assert marks.take_counts(3) is None
-    a, b = marks.take_counts(4), marks.take_counts(2)
-    assert (a, b) == tuple(marks.counts) and marks.take_counts(2) is None
-    a += 1                                   # what a replay adds
-    b[0, 0] = 5
-    marks.replayed()                         # no traced call
-    assert "gn_trips" not in profiling.report()["counters"]
-    with traced():
-        with profiling.call():
-            profiling._local.call.modes["replay"] += 1
-            marks.replayed()
-        r = profiling.report()
-    assert r["counters"] == {"gn_trips": 9, "gn_window_loads": 4}
+    """A recording on a card has the card's kernel counters made zeroed
+    before any capture, once a card; a twin's capture takes them and the
+    plain capture none; a twin's replay counts in a traced call, and a
+    plain replay, outside one, counts nothing."""
+    made, asked = [], []
+    zeros = torch.zeros
+
+    def on_cpu(shape, dtype, device):
+        made.append((profiling._capturing(), shape, device))
+        return zeros(shape, dtype=dtype)
+
+    def fn():
+        asked.append(profiling.kernel_counts(CARD, GN))
+        return torch.ones(1)
+
+    with card_buffers(0), \
+            mock.patch.object(torch, "zeros", on_cpu), \
+            mock.patch.object(graphs, "_Recording", CapturedOnCard), \
+            mock.patch.object(profiling, "_capturing",
+                              lambda: CapturedOnCard.capturing):
+        rec = graphs._Traced(fn, CARD)
+        graphs._Traced(fn, CARD, twins=1)
+        assert made == [(False, (profiling._COUNT_ROWS, 2), CARD)]
+        buf = profiling._rec.counts[CARD]
+        assert not buf.any()
+        assert [t is buf for t in asked] == [False, True, True, False, True]
+        buf[5] += torch.tensor([4, 1], dtype=torch.int32)   # a replay's
+        Rerun.replayed = []
+        rec.replay()                         # no traced call: the plain
+        assert Rerun.replayed == [rec.plain]
+        assert "gn_trips" not in profiling.report()["counters"]
+        with traced():
+            with profiling.call():
+                profiling._local.call.modes["replay"] += 1
+                rec.replay()
+            r = profiling.report()
+        assert Rerun.replayed == [rec.plain, rec.twins[0][0]]
+        assert r["counters"] == {"gn_trips": 4, "gn_window_loads": 1}
 
 
 def test_kernel_counts_only_for_traced_card_launches():
     """No buffer off the card, and none with tracing off (nothing of CUDA
     is touched then)."""
-    assert profiling.kernel_counts("cuda", 8) == (None, False)
+    assert profiling.kernel_counts("cuda", GN) is None
     with traced(), profiling.call():
-        assert profiling.kernel_counts("cpu", 8) == (None, False)
-        assert profiling.kernel_counts(torch.device("cpu"), 8) == (None,
-                                                                   False)
+        assert profiling.kernel_counts("cpu", GN) is None
+        assert profiling.kernel_counts(torch.device("cpu"), GN) is None
     f0, f1 = _frames(2)
     with traced():
         port.compute_flow(f0, f1, CFG, device="cpu")
